@@ -1,0 +1,129 @@
+"""Serving step: one-token decode against the dense KV cache, sampling,
+and a continuous-batching host loop driven by the KV page allocator (port
+of ``repro.engine.serve_step``; eager PyTorch, no jit)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.context import Ctx
+from repro_torch.models.model_zoo import Model
+from repro_torch.objectmodel.kvcache import KVCacheConfig, KVPageManager
+
+__all__ = ["make_serve_step", "sample_token", "ServingEngine"]
+
+
+def sample_token(logits: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 temperature: float = 0.0) -> torch.Tensor:
+    """logits: (B, 1, V) -> (B, 1) int32. Greedy is argmax over the padded
+    vocab (first index on ties, as jnp.argmax)."""
+    lg = logits[:, -1]
+    if temperature <= 0.0:
+        return lg.argmax(dim=-1, keepdim=True).to(torch.int32)
+    probs = torch.softmax(lg / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
+
+
+def make_serve_step(model: Model, ctx: Ctx, temperature: float = 0.0):
+    """serve_step(token, state, generator) -> (next_token, logits, state).
+
+    One new token per slot; the state's caches are updated in place."""
+
+    def serve_step(token, state, generator=None):
+        logits, state = model.decode_step(token, state, ctx)
+        return sample_token(logits, generator, temperature), logits, state
+
+    return serve_step
+
+
+@dataclasses.dataclass
+class _Seq:
+    sid: int
+    prompt: List[int]
+    out: List[int]
+    done: bool = False
+
+
+class ServingEngine:
+    """Host-side continuous batching on top of the KV page allocator.
+
+    Slots in the device batch are the buffer-pool frames; finished
+    sequences release their KV pages back to the free list and the slot is
+    refilled from the queue. The model decodes against its dense cache."""
+
+    def __init__(self, model: Model, batch_size: int, max_seq: int,
+                 ctx: Optional[Ctx] = None, eos_id: int = 0,
+                 page_size: int = 64):
+        self.model = model
+        self.B = batch_size
+        self.max_seq = max_seq
+        self.ctx = ctx or Ctx()
+        self.eos = eos_id
+        cfg = model.cfg
+        self.kv_cfg = KVCacheConfig(
+            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, max_seq_len=max_seq,
+            page_size=page_size,
+            num_pages=batch_size * (-(-max_seq // page_size)) * 2,
+            num_shards=1)
+        self.pages = KVPageManager(self.kv_cfg)
+        self.state = model.init_decode_state(batch_size, max_seq, model.dtype)
+        self.slots: List[Optional[_Seq]] = [None] * batch_size
+        self.queue: List[_Seq] = []
+        self.finished: List[_Seq] = []
+        self._sid = 0
+        self._step = make_serve_step(model, self.ctx)
+        self._tokens = np.zeros((batch_size, 1), np.int32)
+        self._prompts_pending: Dict[int, List[int]] = {}
+
+    def submit(self, prompt: List[int]) -> int:
+        self._sid += 1
+        self.queue.append(_Seq(self._sid, list(prompt), []))
+        return self._sid
+
+    def _admit(self) -> None:
+        for i in range(self.B):
+            if self.slots[i] is None and self.queue:
+                seq = self.queue.pop(0)
+                self.slots[i] = seq
+                self.pages.allocate(seq.sid, len(seq.prompt) + 8)
+                self._prompts_pending[i] = list(seq.prompt)
+                self.state.length[i] = 0  # reset this slot's cache length
+
+    def step(self, generator: Optional[torch.Generator] = None) -> int:
+        """One engine iteration; returns number of active slots."""
+        self._admit()
+        active = 0
+        for i, seq in enumerate(self.slots):
+            if seq is None:
+                continue
+            active += 1
+            pend = self._prompts_pending.get(i)
+            if pend:
+                self._tokens[i, 0] = pend.pop(0)  # prompt feeding
+        if active == 0:
+            return 0
+        token = torch.from_numpy(self._tokens).to(self.model.device)
+        nxt, _, self.state = self._step(token, self.state, generator)
+        nxt = nxt.cpu().numpy()
+        lengths = self.state.length.cpu().numpy()
+        for i, seq in enumerate(self.slots):
+            if seq is None:
+                continue
+            if self._prompts_pending.get(i):  # still consuming the prompt
+                continue
+            tok = int(nxt[i, 0])
+            seq.out.append(tok)
+            self._tokens[i, 0] = tok
+            if tok == self.eos or int(lengths[i]) >= self.max_seq - 1 \
+                    or len(seq.out) >= self.max_seq:
+                seq.done = True
+                self.pages.release(seq.sid)  # recycle KV pages
+                self.finished.append(seq)
+                self.slots[i] = None
+                self._prompts_pending.pop(i, None)
+        return active

@@ -1,0 +1,26 @@
+"""Plain PyTorch versions of the hand-written kernels (the allclose
+references, port of ``repro.kernels.ref``)."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["attention_ref"]
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q: (B,S,H,hd); k/v: (B,T,K,hd). Materialized-softmax attention in
+    f32. GQA is contiguous: q head h reads kv head h // (H // K).
+    The causal mask is top-left (q_idx >= k_idx), masked scores are -1e30."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (hd ** -0.5)
+    if causal:
+        mask = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(T, device=q.device)[None, :])
+        s = s.masked_fill_(~mask, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)

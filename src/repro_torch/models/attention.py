@@ -1,0 +1,151 @@
+"""GQA attention: prefill (full + chunked online-softmax paths, or the
+hand-written flash kernel) and decode against a dense KV cache (port of
+``repro.models.attention``; ``cross_attention_block`` waits for whisper).
+
+Layouts are the reference's: q (B,S,H,hd), k/v (B,T,K,hd); q head h
+reads kv head h // G (contiguous grouping).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import rope
+from repro_torch.models.params import ParamDef
+
+__all__ = ["attn_defs", "attn_project_qkv", "full_attention",
+           "chunked_attention", "decode_attention", "attention_block"]
+
+_NEG = -1e30
+CHUNKED_THRESHOLD = 8192  # use online-softmax KV chunking above this S
+
+
+def attn_defs(cfg: ArchConfig, stacked: Optional[int] = None) -> Dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    lead = (stacked,) if stacked else ()
+    la = ("layers",) if stacked else ()
+    out = {
+        "wq": ParamDef((*lead, d, H * hd), (*la, "embed", "q_dim")),
+        "wk": ParamDef((*lead, d, K * hd), (*la, "embed", "kv_heads")),
+        "wv": ParamDef((*lead, d, K * hd), (*la, "embed", "kv_heads")),
+        "wo": ParamDef((*lead, H * hd, d), (*la, "q_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ParamDef((*lead, H * hd), (*la, "q_dim"), init="zeros")
+        out["bk"] = ParamDef((*lead, K * hd), (*la, "kv_heads"), init="zeros")
+        out["bv"] = ParamDef((*lead, K * hd), (*la, "kv_heads"), init="zeros")
+    return out
+
+
+def attn_project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns q (B,S,H,hd), k/v (B,S,K,hd)."""
+    hd = cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, S = x.shape[:2]
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, K, hd),
+            v.reshape(B, S, K, hd))
+
+
+def _gqa_shape(cfg: ArchConfig, q: torch.Tensor) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    K = cfg.n_kv_heads
+    return q.reshape(B, S, K, H // K, hd)
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor, spec: str) -> torch.Tensor:
+    """The q.k product with f32 output (JAX's preferred_element_type=f32):
+    bf16 products are exact in f32, so upcasting first is the same sum."""
+    return torch.einsum(spec, qg.float(), k.float())
+
+
+def full_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, causal: bool,
+                   q_offset: int = 0) -> torch.Tensor:
+    """Materialized-scores attention. q:(B,S,H,hd), k/v:(B,T,K,hd)."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    scores = _scores(_gqa_shape(cfg, q), k, "bskgd,btkd->bkgst") * hd ** -0.5
+    if causal:
+        qi = torch.arange(S, device=q.device) + q_offset
+        ki = torch.arange(T, device=q.device)
+        scores.masked_fill_(qi[:, None] < ki[None, :], _NEG)
+    w = torch.softmax(scores, dim=-1)
+    del scores
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return out.reshape(B, S, H, hd)
+
+
+def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, causal: bool, chunk: int = 1024
+                      ) -> torch.Tensor:
+    """Online softmax over KV chunks (the flash algorithm, plain torch)."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    K = cfg.n_kv_heads
+    G = H // K
+    qg = _gqa_shape(cfg, q)
+    scale = hd ** -0.5
+    qi = torch.arange(S, device=q.device)
+    m = torch.full((B, K, G, S), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, S, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, T, chunk):
+        kb, vb = k[:, start:start + chunk], v[:, start:start + chunk]
+        s = _scores(qg, kb, "bskgd,btkd->bkgst") * scale
+        ki = start + torch.arange(kb.shape[1], device=q.device)
+        if causal:
+            s.masked_fill_(qi[:, None] < ki[None, :], _NEG)
+        # the reference pads T to a chunk multiple and masks the pad; the
+        # ragged last chunk here has no pad columns to mask
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p, vb.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def decode_attention(cfg: ArchConfig, q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: torch.Tensor
+                     ) -> torch.Tensor:
+    """One-token attention vs a dense cache.
+
+    q: (B,1,H,hd); k/v_cache: (B,Smax,K,hd); length: (B,) valid prefix."""
+    B, _, H, hd = q.shape
+    Smax = k_cache.shape[1]
+    qg = _gqa_shape(cfg, q)[:, 0]  # (B,K,G,hd)
+    s = _scores(qg, k_cache, "bkgd,btkd->bkgt") * hd ** -0.5
+    valid = torch.arange(Smax, device=q.device)[None, :] < length[:, None]
+    s.masked_fill_(~valid[:, None, None], _NEG)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", w.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, hd)
+
+
+def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                    positions: torch.Tensor, causal: bool = True,
+                    use_flash: bool = False) -> torch.Tensor:
+    """Self-attention over a full sequence (prefill)."""
+    q, k, v = attn_project_qkv(cfg, p, x)
+    if cfg.pos_embedding == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    B, S = x.shape[:2]
+    if use_flash:
+        out = kops.flash_attention(q, k, v, causal=causal)
+    elif S >= CHUNKED_THRESHOLD:
+        out = chunked_attention(cfg, q, k, v, causal)
+    else:
+        out = full_attention(cfg, q, k, v, causal)
+    return out.reshape(B, S, -1) @ p["wo"]

@@ -1,0 +1,107 @@
+"""Parameter definition trees (port of ``repro.models.params``).
+
+Every parameter is declared once as a :class:`ParamDef` carrying its shape
+and logical axes. From one definition tree we derive:
+
+* ``initialize(defs, generator, dtype, device)`` — real tensors,
+* ``count(defs)``  — exact parameter count,
+* ``tree_paths(defs)`` — flat ``{"a.b.c": ParamDef}`` view.
+
+The sharding specs wait for the parallelism slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+
+import torch
+
+__all__ = ["ParamDef", "initialize", "count", "tree_paths",
+           "flatten", "torch_dtype"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names, len == len(shape)
+    init: str = "normal"  # normal | zeros | ones | embed | small
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def _iter_defs(defs: Dict[str, Any], prefix: str = ""
+              ) -> Iterator[Tuple[str, ParamDef]]:
+    """Yields ``(dotted path, ParamDef)`` in sorted key order (JAX's pytree
+    order for dicts)."""
+    for key in sorted(defs):
+        sub = defs[key]
+        path = f"{prefix}{key}"
+        if isinstance(sub, ParamDef):
+            yield path, sub
+        else:
+            yield from _iter_defs(sub, path + ".")
+
+
+def tree_paths(defs) -> Dict[str, ParamDef]:
+    return dict(_iter_defs(defs))
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> ``{"a.b.c": leaf}`` (state_dict keys)."""
+    out: Dict[str, Any] = {}
+    for key, sub in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(sub, Mapping):
+            out.update(flatten(sub, path + "."))
+        else:
+            out[path] = sub
+    return out
+
+
+def count(defs) -> int:
+    return sum(math.prod(d.shape) for _, d in _iter_defs(defs))
+
+
+def _std(d: ParamDef) -> float:
+    if d.init == "embed":
+        return d.scale
+    if d.init == "small":
+        return 0.02 * d.scale
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else max(1, d.shape[-1])
+    return d.scale / math.sqrt(fan_in)
+
+
+def _init_leaf(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """One leaf, drawn on ``device`` directly in ``dtype`` (the full-width
+    model is tens of GB: no float32 staging copy, no host draws)."""
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    return out.normal_(0.0, _std(d), generator=generator)
+
+
+def initialize(defs, generator: torch.Generator, dtype: torch.dtype,
+               device) -> Dict[str, Any]:
+    """Nested dict of tensors mirroring ``defs``. The std rules are the
+    reference's; the numbers differ (torch.Generator, not jax.random)."""
+    return {k: (_init_leaf(v, generator, dtype, device)
+                if isinstance(v, ParamDef)
+                else initialize(v, generator, dtype, device))
+            for k, v in sorted(defs.items())}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """``"bfloat16"`` / ``torch.bfloat16`` -> ``torch.bfloat16``."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, str(dtype), None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"not a torch dtype: {dtype!r}")
+    return out
