@@ -8,24 +8,38 @@ final line:
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit; TF32 off for matmul and cuDNN;
-2. the hand-written flash-attention kernel, built from the checkout's
-   source, against its plain PyTorch version on the card (full-width
-   prefill shape, ragged causal, non-causal T != S, float32), with its
-   time, the plain version's, SDPA's (the library yardstick, never used
-   by the port) and the bound;
-3. prefill at full width: qwen2.5-32b, all 64 layers, bf16 random weights
-   drawn on the card from a seed, B=1, S=4096, through the kernel (one
-   launch per layer), checked against the plain attention path, and the
-   serving decode path checked against prefill on the same weights;
-4. serving at full width through ``serve_batch``: 8 requests, batch 4,
-   greedy, every request finished and every KV page released.
+2. the hand-written kernels, built from the checkout's sources (one nvcc
+   per source, all at once), each against its plain PyTorch version on
+   the card, with its time, the plain version's, one library call's (the
+   yardstick, never used by the port) and the bound: flash attention
+   (qwen2.5-32b and qwen2-moe prefill shapes, ragged causal, non-causal
+   T != S, float32; SDPA as yardstick) and moe_gather, bit for bit
+   (qwen2-moe prefill and decode dispatch shapes, ragged float32;
+   ``index_select`` as yardstick);
+3. dense prefill at full width: qwen2.5-32b, all 64 layers, bf16 random
+   weights drawn on the card from a seed, B=1, S=4096, through the flash
+   kernel (one launch per layer), checked against the plain attention
+   path, and the serving decode path checked against prefill;
+4. dense serving at full width through ``serve_batch``: 8 requests,
+   batch 4, greedy, every request finished and every KV page released;
+5. MoE prefill at full width and depth: qwen2-moe-a2.7b, all 24 layers,
+   60 experts top-4 + 4 shared, B=1, S=4096, through flash attention and
+   the moe_gather dispatch (one launch of each per layer), checked against
+   the plain attention path; decode checked against prefill with the
+   capacity lifted;
+6. MoE serving through ``serve_batch``: 8 requests, batch 4, one
+   moe_gather launch per layer and decode step.
 
-The last two lines are a JSON object with one entry per ported kernel and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-rest of the repository beside it, it exits non-zero and prints no result.
+Launch counts are set to 0 just before each phase's main-path run (3-6)
+and read just after it. The last two lines are a JSON object with one
+entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
+CUDA device, or without the rest of the repository beside it, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -36,14 +50,24 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 ARCH = "qwen25_32b"
+MOE_ARCH = "qwen2_moe"
 DEVICE = "cuda"
 SEED = 0
 PREFILL_SEQ = 4096
 KERNEL_CASES = [  # (name, B, S, T, H, K, hd, causal, dtype)
     ("prefill", 1, PREFILL_SEQ, PREFILL_SEQ, 40, 8, 128, True, "bfloat16"),
+    ("moe_prefill", 1, PREFILL_SEQ, PREFILL_SEQ, 16, 16, 128, True,
+     "bfloat16"),
     ("ragged", 1, 1000, 1000, 40, 8, 128, True, "bfloat16"),
     ("cross", 2, 512, 1536, 40, 8, 128, False, "bfloat16"),
     ("f32", 1, 1024, 1024, 8, 2, 128, True, "float32"),
+]
+# moe_gather at qwen2-moe's dispatch shapes: T tokens of width d into
+# S = 60 experts x capacity slots, T*top_k = n_kept of them filled.
+GATHER_CASES = [  # (name, T, d, S, n_kept, dtype)
+    ("prefill", PREFILL_SEQ, 2048, 60 * 344, 4 * PREFILL_SEQ, "bfloat16"),
+    ("decode", 4, 2048, 60 * 8, 16, "bfloat16"),
+    ("ragged_f32", 100, 48, 333, 250, "float32"),
 ]
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: no tensor cores
@@ -99,6 +123,14 @@ def attention_bound_ms(B, S, T, H, K, hd, causal, dtype, elem):
                                        else "bytes")
 
 
+def gather_bound_ms(n_rows_read, d, S, elem):
+    """(ms, "bytes"): the least time to read each needed row of x, the ids
+    (int32) and keep flags (bool) once and write the (S, d) buffer once.
+    A copy does no arithmetic, so bytes bound it."""
+    nbytes = n_rows_read * d * elem + S * (4 + 1) + S * d * elem
+    return 1e3 * nbytes / PEAK_BYTES, "bytes"
+
+
 def rel_err(torch, got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max())
@@ -149,8 +181,8 @@ def phase_environment(torch) -> str:
 
 
 def _nvcc_path() -> str:
-    from repro_torch.kernels import flash_attention as fa
-    return fa._nvcc()
+    from repro_torch.kernels import nvcc
+    return nvcc.nvcc_path()
 
 
 # ---------------------------------------------------------------- phase 2
@@ -159,17 +191,21 @@ def phase_kernel(torch) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import moe_dispatch as mg
+    from repro_torch.kernels import nvcc, ops
     from repro_torch.kernels.ref import attention_ref
 
     t0 = time.perf_counter()
+    libs = nvcc.compile_all([fa.SOURCE, mg.SOURCE])
     fa.build()
-    log(f"[kernel] built {os.path.relpath(fa.SOURCE, ROOT)} for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for path in sorted(fa.BUILD_DIR.glob("*.log")):
-        for line in path.read_text().splitlines():
+    mg.build()
+    log(f"[kernel] built {os.path.relpath(fa.SOURCE, ROOT)} and "
+        f"{os.path.relpath(mg.SOURCE, ROOT)} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                log(f"[kernel] ptxas: {line.strip()}")
+                log(f"[kernel] ptxas {lib.stem}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
     results = {}
@@ -216,41 +252,126 @@ def phase_kernel(torch) -> dict:
     return results
 
 
-# ---------------------------------------------------------------- phase 3
-def phase_prefill(torch) -> int:
+def phase_gather(torch) -> dict:
+    """moe_gather against its plain version, bit for bit, at the dispatch
+    shapes of qwen2-moe's prefill and decode and a ragged float32 one."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_gather_ref
+
+    rng = np.random.default_rng(SEED)
+    results = {}
+    for name, T, d, S, n_kept, dtype in GATHER_CASES:
+        x = torch.from_numpy(rng.standard_normal(
+            (T, d), dtype=np.float32)).to(DEVICE, getattr(torch, dtype))
+        slots = rng.choice(S, n_kept, replace=False)
+        ids_np = np.full(S, -1, np.int32)
+        ids_np[slots] = rng.permutation(np.resize(np.arange(T), n_kept))
+        ids = torch.from_numpy(ids_np).to(DEVICE)
+        keep = ids >= 0
+        out = ops.moe_gather(x, ids, keep)
+        torch.cuda.synchronize()
+        want = moe_gather_ref(x, ids, keep)
+        view = torch.int16 if x.element_size() == 2 else torch.int32
+        if not torch.equal(out.view(view), want.view(view)):
+            raise AssertionError(f"moe_gather case {name}: not bit-equal to "
+                                 f"the plain version")
+        err = float((out.float() - want.float()).abs().max())
+        ms = cuda_ms(torch, lambda: ops.moe_gather(x, ids, keep), 50)
+        plain_ms = cuda_ms(torch, lambda: moe_gather_ref(x, ids, keep), 50)
+        lib_ids = ids.clamp(min=0)
+        lib_ms = cuda_ms(torch, lambda: torch.index_select(x, 0, lib_ids), 50)
+        rows = len(np.unique(ids_np[slots]))
+        bound, bound_by = gather_bound_ms(rows, d, S, x.element_size())
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound,
+                             bound_by=bound_by)
+        log(f"[gather] {name}: T={T} d={d} S={S} kept {n_kept} ({rows} "
+            f"distinct rows) {dtype}: bit-equal, max|err| {err:.3g} "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+            f"(library_ms) {lib_ms:.4f} ms, bound {bound:.4f} ms by "
+            f"{bound_by} (roofline share {bound / ms:.1%})")
+        del x, ids, keep, out, want, lib_ids
+    torch.cuda.empty_cache()
+    log(f"[gather] kernels: {json.dumps(ops.launch_counts())}")
+    return results
+
+
+# ------------------------------------------------------------ phases 3, 5
+@contextlib.contextmanager
+def kept_slots(ops, record: list):
+    """Record the kept-slot count of every moe_gather dispatch, a device
+    scalar each (no host sync), summed after the run."""
+    real = ops.moe_gather
+
+    def recording(x, token_ids, keep):
+        record.append(keep.sum())
+        return real(x, token_ids, keep)
+
+    ops.moe_gather = recording
+    try:
+        yield
+    finally:
+        ops.moe_gather = real
+
+
+def phase_prefill(torch, arch: str, label: str) -> dict:
+    """Full-width, full-depth prefill through the flash kernel (and, for a
+    MoE model, the moe_gather dispatch), checked against the plain
+    attention path and the decode path. Returns the main-path run's
+    launch counts."""
     import numpy as np
 
     from repro_torch.kernels import ops
     from repro_torch.models import Ctx, build_model
 
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(ARCH)
+    model = build_model(arch)
     cfg = model.cfg
     t0 = time.perf_counter()
     model.init_params(torch.Generator(DEVICE).manual_seed(SEED))
     torch.cuda.synchronize()
-    log(f"[prefill] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}: {model.param_count():,} parameters in "
-        f"{model.dtype}, drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s; "
+    experts = (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+               f"{cfg.n_shared_experts} shared" if cfg.is_moe else "")
+    log(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}{experts}, vocab {cfg.vocab_size}: "
+        f"{model.param_count():,} parameters in {model.dtype}, drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"(no depth cut)")
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (1, PREFILL_SEQ))).to(DEVICE)
     batch = {"tokens": tokens}
 
+    kept = []
     ops.reset_launch_counts()
-    flash, _ = model.forward(batch, Ctx(use_flash=True), last_only=True)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()["flash_attention"]
-    log(f"[prefill] flash launches in one forward: {launches}")
-    if launches != cfg.n_layers:
-        raise AssertionError(f"expected {cfg.n_layers} flash launches, got "
-                             f"{launches}")
+    with kept_slots(ops, kept):
+        flash, aux = model.forward(batch, Ctx(use_flash=True),
+                                   last_only=True)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"flash_attention": cfg.n_layers,
+            "moe_gather": cfg.n_layers if cfg.is_moe else 0}
+    log(f"[{label}] launches in one forward: {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
     if flash.shape != (1, 1, cfg.padded_vocab) or \
-            not torch.isfinite(flash[..., :cfg.vocab_size]).all():
-        raise AssertionError(f"bad prefill logits {tuple(flash.shape)}")
+            not torch.isfinite(flash[..., :cfg.vocab_size]).all() or \
+            not torch.isfinite(aux):
+        raise AssertionError(f"bad prefill logits {tuple(flash.shape)} or "
+                             f"aux {float(aux)}")
+    if cfg.is_moe:
+        from repro_torch.models.moe import expert_capacity
+        per_layer = PREFILL_SEQ * cfg.top_k - torch.stack(kept).cpu()
+        slots = cfg.n_layers * PREFILL_SEQ * cfg.top_k
+        dropped = int(per_layer.sum())
+        log(f"[{label}] dispatch: capacity {expert_capacity(cfg, PREFILL_SEQ)}"
+            f" per expert; {dropped} of {slots} token-slots dropped over "
+            f"{cfg.n_layers} layers ({dropped / slots:.2%}); aux loss "
+            f"{float(aux):.4f} summed over layers; dropped by layer "
+            f"{per_layer.tolist()}")
 
     times = []
     for _ in range(3):
@@ -268,32 +389,41 @@ def phase_prefill(torch) -> int:
     err = rel_err(torch, flash[..., :cfg.vocab_size],
                   plain[..., :cfg.vocab_size])
     same_top = int(flash.argmax()) == int(plain.argmax())
-    log(f"[prefill] flash vs plain attention path, last-position logits: "
+    log(f"[{label}] flash vs plain attention path, last-position logits: "
         f"max|diff|/max|plain| = {err:.3g} (tol {LOGITS_TOL}); same argmax: "
         f"{same_top}")
     if not err <= LOGITS_TOL:
         raise AssertionError("flash prefill disagrees with the plain path")
-    log(f"[prefill] B=1 S={PREFILL_SEQ}: {prefill_s * 1e3:.1f} ms median of "
+    log(f"[{label}] B=1 S={PREFILL_SEQ}: {prefill_s * 1e3:.1f} ms median of "
         f"3 ({sorted(t * 1e3 for t in times)} ms), "
         f"{PREFILL_SEQ / prefill_s:.0f} tokens/s; plain attention path "
         f"{plain_s * 1e3:.1f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # serving path vs prefill on the same weights: teacher-forced decode
+    # serving path vs prefill on the same weights: teacher-forced decode.
+    # A MoE model drops slots by batch composition, so both sides run with
+    # the capacity lifted to n_experts (no drops), on the same tensors.
+    check = model
+    if cfg.is_moe:
+        check = build_model(dataclasses.replace(
+            cfg, capacity_factor=float(cfg.n_experts)))
+        check.load_state_dict(model.state_dict(), assign=True)
     n = 8
-    ref, _ = model.forward({"tokens": tokens[:, :n]}, Ctx())
-    state = model.init_decode_state(1, 16)
+    ref, _ = check.forward({"tokens": tokens[:, :n]}, Ctx())
+    state = check.init_decode_state(1, 16)
     worst = 0.0
     for t in range(n):
-        step, state = model.decode_step(tokens[:, t:t + 1], state)
+        step, state = check.decode_step(tokens[:, t:t + 1], state)
         worst = max(worst, rel_err(torch, step[..., :cfg.vocab_size],
                                    ref[:, t:t + 1, :cfg.vocab_size]))
-    log(f"[prefill] decode vs prefill logits over {n} teacher-forced tokens: "
-        f"max|diff|/max|prefill| = {worst:.3g} (tol {LOGITS_TOL})")
+    lifted = " (capacity lifted)" if cfg.is_moe else ""
+    log(f"[{label}] decode vs prefill logits over {n} teacher-forced "
+        f"tokens{lifted}: max|diff|/max|prefill| = {worst:.3g} "
+        f"(tol {LOGITS_TOL})")
     if not worst <= LOGITS_TOL:
         raise AssertionError("decode path disagrees with prefill")
     device_breakdown(torch, lambda: model.forward(
-        batch, Ctx(use_flash=True), last_only=True), prefill_s, "prefill")
+        batch, Ctx(use_flash=True), last_only=True), prefill_s, label)
     token = tokens[:, :1].expand(4, 1).contiguous()
     state = model.init_decode_state(4, 48)
     steps = []
@@ -304,32 +434,44 @@ def phase_prefill(torch) -> int:
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
     device_breakdown(torch, lambda: model.decode_step(token, state),
-                     sorted(steps)[1], "decode step, batch 4")
-    del model, flash, plain, ref, state
+                     sorted(steps)[1], f"{label}: decode step, batch 4")
+    del model, check, flash, plain, ref, state
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-# ---------------------------------------------------------------- phase 4
-def phase_serving(torch) -> None:
+# ------------------------------------------------------------ phases 4, 6
+def phase_serving(torch, arch: str, label: str) -> dict:
+    """serve_batch at full width: 8 requests, batch 4, greedy. Returns
+    the run's launch counts."""
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_batch
 
+    cfg = get_arch(arch)
+    layers = cfg.n_layers if cfg.is_moe else 0
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve_batch(ARCH, n_requests=8, max_new=32, batch_size=4,
+    out = serve_batch(arch, n_requests=8, max_new=32, batch_size=4,
                       reduced=False, seed=SEED, device=DEVICE)
+    launches = ops.launch_counts()
     tps = out["tokens"] / out["seconds"]
-    log(f"[serve] {out['finished']}/8 requests finished, {out['tokens']} "
+    log(f"[{label}] {out['finished']}/8 requests finished, {out['tokens']} "
         f"tokens in {out['iters']} decode steps, {out['seconds']:.2f} s: "
         f"{tps:.1f} tokens/s, {out['seconds'] / out['iters'] * 1e3:.1f} "
         f"ms/step at batch 4; KV pages in use {out['pages_in_use']}; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash "
-        f"launches {ops.launch_counts()['flash_attention']} (decode reads "
-        f"the dense cache in plain torch)")
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {json.dumps(launches)} (decode reads the dense cache in "
+        f"plain torch; moe_gather {layers} per step)")
     if out["finished"] != 8 or out["pages_in_use"] != 0:
         raise AssertionError(f"serving did not complete: {out}")
+    want = {"flash_attention": 0, "moe_gather": layers * out["iters"]}
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -342,22 +484,36 @@ def main() -> int:
 
     smi = phase_environment(torch)
     kernel = phase_kernel(torch)
-    launches = phase_prefill(torch)
-    phase_serving(torch)
-    full = kernel["prefill"]
+    gather = phase_gather(torch)
+    runs = [phase_prefill(torch, ARCH, "prefill"),
+            phase_serving(torch, ARCH, "serve"),
+            phase_prefill(torch, MOE_ARCH, "moe prefill"),
+            phase_serving(torch, MOE_ARCH, "moe serve")]
+    launches = {name: sum(run[name] for run in runs) for name in runs[0]}
+    log(f"[main path] launches over phases 3-6: {json.dumps(launches)}")
+    flash, moe = kernel["prefill"], gather["prefill"]
     line = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
-        "launches": launches, "max_abs_err": full["max_abs_err"],
-        "ms": full["ms"], "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-        "library_ms": full["library_ms"]}]}
+        "launches": launches["flash_attention"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}, {
+        "name": "moe_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gather.cu",
+        "replaces": "src/repro/kernels/moe_dispatch.py:37",
+        "launches": launches["moe_gather"],
+        "max_abs_err": max(c["max_abs_err"] for c in gather.values()),
+        "ms": moe["ms"], "plain_ms": moe["plain_ms"],
+        "bound_ms": moe["bound_ms"], "bound_by": moe["bound_by"],
+        "library_ms": moe["library_ms"]}]}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

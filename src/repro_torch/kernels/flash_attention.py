@@ -20,76 +20,34 @@ registers, so device memory sees Q+K+V+O only. Later tiles of a causal
 launch start first, so the long rows do not trail. f32 inputs take a
 plain FMA kernel of the same algorithm (the f32 check path).
 
-The source is compiled with nvcc for sm_90a at first use into
-``build/repro_torch/`` (git-ignored) and bound through ctypes: a plain C
-entry point, no PyTorch headers.
+The source is compiled with nvcc for sm_90a at first use and bound
+through ctypes (``kernels/nvcc.py``): a plain C entry point, no PyTorch
+headers.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import nvcc
+
 __all__ = ["flash_attention_fwd", "check_shapes", "build", "LAUNCHES",
-           "SOURCE", "BUILD_DIR"]
+           "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-
-class _Launches:
-    """Launch counter: one per kernel launch, nothing else adds to it."""
-    count = 0
-
-
-LAUNCHES = _Launches()
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if CUDA_HOME:
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+LAUNCHES = nvcc.LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source content) and load it. The
-    ptxas report (registers, shared memory, spills) is kept beside the
-    library as ``.log``."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"flash_attention-{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   str(SOURCE)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-            lib_path.with_suffix(".log").write_text(proc.stderr)
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(lib_path))
+    """Compile the kernel (once per source content) and load it."""
+    lib = nvcc.load(SOURCE)
     fn = lib.repro_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 18
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,

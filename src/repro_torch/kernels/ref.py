@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref"]
+__all__ = ["attention_ref", "moe_gather_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -24,3 +24,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def moe_gather_ref(x: torch.Tensor, token_ids: torch.Tensor,
+                   keep: torch.Tensor) -> torch.Tensor:
+    """Gather token rows into the (S, d) dispatch buffer: row i is
+    ``x[token_ids[i]]`` where ``keep[i]``, else 0. Ids are clamped to
+    [0, T) as the reference's gather clamps them (unkept slots hold -1).
+
+    x: (T, d); token_ids: (S,) source row per slot; keep: (S,) bool."""
+    rows = x[token_ids.long().clamp(0, x.shape[0] - 1)]
+    return torch.where(keep[:, None], rows, 0)

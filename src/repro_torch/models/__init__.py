@@ -1,4 +1,4 @@
-"""The port's model stack (dense decoder-only family so far)."""
+"""The port's model stack (dense and MoE decoder-only families so far)."""
 from repro_torch.models.context import Ctx
 from repro_torch.models.model_zoo import Model, build_model, resolve_device
 from repro_torch.models.params import ParamDef, count, initialize

@@ -1,10 +1,12 @@
-"""Model assembly for the dense decoder-only family (port of
+"""Model assembly for the dense and MoE decoder-only families (port of
 ``repro.models.transformer``).
 
 The stack loops over layer-stacked parameters ``(L, ...)``, slicing one
-layer's views per step where the reference scans. Other families (moe,
-vlm, hybrid, ssm, audio) and the int8 KV cache raise NotImplementedError:
-they are queued in ROADMAP.md ("Modules to port").
+layer's views per step where the reference scans. A MoE config with
+``moe_period == 1`` puts ``blocks["moe"]`` in every layer where a dense
+one has ``blocks["mlp"]``. Other families (vlm, hybrid, ssm, audio) and
+the int8 KV cache raise NotImplementedError: they are queued in
+ROADMAP.md ("Modules to port").
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.models.context import Ctx
 from repro_torch.models.layers import (apply_norm, embed_defs, embed_lookup,
                                        ffn_apply, ffn_defs, logits, norm_def,
                                        rope)
+from repro_torch.models.moe import moe_apply, moe_defs
 
 __all__ = ["model_defs", "forward", "decode_step", "init_decode_state",
            "DecodeState"]
@@ -36,7 +39,9 @@ class DecodeState(NamedTuple):
 
 def _check_supported(cfg: ArchConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.family != "dense" or cfg.is_moe:
+    dense = cfg.family == "dense" and not cfg.is_moe
+    moe = cfg.family == "moe" and cfg.is_moe and cfg.moe_period == 1
+    if not (dense or moe):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
             f"'Modules to port': other model families)")
@@ -49,14 +54,27 @@ def _check_supported(cfg: ArchConfig) -> None:
 def model_defs(cfg: ArchConfig) -> Dict:
     _check_supported(cfg)
     n = cfg.n_layers
+    blocks = {"ln1": norm_def(cfg, n), "attn": attn_defs(cfg, n),
+              "ln2": norm_def(cfg, n)}
+    if cfg.is_moe:
+        blocks["moe"] = moe_defs(cfg, n)
+    else:
+        blocks["mlp"] = ffn_defs(cfg, n)
     return {"embed": embed_defs(cfg), "final_norm": norm_def(cfg),
-            "blocks": {"ln1": norm_def(cfg, n), "attn": attn_defs(cfg, n),
-                       "ln2": norm_def(cfg, n), "mlp": ffn_defs(cfg, n)}}
+            "blocks": blocks}
 
 
 def _take(tree: Dict[str, Any], idx: int) -> Dict[str, Any]:
     return {k: (_take(v, idx) if isinstance(v, dict) else v[idx])
             for k, v in tree.items()}
+
+
+def _mixer(cfg: ArchConfig, layer_p: Dict, z: torch.Tensor, ctx: Ctx
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward part: (output, aux loss or None)."""
+    if "moe" in layer_p:
+        return moe_apply(cfg, layer_p["moe"], z, ctx)
+    return ffn_apply(cfg, layer_p["mlp"], z), None
 
 
 # ================================================================== forward
@@ -71,15 +89,17 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
     x = ctx.constrain(embed_lookup(params["embed"], tokens),
                       "batch", None, None)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _uniform_stack(cfg, params["blocks"], x, positions, ctx)
+    x, aux = _uniform_stack(cfg, params["blocks"], x, positions, ctx)
     if last_only:
         x = x[:, -1:]
     x = apply_norm(cfg, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits(cfg, params["embed"], x), aux
 
 
 def _uniform_stack(cfg, blocks, x, positions, ctx):
+    """Returns (x, aux): aux is the MoE layers' load-balance loss summed
+    over layers (zero for a dense stack)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         layer_p = _take(blocks, i)
         h = ctx.constrain(x, "batch", None, None)
@@ -87,9 +107,12 @@ def _uniform_stack(cfg, blocks, x, positions, ctx):
                             apply_norm(cfg, layer_p["ln1"], h), positions,
                             causal=True, use_flash=ctx.use_flash)
         h = h + a
-        z = apply_norm(cfg, layer_p["ln2"], h)
-        x = h + ffn_apply(cfg, layer_p["mlp"], z)
-    return x
+        m, layer_aux = _mixer(cfg, layer_p, apply_norm(cfg, layer_p["ln2"], h),
+                              ctx)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+        x = h + m
+    return x, aux
 
 
 # =============================================================== decode step
@@ -151,7 +174,8 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
         z = apply_norm(cfg, layer_p["ln1"], x)
         h = x + _attn_decode(cfg, layer_p["attn"], z, state.k_cache[i],
                              state.v_cache[i], state.length)
-        x = h + ffn_apply(cfg, layer_p["mlp"], apply_norm(cfg, layer_p["ln2"], h))
+        m, _ = _mixer(cfg, layer_p, apply_norm(cfg, layer_p["ln2"], h), ctx)
+        x = h + m
     state = state._replace(length=state.length + 1)
     x = apply_norm(cfg, params["final_norm"], x)
     return logits(cfg, params["embed"], x), state

@@ -6,8 +6,9 @@ the card. Imports no JAX, so it runs on a GPU machine without it:
 Every test here is marked ``cuda`` and skips (from inside the test, never
 at collection) when ``torch.cuda.is_available()`` is false.
 Tolerances are those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in
-bfloat16 (the kernel rounds the softmax weights to bf16 before P@V, as
-the model's plain path does)."""
+bfloat16 for flash attention (the kernel rounds the softmax weights to
+bf16 before P@V, as the model's plain path does); none for ``moe_gather``,
+a copy held bit for bit."""
 import numpy as np
 import pytest
 
@@ -39,6 +40,7 @@ CASES = [
     (1, 1000, 1000, 8, 2, 128),
     (3, 7, 300, 6, 3, 64),
     (1, 300, 5, 4, 1, 16),     # T shorter than one tile
+    (1, 640, 640, 16, 16, 128),  # MHA (G=1), qwen2-moe's heads
 ]
 
 
@@ -94,3 +96,81 @@ def test_flash_kernel_refuses_what_it_does_not_take(torch):
                                k, v)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu())
+
+
+def test_flash_kernel_at_the_moe_prefill_shape(torch):
+    """qwen2-moe's attention at prefill: MHA, H=K=16 (G=1), S=T=4096."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    q, k, v = _qkv(torch, 1, 4096, 4096, 16, 16, 128, torch.bfloat16)
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _gather_inputs(torch, T, d, S, dtype, kept=0.8, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((T, d), dtype=np.float32)).to(
+        "cuda", dtype)
+    keep = rng.random(S) < kept
+    ids = np.where(keep, rng.integers(0, T, S), -1).astype(np.int32)
+    return (x, torch.from_numpy(ids).to("cuda"),
+            torch.from_numpy(keep).to("cuda"))
+
+
+def _same_bits(torch, got, want):
+    view = torch.int16 if got.element_size() == 2 else torch.int32
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("T,d,S", [
+    (4096, 2048, 20_640),  # qwen2-moe prefill: 60 experts x capacity 344
+    (4, 2048, 480),        # qwen2-moe decode at batch 4: capacity 8
+    (64, 48, 40), (128, 16, 128), (10, 8, 7),  # tests/test_kernels.py grid
+    (33, 7, 100),          # rows not 16-byte aligned: element copies
+    (5, 1, 3),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gather_kernel_matches_plain(torch, T, d, S, dtype):
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.kernels.ref import moe_gather_ref
+    x, ids, keep = _gather_inputs(torch, T, d, S, getattr(torch, dtype))
+    before = moe_dispatch.LAUNCHES.count
+    out = moe_dispatch.moe_gather(x, ids, keep)
+    torch.cuda.synchronize()
+    assert moe_dispatch.LAUNCHES.count == before + 1
+    _same_bits(torch, out, moe_gather_ref(x, ids, keep))
+
+
+def test_moe_gather_kernel_reads_strided_rows_and_clamps_ids(torch):
+    """x as a column slice of a wider matrix (row stride != d), and kept
+    ids out of range, which the kernel clamps as the plain version does."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_gather_ref
+    wide, ids, keep = _gather_inputs(torch, 50, 200, 300, torch.bfloat16)
+    for x in (wide[:, 8:136], wide[:, 3:40]):
+        assert not x.is_contiguous()
+        bad = ids.clone()
+        bad[:4] = torch.tensor([-7, 50, 1000, -1], dtype=torch.int32)
+        k = keep.clone()
+        k[:4] = True
+        _same_bits(torch, ops.moe_gather(x, bad, k),
+                   moe_gather_ref(x, bad, k))
+
+
+def test_moe_gather_kernel_refuses_what_it_does_not_take(torch):
+    from repro_torch.kernels import moe_dispatch
+    x, ids, keep = _gather_inputs(torch, 8, 16, 12, torch.bfloat16)
+    with pytest.raises(TypeError):
+        moe_dispatch.moe_gather(x.half(), ids, keep)
+    with pytest.raises(TypeError):
+        moe_dispatch.moe_gather(x, ids.long(), keep)
+    with pytest.raises(TypeError):
+        moe_dispatch.moe_gather(x, ids, keep.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_dispatch.moe_gather(x.t().contiguous().t(), ids, keep)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_dispatch.moe_gather(x.cpu(), ids.cpu(), keep.cpu())

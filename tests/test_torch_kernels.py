@@ -1,11 +1,15 @@
-"""The port's kernel entry against the reference's, on the CPU.
+"""The port's kernel entries against the reference's, on the CPU.
 
-``repro_torch.kernels.ops.flash_attention`` takes its plain version for CPU
-tensors; ``repro.kernels.ops.flash_attention`` runs the Pallas kernel in
-interpret mode, as tests/test_kernels.py runs it. The same numpy-seeded
-inputs go through both. Tolerances are those of tests/test_kernels.py:
-2e-5 in float32, 2e-2 in bfloat16. The CUDA kernel itself is held against
-the plain version on the card by tests/test_torch_cuda.py."""
+``repro_torch.kernels.ops`` takes each kernel's plain version for CPU
+tensors. ``repro.kernels.ops.flash_attention`` runs the Pallas kernel in
+interpret mode, as tests/test_kernels.py runs it; ``moe_gather`` is held
+against the reference's oracle ``repro.kernels.ref.moe_gather_ref``, bit
+for bit (the reference's Pallas ``moe_gather`` does not run in interpret
+mode on this JAX). The same numpy-seeded inputs go through both.
+Tolerances are those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in
+bfloat16 for attention, exact for the gather. The CUDA kernels themselves
+are held against the plain versions on the card by
+tests/test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,14 +57,20 @@ def test_flash_attention_matches_reference(torch, B, S, T, H, K, hd, causal,
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch(torch):
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch
     from repro_torch.kernels import ops
     _, (q, k, v) = _inputs(torch, 1, 8, 8, 2, 1, 16, "float32")
+    x, ids, keep = torch.zeros(4, 8), torch.zeros(6, dtype=torch.int32), \
+        torch.ones(6, dtype=torch.bool)
     ops.reset_launch_counts()
     ops.flash_attention(q, k, v)
-    assert ops.launch_counts() == {"flash_attention": 0}
+    ops.moe_gather(x, ids, keep)
+    assert ops.launch_counts() == {"flash_attention": 0, "moe_gather": 0}
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, k, v)  # the kernel wrapper never runs CPU
-    assert fa.LAUNCHES.count == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_dispatch.moe_gather(x, ids, keep)
+    assert fa.LAUNCHES.count == 0 == moe_dispatch.LAUNCHES.count
 
 
 @pytest.mark.parametrize("shapes", [
@@ -75,3 +85,47 @@ def test_flash_attention_rejects_mismatched_shapes(torch, shapes):
     q, k = torch.zeros(qs), torch.zeros(ks)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, k)
+
+
+def _bits(a):
+    """The raw bits of a float array (bf16 or f32), so -0.0 != 0.0."""
+    a = np.asarray(a)
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+@pytest.mark.parametrize("T,d,S", [(64, 48, 40), (128, 16, 128), (10, 8, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gather_matches_reference_oracle(torch, T, d, S, dtype):
+    """Unkept slots hold -1 as the model's dispatch leaves them; kept ids
+    out of range are clamped as the reference's gather clamps them."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((T, d), dtype=np.float32)
+    x[0, 0] = -0.0
+    ids = rng.integers(0, T, S).astype(np.int32)
+    keep = rng.random(S) < 0.7
+    ids[~keep] = -1
+    ids[np.flatnonzero(keep)[:2]] = [T + 3, -5]
+    want = jref.moe_gather_ref(jnp.asarray(x).astype(jnp.dtype(dtype)),
+                               jnp.asarray(ids), jnp.asarray(keep))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    for fn in (ref.moe_gather_ref, ops.moe_gather):
+        got = fn(tx, torch.from_numpy(ids), torch.from_numpy(keep))
+        assert got.dtype == tx.dtype and got.shape == (S, d)
+        bits = got.view(torch.int16 if dtype == "bfloat16" else torch.int32)
+        np.testing.assert_array_equal(bits.numpy(), _bits(want))
+
+
+@pytest.mark.parametrize("shapes", [
+    ((4, 8), (6,), (5,)),     # keep and token_ids differ
+    ((4, 8), (6, 1), (6, 1)),  # ids not 1-d
+    ((32,), (6,), (6,)),      # x not 2-d
+    ((0, 8), (6,), (6,)),     # no rows to gather from
+])
+def test_moe_gather_rejects_mismatched_shapes(torch, shapes):
+    from repro_torch.kernels import ops
+    xs, ids, keep = shapes
+    with pytest.raises(ValueError):
+        ops.moe_gather(torch.zeros(xs), torch.zeros(ids, dtype=torch.int32),
+                       torch.ones(keep, dtype=torch.bool))

@@ -20,6 +20,7 @@ from repro.configs import get_arch, reduced_config
 from repro.models import Ctx as JCtx
 from repro.models import build_model as jbuild
 from repro.models import layers as jlayers
+from torch_parity import carry, port_cfg
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -36,27 +37,9 @@ def cfg():
     return reduced_config(get_arch("qwen25_32b"))
 
 
-def _port_cfg(cfg):
-    from repro_torch.configs import ArchConfig
-    return ArchConfig(**dataclasses.asdict(cfg))
-
-
-def _carry(cfg, dtype):
-    """(reference model, params) and the port's model with the same
-    weights."""
-    from repro_torch.models import build_model
-    from repro_torch.models.convert import from_jax_params
-    jm = jbuild(cfg)
-    jp = jm.init_params(jax.random.PRNGKey(0), dtype)
-    model = build_model(_port_cfg(cfg))
-    model.load_state_dict(
-        from_jax_params(jax.tree.map(np.asarray, jp), model), assign=True)
-    return jm, jp, model
-
-
 @pytest.fixture(scope="module")
 def carried(cfg):
-    return _carry(cfg, "float32")
+    return carry(cfg, "float32")
 
 
 def _tokens(cfg, shape, seed=1):
@@ -85,7 +68,7 @@ def test_param_tree_paths_match_reference(cfg):
     from repro.models import params as jparams
     from repro_torch.models import params
     from repro_torch.models.transformer import model_defs
-    mine = params.tree_paths(model_defs(_port_cfg(cfg)))
+    mine = params.tree_paths(model_defs(port_cfg(cfg)))
     ref = jparams.tree_paths(jbuild(cfg).defs)
     assert {k.replace("/", "."): (d.shape, d.init, d.scale)
             for k, d in ref.items()} == {
@@ -125,7 +108,7 @@ def test_ffn_apply_matches_reference(torch, cfg, activation):
     x = rng.standard_normal((2, 5, c.d_model), dtype=np.float32)
     want = jlayers.ffn_apply(c, {k: jnp.asarray(v) for k, v in p.items()},
                              jnp.asarray(x))
-    got = layers.ffn_apply(_port_cfg(c),
+    got = layers.ffn_apply(port_cfg(c),
                            {k: torch.from_numpy(v) for k, v in p.items()},
                            torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -162,7 +145,7 @@ def test_chunked_attention_matches_reference(torch, cfg):
         want = jattn.chunked_attention(cfg, *map(jnp.asarray, (q, k, v)),
                                        causal, chunk=16)
         got = attention.chunked_attention(
-            _port_cfg(cfg), *map(torch.from_numpy, (q, k, v)), causal,
+            port_cfg(cfg), *map(torch.from_numpy, (q, k, v)), causal,
             chunk=16)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=1e-5, rtol=1e-5)
@@ -197,7 +180,7 @@ def test_decode_drops_cache_writes_past_the_end(torch, cfg, carried):
 
 def test_bf16_forward_matches_reference(torch, cfg):
     from repro_torch.models import Ctx
-    jm, jp, model = _carry(cfg, "bfloat16")
+    jm, jp, model = carry(cfg, "bfloat16")
     assert model.dtype == torch.bfloat16
     tokens = _tokens(cfg, (2, 24), seed=7)
     want, _ = jm.forward(jp, {"tokens": jnp.asarray(tokens)}, JCtx())
@@ -211,7 +194,7 @@ def test_init_params_follows_reference_std_rules(torch, cfg):
     """Same rules, other random numbers: zeros/ones leaves are equal, drawn
     leaves agree in standard deviation within 10%."""
     from repro_torch.models import build_model
-    model = build_model(_port_cfg(cfg)).init_params(
+    model = build_model(port_cfg(cfg)).init_params(
         torch.Generator().manual_seed(0), "float32")
     ref = jax.tree.map(np.asarray,
                        jbuild(cfg).init_params(jax.random.PRNGKey(0),
@@ -245,7 +228,9 @@ def test_from_jax_params_rejects_tree_mismatches(torch, cfg, carried):
 def test_unported_families_and_int8_kv_raise(torch, cfg, carried):
     from repro_torch.models import build_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_port_cfg(reduced_config(get_arch("xlstm_125m"))))
+        build_model(port_cfg(reduced_config(get_arch("xlstm_125m"))))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # hybrid
+        build_model(port_cfg(reduced_config(get_arch("jamba15_large"))))
     _, _, model = carried
     with pytest.raises(NotImplementedError, match="int8"):
         model.init_decode_state(2, 8, kv_dtype="int8")

@@ -5,18 +5,17 @@ numpy-seeded prompts greedily, and the outputs must agree token for token.
 Six prompts through four slots with max_seq=48 leave slots idle while
 others run, and an idle slot's cache length keeps counting past max_seq:
 the reference drops those out-of-range cache writes, so the port must
-too (it masks them) for the outputs to agree."""
-import dataclasses
-
+too (it masks them) for the outputs to agree. The MoE model's engine is
+held against the reference's the same way."""
 import jax
 import numpy as np
 import pytest
 
 from repro.configs import get_arch, reduced_config
 from repro.engine.serve_step import ServingEngine as JEngine
-from repro.models import build_model as jbuild
 from repro.objectmodel.kvcache import KVCacheConfig as JKVConfig
 from repro.objectmodel.kvcache import KVPageManager as JPages
+from torch_parity import carry
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -37,20 +36,19 @@ def _drain(eng, step):
     return max(lengths)
 
 
-def test_greedy_serving_matches_reference_token_for_token(torch):
-    from repro_torch.configs import ArchConfig
+def _engines(arch, max_seq):
+    """The reference's engine and the port's, on the same weights (the
+    reference's float32 ``init_params(PRNGKey(0))`` carried over)."""
     from repro_torch.engine.serve_step import ServingEngine
-    from repro_torch.models import build_model
-    from repro_torch.models.convert import from_jax_params
-    cfg = reduced_config(get_arch("qwen25_32b"))
-    jm = jbuild(cfg)
-    jp = jm.init_params(jax.random.PRNGKey(0), "float32")
-    model = build_model(ArchConfig(**dataclasses.asdict(cfg)))
-    model.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jp),
-                                          model), assign=True)
+    cfg = reduced_config(get_arch(arch))
+    jm, jp, model = carry(cfg, "float32")
+    return (cfg, JEngine(jm, jp, batch_size=4, max_seq=max_seq, eos_id=-1),
+            ServingEngine(model, batch_size=4, max_seq=max_seq, eos_id=-1))
+
+
+def test_greedy_serving_matches_reference_token_for_token(torch):
     max_seq = 48
-    jeng = JEngine(jm, jp, batch_size=4, max_seq=max_seq, eos_id=-1)
-    eng = ServingEngine(model, batch_size=4, max_seq=max_seq, eos_id=-1)
+    cfg, jeng, eng = _engines("qwen25_32b", max_seq)
     rng = np.random.default_rng(0)
     for _ in range(6):
         prompt = rng.integers(1, cfg.vocab_size, rng.integers(2, 8)).tolist()
@@ -65,6 +63,35 @@ def test_greedy_serving_matches_reference_token_for_token(torch):
     for got, want in zip(eng.finished, jeng.finished):
         assert got.out == want.out, got.sid
     assert eng.pages.pages_in_use() == 0 == jeng.pages.pages_in_use()
+
+
+def test_moe_greedy_serving_matches_reference_token_for_token(torch):
+    """qwen2_moe as ``serve_batch`` serves it (8 seeded prompts, batch 4,
+    max_seq 48). A decode batch of 4 tokens never fills an expert's
+    capacity of 8, so both engines route every slot."""
+    max_seq = 48
+    cfg, jeng, eng = _engines("qwen2_moe", max_seq)
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        prompt = rng.integers(1, cfg.vocab_size, rng.integers(2, 8)).tolist()
+        jeng.submit(prompt)
+        eng.submit(prompt)
+    key = jax.random.PRNGKey(0)
+    _drain(jeng, lambda: jeng.step(key))
+    _drain(eng, eng.step)
+    assert [s.sid for s in eng.finished] == [s.sid for s in jeng.finished]
+    assert len(eng.finished) == 8
+    for got, want in zip(eng.finished, jeng.finished):
+        assert got.out == want.out, got.sid
+    assert eng.pages.pages_in_use() == 0 == jeng.pages.pages_in_use()
+
+
+def test_moe_serve_batch_drains_on_the_cpu(torch):
+    from repro_torch.launch.serve import serve_batch
+    out = serve_batch("qwen2_moe", n_requests=3, max_new=8, batch_size=2,
+                      reduced=True, device="cpu", dtype="float32")
+    assert out["finished"] == 3 and out["pages_in_use"] == 0
+    assert out["tokens"] > 0
 
 
 def test_sample_token_greedy_and_seeded(torch):
