@@ -15,7 +15,9 @@ final line:
    (qwen2.5-32b and qwen2-moe prefill shapes, ragged causal, non-causal
    T != S, float32; SDPA as yardstick) and moe_gather, bit for bit
    (qwen2-moe prefill and decode dispatch shapes, ragged float32;
-   ``index_select`` as yardstick);
+   ``index_select`` as yardstick) and ssm_scan within 1e-5 (jamba's
+   prefill shape and a ragged shape; no PyTorch call computes a selective
+   scan, so no yardstick);
 3. dense prefill at full width: qwen2.5-32b, all 64 layers, bf16 random
    weights drawn on the card from a seed, B=1, S=4096, through the flash
    kernel (one launch per layer), checked against the plain attention
@@ -28,9 +30,18 @@ final line:
    the plain attention path; decode checked against prefill with the
    capacity lifted;
 6. MoE serving through ``serve_batch``: 8 requests, batch 4, one
-   moe_gather launch per layer and decode step.
+   moe_gather launch per layer and decode step;
+7. hybrid prefill at full width: jamba-1.5-large cut to one group of 8
+   layers (7 Mamba, 1 attention; 4 MoE, 4 dense FFN) and 12 of its 16
+   experts, so that its 66.3 GiB of bf16 weights fit one card; B=1,
+   S=4096, through flash (1 launch), moe_gather (4) and ssm_scan (7),
+   checked against the plain attention path; decode (the plain one-step
+   recurrence) checked against prefill (the scan kernel) with the
+   capacity lifted;
+8. hybrid serving through ``serve_batch`` with the same cut: 8 requests,
+   batch 4, moe_gather 4 launches per decode step, no flash or scan.
 
-Launch counts are set to 0 just before each phase's main-path run (3-6)
+Launch counts are set to 0 just before each phase's main-path run (3-8)
 and read just after it. The last two lines are a JSON object with one
 entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -51,6 +62,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 ARCH = "qwen25_32b"
 MOE_ARCH = "qwen2_moe"
+HYBRID_ARCH = "jamba15_large"
+# jamba-1.5-large's cuts (its widths are all published values): 72 -> 8
+# layers (one group; the stack runs whole groups) and 16 -> 12 experts.
+# One group at 16 experts is 84.3 GiB of bf16 weights; at 12, 66.3 GiB.
+HYBRID_CUTS = {"n_layers": 8, "n_experts": 12}
 DEVICE = "cuda"
 SEED = 0
 PREFILL_SEQ = 4096
@@ -69,9 +85,19 @@ GATHER_CASES = [  # (name, T, d, S, n_kept, dtype)
     ("decode", 4, 2048, 60 * 8, 16, "bfloat16"),
     ("ragged_f32", 100, 48, 333, 250, "float32"),
 ]
+# ssm_scan at jamba's prefill shape (Bt, L, di, N) and a ragged one (L
+# not a multiple of the 16-step chunk, di not of a block's channels)
+SCAN_CASES = [  # (name, Bt, L, di, N)
+    ("prefill", 1, PREFILL_SEQ, 16384, 16),
+    ("ragged", 2, 1001, 3000, 16),
+]
+SCAN_TOL = 1e-5  # as tests/test_kernels.py holds the Pallas scan
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: no tensor cores
 PEAK_BYTES = 3.35e12
+# Exponentials: 16 special-function lanes per SM x 132 SMs at the clock
+# the f32 peak implies (67e12 / (132 SMs x 128 lanes x 2) = 1.98 GHz).
+PEAK_EXP = 132 * 16 * PEAK_FLOPS["float32"] / (132 * 128 * 2)
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # as tests/test_kernels.py
 # Full-depth bf16 logits of two paths that round at different places
 # (flash rounds unnormalised P to bf16, the plain path normalised weights;
@@ -129,6 +155,21 @@ def gather_bound_ms(n_rows_read, d, S, elem):
     A copy does no arithmetic, so bytes bound it."""
     nbytes = n_rows_read * d * elem + S * (4 + 1) + S * d * elem
     return 1e3 * nbytes / PEAK_BYTES, "bytes"
+
+
+def scan_bound_ms(Bt, L, di, N):
+    """(ms, "operations" | "bytes"): dt and x (Bt,L,di) read once, B and C
+    (Bt,L,N) and A (di,N) read once, y (Bt,L,di) written once, all f32;
+    against L*di*N exponentials per batch row on the special-function
+    units and ~4 f32 operations per (t, c, n) (dt*A, the multiply-add
+    into h, dt*x*B, h*C) at the f32 peak. The slower of the two operation
+    counts is the operations bound."""
+    nbytes = 4 * (3 * Bt * L * di + 2 * Bt * L * N + di * N)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(Bt * L * di * N / PEAK_EXP,
+                4.0 * Bt * L * di * N / PEAK_FLOPS["float32"])
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def rel_err(torch, got, want) -> float:
@@ -193,14 +234,16 @@ def phase_kernel(torch) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as mg
     from repro_torch.kernels import nvcc, ops
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels.ref import attention_ref
 
     t0 = time.perf_counter()
-    libs = nvcc.compile_all([fa.SOURCE, mg.SOURCE])
-    fa.build()
-    mg.build()
-    log(f"[kernel] built {os.path.relpath(fa.SOURCE, ROOT)} and "
-        f"{os.path.relpath(mg.SOURCE, ROOT)} for sm_90a in "
+    modules = (fa, mg, ss)
+    libs = nvcc.compile_all([m.SOURCE for m in modules])
+    for m in modules:
+        m.build()
+    names = ", ".join(os.path.relpath(m.SOURCE, ROOT) for m in modules)
+    log(f"[kernel] built {names} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -298,7 +341,54 @@ def phase_gather(torch) -> dict:
     return results
 
 
-# ------------------------------------------------------------ phases 3, 5
+def phase_scan(torch) -> dict:
+    """ssm_scan against its plain version (the sequential loop) at
+    jamba's prefill shape and a ragged one."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ref import ssm_scan_ref
+
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    results = {}
+    for name, Bt, L, di, N in SCAN_CASES:
+        def mk(*shape):
+            return torch.randn(shape, device=DEVICE, generator=gen)
+
+        # tests/test_kernels.py's distribution
+        dt = F.softplus(mk(Bt, L, di)) * 0.1
+        A = -torch.exp(mk(di, N) * 0.3)
+        B, C, x = mk(Bt, L, N), mk(Bt, L, N), mk(Bt, L, di)
+        want = ssm_scan_ref(dt, A, B, C, x)
+        out = ss.ssm_scan(dt, A, B, C, x)
+        torch.cuda.synchronize()
+        diff = (out - want).abs()
+        err = float(diff.max())
+        rel = err / float(want.abs().max())
+        bad = diff > SCAN_TOL + SCAN_TOL * want.abs()
+        if not torch.isfinite(out).all() or bool(bad.any()):
+            raise AssertionError(f"ssm_scan case {name}: max |err| {err:.3g} "
+                                 f"outside atol=rtol={SCAN_TOL}")
+        ms = cuda_ms(torch, lambda: ss.ssm_scan(dt, A, B, C, x), 20)
+        plain_ms = cuda_ms(torch, lambda: ssm_scan_ref(dt, A, B, C, x),
+                           2, warmup=1)
+        bound, bound_by = scan_bound_ms(Bt, L, di, N)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound,
+                             bound_by=bound_by)
+        log(f"[scan] {name}: Bt={Bt} L={L} di={di} N={N} float32: "
+            f"max|err| {err:.3g} (max|err|/max|plain| {rel:.3g}; tol "
+            f"atol=rtol={SCAN_TOL}) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, no library call, bound {bound:.4f} ms "
+            f"by {bound_by} (roofline share {bound / ms:.1%})")
+        del dt, A, B, C, x, want, out, diff, bad
+        torch.cuda.empty_cache()
+    log(f"[scan] kernels: {json.dumps(ops.launch_counts())}")
+    return results
+
+
+# ------------------------------------------------------ phases 3, 5, 7
 @contextlib.contextmanager
 def kept_slots(ops, record: list):
     """Record the kept-slot count of every moe_gather dispatch, a device
@@ -316,31 +406,62 @@ def kept_slots(ops, record: list):
         ops.moe_gather = real
 
 
-def phase_prefill(torch, arch: str, label: str) -> dict:
-    """Full-width, full-depth prefill through the flash kernel (and, for a
-    MoE model, the moe_gather dispatch), checked against the plain
-    attention path and the decode path. Returns the main-path run's
-    launch counts."""
+def expected_launches(cfg) -> dict:
+    """Launches of each kernel in one prefill forward: flash per attention
+    layer, moe_gather per MoE layer, ssm_scan per Mamba layer."""
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_period
+        return {"flash_attention": n_attn,
+                "moe_gather": cfg.n_layers // cfg.moe_period,
+                "ssm_scan": cfg.n_layers - n_attn}
+    return {"flash_attention": cfg.n_layers,
+            "moe_gather": cfg.n_layers if cfg.is_moe else 0, "ssm_scan": 0}
+
+
+def hybrid_config():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(HYBRID_ARCH), **HYBRID_CUTS)
+
+
+def phase_prefill(torch, arch, label: str) -> dict:
+    """Full-width prefill through the flash kernel (and, for a MoE model,
+    the moe_gather dispatch; for a hybrid, also the ssm_scan kernel),
+    checked against the plain attention path and the decode path. ``arch``
+    is a name (all layers) or a cut ArchConfig. Returns the main-path
+    run's launch counts."""
     import numpy as np
 
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import Ctx, build_model
 
     torch.cuda.reset_peak_memory_stats()
     model = build_model(arch)
     cfg = model.cfg
+    n_moe = expected_launches(cfg)["moe_gather"]
     t0 = time.perf_counter()
     model.init_params(torch.Generator(DEVICE).manual_seed(SEED))
     torch.cuda.synchronize()
     experts = (f", {cfg.n_experts} experts top-{cfg.top_k} + "
                f"{cfg.n_shared_experts} shared" if cfg.is_moe else "")
+    if cfg.family == "hybrid":
+        experts += (f", attention every {cfg.attn_period} layers, MoE every "
+                    f"{cfg.moe_period}; Mamba d_inner "
+                    f"{cfg.ssm_expand * cfg.d_model} d_state {cfg.d_state} "
+                    f"d_conv {cfg.d_conv}")
+    full = get_arch(cfg.name)  # the registry's config, uncut
+    cut = [f"{f.name} {getattr(full, f.name)} -> {getattr(cfg, f.name)}"
+           for f in dataclasses.fields(cfg)
+           if getattr(cfg, f.name) != getattr(full, f.name)]
+    cuts = ("cut: " + ", ".join(cut) + "; every other field as published"
+            if cut else "no depth cut")
     log(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
         f"{cfg.d_ff}{experts}, vocab {cfg.vocab_size}: "
         f"{model.param_count():,} parameters in {model.dtype}, drawn on the "
         f"card in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
-        f"(no depth cut)")
+        f"({cuts})")
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (1, PREFILL_SEQ))).to(DEVICE)
     batch = {"tokens": tokens}
@@ -352,8 +473,7 @@ def phase_prefill(torch, arch: str, label: str) -> dict:
                                    last_only=True)
         torch.cuda.synchronize()
     launches = ops.launch_counts()
-    want = {"flash_attention": cfg.n_layers,
-            "moe_gather": cfg.n_layers if cfg.is_moe else 0}
+    want = expected_launches(cfg)
     log(f"[{label}] launches in one forward: {json.dumps(launches)}")
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
@@ -365,12 +485,12 @@ def phase_prefill(torch, arch: str, label: str) -> dict:
     if cfg.is_moe:
         from repro_torch.models.moe import expert_capacity
         per_layer = PREFILL_SEQ * cfg.top_k - torch.stack(kept).cpu()
-        slots = cfg.n_layers * PREFILL_SEQ * cfg.top_k
+        slots = n_moe * PREFILL_SEQ * cfg.top_k
         dropped = int(per_layer.sum())
         log(f"[{label}] dispatch: capacity {expert_capacity(cfg, PREFILL_SEQ)}"
             f" per expert; {dropped} of {slots} token-slots dropped over "
-            f"{cfg.n_layers} layers ({dropped / slots:.2%}); aux loss "
-            f"{float(aux):.4f} summed over layers; dropped by layer "
+            f"{n_moe} MoE layers ({dropped / slots:.2%}); aux loss "
+            f"{float(aux):.4f} summed over layers; dropped by MoE layer "
             f"{per_layer.tolist()}")
 
     times = []
@@ -441,16 +561,17 @@ def phase_prefill(torch, arch: str, label: str) -> dict:
     return launches
 
 
-# ------------------------------------------------------------ phases 4, 6
-def phase_serving(torch, arch: str, label: str) -> dict:
-    """serve_batch at full width: 8 requests, batch 4, greedy. Returns
-    the run's launch counts."""
+# ------------------------------------------------------ phases 4, 6, 8
+def phase_serving(torch, arch, label: str) -> dict:
+    """serve_batch at full width: 8 requests, batch 4, greedy. ``arch`` is
+    a name (all layers) or a cut ArchConfig. Returns the run's launch
+    counts."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_batch
 
-    cfg = get_arch(arch)
-    layers = cfg.n_layers if cfg.is_moe else 0
+    cfg = arch if not isinstance(arch, str) else get_arch(arch)
+    layers = expected_launches(cfg)["moe_gather"]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out = serve_batch(arch, n_requests=8, max_new=32, batch_size=4,
@@ -462,11 +583,13 @@ def phase_serving(torch, arch: str, label: str) -> dict:
         f"{tps:.1f} tokens/s, {out['seconds'] / out['iters'] * 1e3:.1f} "
         f"ms/step at batch 4; KV pages in use {out['pages_in_use']}; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"launches {json.dumps(launches)} (decode reads the dense cache in "
-        f"plain torch; moe_gather {layers} per step)")
+        f"launches {json.dumps(launches)} (decode reads the dense cache and "
+        f"steps the Mamba recurrence in plain torch; moe_gather {layers} "
+        f"per step)")
     if out["finished"] != 8 or out["pages_in_use"] != 0:
         raise AssertionError(f"serving did not complete: {out}")
-    want = {"flash_attention": 0, "moe_gather": layers * out["iters"]}
+    want = {"flash_attention": 0, "moe_gather": layers * out["iters"],
+            "ssm_scan": 0}
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     gc.collect()
@@ -485,13 +608,16 @@ def main() -> int:
     smi = phase_environment(torch)
     kernel = phase_kernel(torch)
     gather = phase_gather(torch)
+    scan = phase_scan(torch)
     runs = [phase_prefill(torch, ARCH, "prefill"),
             phase_serving(torch, ARCH, "serve"),
             phase_prefill(torch, MOE_ARCH, "moe prefill"),
-            phase_serving(torch, MOE_ARCH, "moe serve")]
+            phase_serving(torch, MOE_ARCH, "moe serve"),
+            phase_prefill(torch, hybrid_config(), "hybrid prefill"),
+            phase_serving(torch, hybrid_config(), "hybrid serve")]
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
-    log(f"[main path] launches over phases 3-6: {json.dumps(launches)}")
-    flash, moe = kernel["prefill"], gather["prefill"]
+    log(f"[main path] launches over phases 3-8: {json.dumps(launches)}")
+    flash, moe, ssm = kernel["prefill"], gather["prefill"], scan["prefill"]
     line = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -508,7 +634,15 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in gather.values()),
         "ms": moe["ms"], "plain_ms": moe["plain_ms"],
         "bound_ms": moe["bound_ms"], "bound_by": moe["bound_by"],
-        "library_ms": moe["library_ms"]}]}
+        "library_ms": moe["library_ms"]}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:43",
+        "launches": launches["ssm_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in scan.values()),
+        "ms": ssm["ms"], "plain_ms": ssm["plain_ms"],
+        "bound_ms": ssm["bound_ms"], "bound_by": ssm["bound_by"],
+        "library_ms": None}]}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

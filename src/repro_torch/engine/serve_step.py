@@ -53,7 +53,8 @@ class ServingEngine:
 
     Slots in the device batch are the buffer-pool frames; finished
     sequences release their KV pages back to the free list and the slot is
-    refilled from the queue. The model decodes against its dense cache."""
+    refilled from the queue. The model decodes against its dense cache
+    (and, for a hybrid model, its per-slot Mamba states)."""
 
     def __init__(self, model: Model, batch_size: int, max_seq: int,
                  ctx: Optional[Ctx] = None, eos_id: int = 0,
@@ -92,7 +93,10 @@ class ServingEngine:
                 self.slots[i] = seq
                 self.pages.allocate(seq.sid, len(seq.prompt) + 8)
                 self._prompts_pending[i] = list(seq.prompt)
-                self.state.length[i] = 0  # reset this slot's cache length
+                # reset this slot's cache length. As in the reference, a
+                # hybrid model's Mamba state (h, conv window) is not reset:
+                # a new request starts from the previous one's state.
+                self.state.length[i] = 0
 
     def step(self, generator: Optional[torch.Generator] = None) -> int:
         """One engine iteration; returns number of active slots."""

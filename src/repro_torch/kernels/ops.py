@@ -11,8 +11,9 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_dispatch as _moe
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssm
 
-__all__ = ["flash_attention", "moe_gather", "launch_counts",
+__all__ = ["flash_attention", "moe_gather", "ssm_scan", "launch_counts",
            "reset_launch_counts"]
 
 
@@ -36,12 +37,24 @@ def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
     return _moe.moe_gather(x, token_ids, keep)
 
 
+def ssm_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dt, x: (Bt,L,di); A: (di,N); B, C: (Bt,L,N) -> y (Bt,L,di) float32.
+    The kernel takes float32 only; the plain version upcasts."""
+    _ssm.check_shapes(dt, A, B, C, x)
+    if x.device.type == "cpu":
+        return ref.ssm_scan_ref(dt, A, B, C, x)
+    return _ssm.ssm_scan(dt, A, B, C, x)
+
+
 def launch_counts() -> dict:
     """Launches of each hand-written kernel since the last reset."""
     return {"flash_attention": _fa.LAUNCHES.count,
-            "moe_gather": _moe.LAUNCHES.count}
+            "moe_gather": _moe.LAUNCHES.count,
+            "ssm_scan": _ssm.LAUNCHES.count}
 
 
 def reset_launch_counts() -> None:
     _fa.LAUNCHES.count = 0
     _moe.LAUNCHES.count = 0
+    _ssm.LAUNCHES.count = 0

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "moe_gather_ref"]
+__all__ = ["attention_ref", "moe_gather_ref", "ssm_scan_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,3 +35,25 @@ def moe_gather_ref(x: torch.Tensor, token_ids: torch.Tensor,
     x: (T, d); token_ids: (S,) source row per slot; keep: (S,) bool."""
     rows = x[token_ids.long().clamp(0, x.shape[0] - 1)]
     return torch.where(keep[:, None], rows, 0)
+
+
+def ssm_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Selective-SSM scan, sequential over time, all in float32:
+    ``h = exp(dt_t A) h + (dt_t x_t) B_t``, ``y_t = h . C_t`` from h = 0.
+
+    dt, x: (Bt, L, di); A: (di, N); B, C: (Bt, L, N). Returns y:
+    (Bt, L, di) float32. The reference's oracle over a batch dimension."""
+    dt, A, B, C, x = (t.float() for t in (dt, A, B, C, x))
+    Bt, L, di = x.shape
+    h = torch.zeros((Bt, di, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(L):
+        dt_t = dt[:, t, :, None]  # (Bt, di, 1)
+        h = torch.exp(dt_t * A) * h + (dt_t * x[:, t, :, None]) \
+            * B[:, t, None, :]
+        ys.append((h * C[:, t, None, :]).sum(-1))
+    if not ys:
+        return x.new_zeros((Bt, 0, di))
+    return torch.stack(ys, dim=1)

@@ -8,28 +8,29 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, reduced_config
+from repro_torch.configs import ArchConfig, get_arch, reduced_config
 from repro_torch.engine.serve_step import ServingEngine
 from repro_torch.models import build_model, resolve_device
 
 __all__ = ["serve_batch", "main"]
 
 
-def serve_batch(arch: str, *, n_requests: int = 8, max_new: int = 32,
+def serve_batch(arch: Union[str, ArchConfig], *, n_requests: int = 8, max_new: int = 32,
                 batch_size: int = 4, reduced: bool = True, seed: int = 0,
                 device=None, dtype=None, layers: Optional[int] = None):
     """Serve ``n_requests`` seeded random prompts greedily to completion.
 
-    ``device`` defaults to CUDA (raises without a card), ``dtype`` to the
-    config's ``param_dtype``, ``layers`` to the full depth. Weights are
-    random, drawn on the device from ``seed``."""
+    ``arch`` is a name or an ``ArchConfig``. ``device`` defaults to CUDA
+    (raises without a card), ``dtype`` to the config's ``param_dtype``,
+    ``layers`` to the full depth. Weights are random, drawn on the device
+    from ``seed``."""
     dev = resolve_device(device)
-    cfg = get_arch(arch)
+    cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     if reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg, layers=layers)

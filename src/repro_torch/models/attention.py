@@ -72,7 +72,8 @@ def full_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     """Materialized-scores attention. q:(B,S,H,hd), k/v:(B,T,K,hd)."""
     B, S, H, hd = q.shape
     T = k.shape[1]
-    scores = _scores(_gqa_shape(cfg, q), k, "bskgd,btkd->bkgst") * hd ** -0.5
+    scores = _scores(_gqa_shape(cfg, q), k, "bskgd,btkd->bkgst")
+    scores.mul_(hd ** -0.5)  # in place: one (B,K,G,S,T) f32 buffer, not two
     if causal:
         qi = torch.arange(S, device=q.device) + q_offset
         ki = torch.arange(T, device=q.device)

@@ -109,7 +109,9 @@ class Model(nn.Module):
 
 def build_model(arch: Union[str, ArchConfig],
                 layers: Optional[int] = None) -> Model:
-    """``layers`` cuts the depth (never the width)."""
+    """``layers`` cuts the depth (never the width). A hybrid stack runs
+    whole groups, so its depth must be a multiple of ``attn_period``
+    (ValueError otherwise)."""
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)

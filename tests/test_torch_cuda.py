@@ -8,7 +8,9 @@ at collection) when ``torch.cuda.is_available()`` is false.
 Tolerances are those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in
 bfloat16 for flash attention (the kernel rounds the softmax weights to
 bf16 before P@V, as the model's plain path does); none for ``moe_gather``,
-a copy held bit for bit."""
+a copy held bit for bit; 1e-5 for ``ssm_scan``, as tests/test_kernels.py
+holds the Pallas scan (float32; the kernel fuses multiply-adds and sums
+the N states in another order than the plain version)."""
 import numpy as np
 import pytest
 
@@ -174,3 +176,78 @@ def test_moe_gather_kernel_refuses_what_it_does_not_take(torch):
         moe_dispatch.moe_gather(x.t().contiguous().t(), ids, keep)
     with pytest.raises(ValueError, match="CUDA"):
         moe_dispatch.moe_gather(x.cpu(), ids.cpu(), keep.cpu())
+
+
+def _scan_inputs(torch, Bt, L, di, N, seed=0):
+    """tests/test_kernels.py's distribution: dt = 0.1 softplus(normal),
+    A = -exp(0.3 normal), B, C, x standard normal; float32 on the card."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to("cuda")
+    dt = torch.nn.functional.softplus(mk(Bt, L, di)) * 0.1
+    A = -torch.exp(mk(di, N) * 0.3)
+    return dt, A, mk(Bt, L, N), mk(Bt, L, N), mk(Bt, L, di)
+
+
+@pytest.mark.parametrize("Bt,L,di,N", [
+    (2, 33, 64, 8), (1, 64, 128, 16), (3, 16, 32, 4),  # tests/test_kernels.py
+    (1, 100, 256, 16),  # L not a multiple of the 16-step chunk
+    (1, 7, 200, 16),    # di not a multiple of a block's channels
+    (4, 50, 130, 5),    # Bt > 1, N padded to the register width
+    (1, 1, 1, 1),
+    (1, 4096, 16384, 16),  # jamba-1.5-large prefill: B=1, S=4096
+])
+def test_ssm_scan_kernel_matches_plain(torch, Bt, L, di, N):
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ref import ssm_scan_ref
+    dt, A, B, C, x = _scan_inputs(torch, Bt, L, di, N)
+    before = ss.LAUNCHES.count
+    out = ss.ssm_scan(dt, A, B, C, x)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES.count == before + 1
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    want = ssm_scan_ref(dt, A, B, C, x)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_ssm_scan_kernel_reads_column_slices_of_the_projection(torch):
+    """B and C as mamba_apply passes them: column slices of the x_proj
+    output (row stride R + 2N), and dt, x as strided views: read in place
+    through their strides, no copy."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssm_scan_ref
+    Bt, L, di, N, R = 2, 70, 160, 16, 24
+    dt, A, _, _, x = _scan_inputs(torch, Bt, L, di, N)
+    proj = torch.randn(Bt, L, R + 2 * N, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(3))
+    B, C = proj[..., R:R + N], proj[..., R + N:]
+    assert not B.is_contiguous() and not C.is_contiguous()
+    wide = torch.zeros(Bt, L, 2 * di, device="cuda")
+    wide[..., :di] = x
+    xs = wide[..., :di]
+    out = ops.ssm_scan(dt, A, B, C, xs)
+    want = ssm_scan_ref(dt, A, B.contiguous(), C.contiguous(), x)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_ssm_scan_kernel_refuses_what_it_does_not_take(torch):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    dt, A, B, C, x = _scan_inputs(torch, 1, 8, 32, 4)
+    _, A17, B17, C17, _ = _scan_inputs(torch, 1, 8, 32, 17)
+    before = ss.LAUNCHES.count
+    with pytest.raises(TypeError, match="float32"):
+        ss.ssm_scan(dt.bfloat16(), A, B, C, x)
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssm_scan(dt, A, B.double(), C, x)  # no upcast on the card
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_scan(dt, A.t().contiguous().t(), B, C, x)
+    with pytest.raises(ValueError, match="state size"):
+        ss.ssm_scan(dt, A17, B17, C17, x)
+    with pytest.raises(ValueError, match="disagree"):
+        ss.ssm_scan(dt, A[:16], B, C, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssm_scan(dt.cpu(), A.cpu(), B.cpu(), C.cpu(), x.cpu())
+    assert ss.LAUNCHES.count == before

@@ -59,18 +59,26 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(torch):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
     _, (q, k, v) = _inputs(torch, 1, 8, 8, 2, 1, 16, "float32")
     x, ids, keep = torch.zeros(4, 8), torch.zeros(6, dtype=torch.int32), \
         torch.ones(6, dtype=torch.bool)
+    scan = [torch.zeros(s) for s in ((1, 5, 8), (8, 4), (1, 5, 4), (1, 5, 4),
+                                     (1, 5, 8))]
     ops.reset_launch_counts()
     ops.flash_attention(q, k, v)
     ops.moe_gather(x, ids, keep)
-    assert ops.launch_counts() == {"flash_attention": 0, "moe_gather": 0}
+    ops.ssm_scan(*scan)
+    assert ops.launch_counts() == {"flash_attention": 0, "moe_gather": 0,
+                                   "ssm_scan": 0}
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, k, v)  # the kernel wrapper never runs CPU
     with pytest.raises(ValueError, match="CUDA"):
         moe_dispatch.moe_gather(x, ids, keep)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssm_scan(*scan)
     assert fa.LAUNCHES.count == 0 == moe_dispatch.LAUNCHES.count
+    assert ss.LAUNCHES.count == 0
 
 
 @pytest.mark.parametrize("shapes", [
@@ -129,3 +137,48 @@ def test_moe_gather_rejects_mismatched_shapes(torch, shapes):
     with pytest.raises(ValueError):
         ops.moe_gather(torch.zeros(xs), torch.zeros(ids, dtype=torch.int32),
                        torch.ones(keep, dtype=torch.bool))
+
+
+def _scan_inputs(Bt, L, di, N, seed=3):
+    """tests/test_kernels.py's distribution, numpy-seeded: dt = 0.1
+    softplus(normal), A = -exp(0.3 normal), B, C, x standard normal."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((Bt, L, di)))) * 0.1
+    A = -np.exp(rng.standard_normal((di, N)) * 0.3)
+    B, C = rng.standard_normal((2, Bt, L, N))
+    x = rng.standard_normal((Bt, L, di))
+    return [a.astype(np.float32) for a in (dt, A, B, C, x)]
+
+
+@pytest.mark.parametrize("Bt,L,di,N,bd", [
+    (2, 33, 64, 8, 32), (1, 64, 128, 16, 128), (3, 16, 32, 4, 16),
+    (2, 45, 64, 16, 64),  # L not a multiple of the kernel's 16-step chunk
+])
+def test_ssm_scan_matches_reference(torch, Bt, L, di, N, bd):
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ops, ref
+    arrs = _scan_inputs(Bt, L, di, N)
+    dt, A, B, C, x = (jnp.asarray(a) for a in arrs)
+    pallas = np.asarray(jops.ssm_scan(dt, A, B, C, x, block_d=bd))
+    oracle = np.stack([np.asarray(jref.ssm_scan_ref(dt[b], A, B[b], C[b],
+                                                    x[b]))
+                       for b in range(Bt)])
+    for fn in (ref.ssm_scan_ref, ops.ssm_scan):
+        got = fn(*(torch.from_numpy(a) for a in arrs))
+        assert got.dtype == torch.float32 and got.shape == (Bt, L, di)
+        for want in (pallas, oracle):
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-5,
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((1, 5, 8), (8, 4), (1, 5, 4), (1, 5, 4), (1, 5, 7)),  # x vs dt
+    ((1, 5, 8), (7, 4), (1, 5, 4), (1, 5, 4), (1, 5, 8)),  # A's di
+    ((1, 5, 8), (8, 4), (1, 5, 3), (1, 5, 3), (1, 5, 8)),  # B's N vs A's
+    ((1, 5, 8), (8, 4), (1, 5, 4), (1, 6, 4), (1, 5, 8)),  # C vs B
+    ((5, 8), (8, 4), (5, 4), (5, 4), (5, 8)),              # no batch dim
+])
+def test_ssm_scan_rejects_mismatched_shapes(torch, shapes):
+    from repro_torch.kernels import ops
+    with pytest.raises(ValueError):
+        ops.ssm_scan(*(torch.zeros(s) for s in shapes))

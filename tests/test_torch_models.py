@@ -229,8 +229,8 @@ def test_unported_families_and_int8_kv_raise(torch, cfg, carried):
     from repro_torch.models import build_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(port_cfg(reduced_config(get_arch("xlstm_125m"))))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # hybrid
-        build_model(port_cfg(reduced_config(get_arch("jamba15_large"))))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # audio
+        build_model(port_cfg(reduced_config(get_arch("whisper_small"))))
     _, _, model = carried
     with pytest.raises(NotImplementedError, match="int8"):
         model.init_decode_state(2, 8, kv_dtype="int8")
