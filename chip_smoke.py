@@ -17,18 +17,25 @@ final line:
    (qwen2-moe prefill and decode dispatch shapes, ragged float32;
    ``index_select`` as yardstick) and ssm_scan within 1e-5 (jamba's
    prefill shape and a ragged shape; no PyTorch call computes a selective
-   scan, so no yardstick);
+   scan, so no yardstick) and paged_attention (the decode shapes of
+   qwen2.5-32b, jamba and qwen2-moe, and a ragged float32 case with holes;
+   SDPA over a dense copy gathered beforehand as yardstick);
 3. dense prefill at full width: qwen2.5-32b, all 64 layers, bf16 random
    weights drawn on the card from a seed, B=1, S=4096, through the flash
    kernel (one launch per layer), checked against the plain attention
-   path, and the serving decode path checked against prefill;
+   path, and the serving decode path checked against prefill: over the
+   dense cache, over the paged pool (page 4, through the paged kernel, one
+   launch per layer and step) and over the int8 cache; then the
+   continuous-batching engine over the paged pool (page 16): 8 requests,
+   batch 4, one paged-attention launch per layer and decode step, every
+   request finished and every page released;
 4. dense serving at full width through ``serve_batch``: 8 requests,
    batch 4, greedy, every request finished and every KV page released;
 5. MoE prefill at full width and depth: qwen2-moe-a2.7b, all 24 layers,
    60 experts top-4 + 4 shared, B=1, S=4096, through flash attention and
    the moe_gather dispatch (one launch of each per layer), checked against
-   the plain attention path; decode checked against prefill with the
-   capacity lifted;
+   the plain attention path; decode (dense, paged and int8) checked
+   against prefill with the capacity lifted; paged serving as in 3;
 6. MoE serving through ``serve_batch``: 8 requests, batch 4, one
    moe_gather launch per layer and decode step;
 7. hybrid prefill at full width: jamba-1.5-large cut to one group of 8
@@ -36,13 +43,14 @@ final line:
    experts, so that its 66.3 GiB of bf16 weights fit one card; B=1,
    S=4096, through flash (1 launch), moe_gather (4) and ssm_scan (7),
    checked against the plain attention path; decode (the plain one-step
-   recurrence) checked against prefill (the scan kernel) with the
-   capacity lifted;
+   recurrence; dense and paged) checked against prefill (the scan kernel)
+   with the capacity lifted (a hybrid config ignores the int8 KV cache, as
+   the reference does); paged serving as in 3;
 8. hybrid serving through ``serve_batch`` with the same cut: 8 requests,
    batch 4, moe_gather 4 launches per decode step, no flash or scan.
 
-Launch counts are set to 0 just before each phase's main-path run (3-8)
-and read just after it. The last two lines are a JSON object with one
+Launch counts are set to 0 just before each main-path run of phases 3-8
+(prefill, paged decode, paged serving, serving) and read just after it. The last two lines are a JSON object with one
 entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -92,6 +100,18 @@ SCAN_CASES = [  # (name, Bt, L, di, N)
     ("ragged", 2, 1001, 3000, 16),
 ]
 SCAN_TOL = 1e-5  # as tests/test_kernels.py holds the Pallas scan
+# paged_attention at the decode shapes: qwen2.5-32b (40/8 heads, 4,096
+# tokens of 64-token pages), jamba (64/8 heads, 128-token pages) and
+# qwen2-moe (16/16), lengths drawn in [1, max_pages * page], tables a
+# random permutation of a pool max_pages pages larger than they need; and
+# a ragged float32 case with a hole inside a row and a row of holes only.
+PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes)
+    ("decode", 32, 40, 8, 128, 64, 64, "bfloat16", False),
+    ("jamba", 8, 64, 8, 128, 128, 32, "bfloat16", False),
+    ("moe", 4, 16, 16, 128, 64, 8, "bfloat16", False),
+    ("ragged", 6, 10, 2, 64, 16, 9, "float32", True),
+]
+PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: no tensor cores
 PEAK_BYTES = 3.35e12
@@ -172,6 +192,30 @@ def scan_bound_ms(Bt, L, di, N):
                                        else "bytes")
 
 
+def paged_bound_ms(lengths, tables, page, H, K, hd, dtype, elem):
+    """(ms, "operations" | "bytes"): the K and V rows of every valid
+    position read once (a row with no valid position reads V of each
+    distinct page it gathers, for the reference's uniform mean), q read
+    and the output written once; against 4*hd operations per (query head,
+    valid position) (q.k and p.v)."""
+    row = K * hd * elem  # bytes of one token's K (or V) row, all kv heads
+    nbytes = 2 * len(lengths) * H * hd * elem
+    positions = 0
+    for length, ids in zip(lengths, tables):
+        held = [j for j in range(min(-(-int(length) // page), len(ids)))
+                if ids[j] >= 0]
+        valid = sum(min(page, int(length) - j * page) for j in held)
+        if valid:
+            nbytes += 2 * valid * row
+            positions += valid
+        else:
+            nbytes += len({max(int(i), 0) for i in ids}) * page * row
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 4.0 * hd * H * positions / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def rel_err(torch, got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max())
@@ -234,11 +278,12 @@ def phase_kernel(torch) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as mg
     from repro_torch.kernels import nvcc, ops
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels.ref import attention_ref
 
     t0 = time.perf_counter()
-    modules = (fa, mg, ss)
+    modules = (fa, mg, ss, pa)
     libs = nvcc.compile_all([m.SOURCE for m in modules])
     for m in modules:
         m.build()
@@ -388,6 +433,82 @@ def phase_scan(torch) -> dict:
     return results
 
 
+def phase_paged(torch) -> dict:
+    """paged_attention against its plain version (gather every table
+    entry's page, full softmax) at the decode shapes and a ragged one."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    rng = np.random.default_rng(SEED)
+    results = {}
+    for name, B, H, K, hd, page, max_pages, dtype, holes in PAGED_CASES:
+        dt = getattr(torch, dtype)
+        P = B * max_pages + max_pages
+
+        def mk(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape, dtype=np.float32)).to(DEVICE, dt)
+
+        q, k_pages, v_pages = mk(B, H, hd), mk(P, page, K, hd), \
+            mk(P, page, K, hd)
+        tables_np = rng.permutation(P)[:B * max_pages].reshape(
+            B, max_pages).astype(np.int32)
+        lengths_np = rng.integers(1, max_pages * page + 1, B).astype(np.int32)
+        if holes:  # a hole inside row 0's length, row B-1 holes only
+            lengths_np[0] = max(lengths_np[0], 2 * page + 1)
+            tables_np[0, 1] = -1
+            tables_np[-1] = -1
+        tables = torch.from_numpy(tables_np).to(DEVICE)
+        lengths = torch.from_numpy(lengths_np).to(DEVICE)
+        args = (q, k_pages, v_pages, tables, lengths)
+        out = ops.paged_attention(*args)
+        torch.cuda.synchronize()
+        want = paged_attention_ref(*args)
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        tol = KERNEL_TOL[dtype]
+        if not torch.isfinite(out).all() or \
+                bool((diff > tol + tol * want.float().abs()).any()):
+            raise AssertionError(f"paged_attention case {name}: max |err| "
+                                 f"{err:.3g} outside atol=rtol={tol}")
+        ms = cuda_ms(torch, lambda: ops.paged_attention(*args), 20)
+        plain_ms = cuda_ms(torch, lambda: paged_attention_ref(*args), 3,
+                           warmup=1)
+        # the yardstick: SDPA over a dense (B, K, T, hd) copy of the pages,
+        # gathered here and not timed, with the valid positions as a mask
+        T = max_pages * page
+        ids = tables.long().clamp(min=0)
+        kd, vd = (x[ids].reshape(B, T, K, hd).transpose(1, 2).contiguous()
+                  for x in (k_pages, v_pages))
+        pos = torch.arange(T, device=DEVICE)
+        mask = ((pos[None] < lengths[:, None])
+                & (tables >= 0).repeat_interleave(page, dim=1))[:, None, None]
+        qd = q[:, :, None]
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True), 20)
+        bound, bound_by = paged_bound_ms(lengths_np, tables_np, page, H, K,
+                                         hd, dtype, q.element_size())
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound,
+                             bound_by=bound_by)
+        log(f"[paged] {name}: B={B} H={H} K={K} hd={hd} page={page} "
+            f"max_pages={max_pages} pool={P} {dtype} lengths "
+            f"{int(lengths_np.min())}..{int(lengths_np.max())} (mean "
+            f"{lengths_np.mean():.0f}){', holes' if holes else ''}: "
+            f"max|err| {err:.3g} (tol {tol}) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, sdpa over the pre-gathered dense copy "
+            f"(library_ms; gather not timed) {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms by {bound_by} (roofline share "
+            f"{bound / ms:.1%})")
+        del q, k_pages, v_pages, args, out, want, diff, kd, vd, mask
+        torch.cuda.empty_cache()
+    log(f"[paged] kernels: {json.dumps(ops.launch_counts())}")
+    return results
+
+
 # ------------------------------------------------------ phases 3, 5, 7
 @contextlib.contextmanager
 def kept_slots(ops, record: list):
@@ -406,16 +527,30 @@ def kept_slots(ops, record: list):
         ops.moe_gather = real
 
 
+def n_attention_layers(cfg) -> int:
+    return (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
+            else cfg.n_layers)
+
+
 def expected_launches(cfg) -> dict:
     """Launches of each kernel in one prefill forward: flash per attention
     layer, moe_gather per MoE layer, ssm_scan per Mamba layer."""
+    n_attn = n_attention_layers(cfg)
     if cfg.family == "hybrid":
-        n_attn = cfg.n_layers // cfg.attn_period
-        return {"flash_attention": n_attn,
+        return {"flash_attention": n_attn, "paged_attention": 0,
                 "moe_gather": cfg.n_layers // cfg.moe_period,
                 "ssm_scan": cfg.n_layers - n_attn}
-    return {"flash_attention": cfg.n_layers,
+    return {"flash_attention": n_attn, "paged_attention": 0,
             "moe_gather": cfg.n_layers if cfg.is_moe else 0, "ssm_scan": 0}
+
+
+def decode_launches(cfg, steps: int) -> dict:
+    """Launches of each kernel in ``steps`` decode steps over the paged
+    pool: paged_attention per attention layer, moe_gather per MoE layer."""
+    moe = expected_launches(cfg)["moe_gather"]
+    return {"flash_attention": 0, "paged_attention":
+            n_attention_layers(cfg) * steps, "moe_gather": moe * steps,
+            "ssm_scan": 0}
 
 
 def hybrid_config():
@@ -423,12 +558,14 @@ def hybrid_config():
     return dataclasses.replace(get_arch(HYBRID_ARCH), **HYBRID_CUTS)
 
 
-def phase_prefill(torch, arch, label: str) -> dict:
+def phase_prefill(torch, arch, label: str) -> tuple:
     """Full-width prefill through the flash kernel (and, for a MoE model,
     the moe_gather dispatch; for a hybrid, also the ssm_scan kernel),
-    checked against the plain attention path and the decode path. ``arch``
-    is a name (all layers) or a cut ArchConfig. Returns the main-path
-    run's launch counts."""
+    checked against the plain attention path and the decode paths (dense,
+    paged, int8); then serving over the paged pool. ``arch`` is a name
+    (all layers) or a cut ArchConfig. Returns the main-path runs' launch
+    counts (prefill, paged decode, paged serving) and the paged serving
+    run's result."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -542,30 +679,148 @@ def phase_prefill(torch, arch, label: str) -> dict:
         f"(tol {LOGITS_TOL})")
     if not worst <= LOGITS_TOL:
         raise AssertionError("decode path disagrees with prefill")
+    # Over the paged pool and the int8 cache. A MoE router's top-k choice
+    # flips on bf16 rounding differences (the kernel keeps the softmax
+    # weights in float32, the plain path rounds them to bf16) and on int8
+    # quantization error, so for the MoE model these two are printed here
+    # and the paged path is held against prefill in float32 below.
+    worst, paged_launches = teacher_forced(
+        torch, check, tokens, ref, n, f"{label}: paged decode (page 4)",
+        kv_layout="paged", page_size=4)
+    paged_runs = [launches, paged_launches]
+    moe = cfg.family == "moe"
+    if not (moe or worst <= LOGITS_TOL):
+        raise AssertionError("paged decode disagrees with prefill")
+    if cfg.family != "hybrid":  # a hybrid config ignores kv_dtype
+        worst, _ = teacher_forced(torch, check, tokens, ref, n,
+                                  f"{label}: int8 KV decode",
+                                  kv_dtype="int8")
+        if not (moe or worst <= LOGITS_TOL):
+            raise AssertionError("int8 KV decode disagrees with prefill")
+    if moe:
+        log(f"[{label}] bf16 paged and int8 decode errors above are printed, "
+            f"not held to {LOGITS_TOL}: the top-{cfg.top_k} router flips on "
+            f"rounding and quantization differences; the float32 checks "
+            f"after serving hold the paged path")
     device_breakdown(torch, lambda: model.forward(
         batch, Ctx(use_flash=True), last_only=True), prefill_s, label)
     token = tokens[:, :1].expand(4, 1).contiguous()
-    state = model.init_decode_state(4, 48)
-    steps = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, state = model.decode_step(token, state)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
-    device_breakdown(torch, lambda: model.decode_step(token, state),
-                     sorted(steps)[1], f"{label}: decode step, batch 4")
-    del model, check, flash, plain, ref, state
+    for layout in ("dense", "paged"):
+        state = model.init_decode_state(4, 48, kv_layout=layout,
+                                        page_size=PAGE_SIZE)
+        steps = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state = model.decode_step(token, state)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        device_breakdown(torch, lambda: model.decode_step(token, state),
+                         sorted(steps)[1],
+                         f"{label}: {layout} decode step, batch 4")
+        del state
+    served, serve_launches = paged_serving(torch, model, label)
+    paged_runs.append(serve_launches)
+    del model, flash, plain, ref
+    gc.collect()
+    if moe:
+        paged_runs.append(float32_decode_checks(torch, check, tokens, n,
+                                                label))
+    del check
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return paged_runs, served
+
+
+def teacher_forced(torch, model, tokens, ref, n: int, label: str,
+                   **state_kw) -> tuple:
+    """Teacher-forced decode of ``tokens[:, :n]`` from the state
+    ``model.init_decode_state(1, 16, model.dtype, **state_kw)`` builds, against
+    prefill's logits ``ref``. Returns max |diff| / max |prefill| over the
+    steps and the run's launch counts; a paged run's launches are checked
+    (one paged_attention per attention layer and step)."""
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    state = model.init_decode_state(1, 16, model.dtype, **state_kw)
+    ops.reset_launch_counts()
+    worst = 0.0
+    for t in range(n):
+        step, state = model.decode_step(tokens[:, t:t + 1], state)
+        worst = max(worst, rel_err(torch, step[..., :cfg.vocab_size],
+                                   ref[:, t:t + 1, :cfg.vocab_size]))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"[{label}] vs prefill logits over {n} teacher-forced tokens, "
+        f"{model.dtype}: max|diff|/max|prefill| = {worst:.3g} (tol "
+        f"{LOGITS_TOL}); launches {json.dumps(launches)}")
+    if state_kw.get("kv_layout") == "paged" and \
+            launches != decode_launches(cfg, n):
+        raise AssertionError(f"expected launches {decode_launches(cfg, n)}"
+                             f", got {launches}")
+    return worst, launches
+
+
+def float32_decode_checks(torch, model, tokens, n: int, label: str) -> dict:
+    """The MoE model's decode paths against prefill in float32: ``model``
+    (the capacity-lifted view of the loaded weights) is converted in place
+    leaf by leaf, so the bf16 copy is freed as the float32 one is made.
+    Returns the paged run's launch counts."""
+    from repro_torch.models import Ctx
+    for module in model.modules():
+        for name, p in list(module.named_parameters(recurse=False)):
+            setattr(module, name, torch.nn.Parameter(p.data.float(),
+                                                     requires_grad=False))
+            del p
+        torch.cuda.empty_cache()
+    log(f"[{label}] weights converted in place to {model.dtype}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ref, _ = model.forward({"tokens": tokens[:, :n]}, Ctx())
+    results = {}
+    for name, kw in (("dense decode", {}),
+                     ("paged decode (page 4)",
+                      {"kv_layout": "paged", "page_size": 4}),
+                     ("int8 KV decode", {"kv_dtype": "int8"})):
+        results[name] = teacher_forced(torch, model, tokens, ref, n,
+                                       f"{label}: {name}", **kw)
+    for name in ("dense decode", "paged decode (page 4)"):
+        if not results[name][0] <= LOGITS_TOL:
+            raise AssertionError(f"float32 {name} disagrees with prefill")
+    return results["paged decode (page 4)"][1]
+
+
+def paged_serving(torch, model, label: str) -> tuple:
+    """The serving engine over the paged pool on the loaded model: the
+    requests of the dense serving phase, batch 4, max_seq 48, page 16.
+    Returns its result and launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_model
+    cfg = model.cfg
+    ops.reset_launch_counts()
+    out = serve_model(model, n_requests=8, max_new=32, batch_size=4,
+                      seed=SEED, kv_layout="paged", page_size=PAGE_SIZE)
+    launches = ops.launch_counts()
+    tps = out["tokens"] / out["seconds"]
+    log(f"[{label}: paged serve] {out['finished']}/8 requests finished, "
+        f"{out['tokens']} tokens in {out['iters']} decode steps, "
+        f"{out['seconds']:.2f} s: {tps:.1f} tokens/s, "
+        f"{out['seconds'] / out['iters'] * 1e3:.1f} ms/step at batch 4, "
+        f"page {PAGE_SIZE}; KV pages in use {out['pages_in_use']}; launches "
+        f"{json.dumps(launches)}")
+    if out["finished"] != 8 or out["pages_in_use"] != 0:
+        raise AssertionError(f"paged serving did not complete: "
+                             f"{ {k: v for k, v in out.items() if k != 'outputs'} }")
+    want = decode_launches(cfg, out["iters"])
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    return out, launches
 
 
 # ------------------------------------------------------ phases 4, 6, 8
-def phase_serving(torch, arch, label: str) -> dict:
-    """serve_batch at full width: 8 requests, batch 4, greedy. ``arch`` is
-    a name (all layers) or a cut ArchConfig. Returns the run's launch
-    counts."""
+def phase_serving(torch, arch, label: str, paged: dict) -> dict:
+    """serve_batch at full width: 8 requests, batch 4, greedy, over the
+    dense cache; printed beside ``paged``, the same requests served over
+    the paged pool in the prefill phase. ``arch`` is a name (all layers)
+    or a cut ArchConfig. Returns the run's launch counts."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_batch
@@ -587,11 +842,22 @@ def phase_serving(torch, arch, label: str) -> dict:
         f"steps the Mamba recurrence in plain torch; moe_gather {layers} "
         f"per step)")
     if out["finished"] != 8 or out["pages_in_use"] != 0:
-        raise AssertionError(f"serving did not complete: {out}")
-    want = {"flash_attention": 0, "moe_gather": layers * out["iters"],
-            "ssm_scan": 0}
+        raise AssertionError(f"serving did not complete: "
+                             f"{ {k: v for k, v in out.items() if k != 'outputs'} }")
+    want = {"flash_attention": 0, "paged_attention": 0,
+            "moe_gather": layers * out["iters"], "ssm_scan": 0}
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
+    pairs = [(a, b) for got, ref in zip(paged["outputs"], out["outputs"])
+             for a, b in zip(got, ref)]
+    same = sum(a == b for a, b in pairs)
+    log(f"[{label}] paged vs dense serving: {paged['tokens'] / paged['seconds']:.1f}"
+        f" vs {tps:.1f} tokens/s, "
+        f"{paged['seconds'] / paged['iters'] * 1e3:.1f} vs "
+        f"{out['seconds'] / out['iters'] * 1e3:.1f} ms/step; {same} of "
+        f"{len(pairs)} generated tokens agree (not asserted: bf16 dense "
+        f"decode rounds the softmax weights to bf16, the kernel keeps them "
+        f"in float32)")
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -609,15 +875,17 @@ def main() -> int:
     kernel = phase_kernel(torch)
     gather = phase_gather(torch)
     scan = phase_scan(torch)
-    runs = [phase_prefill(torch, ARCH, "prefill"),
-            phase_serving(torch, ARCH, "serve"),
-            phase_prefill(torch, MOE_ARCH, "moe prefill"),
-            phase_serving(torch, MOE_ARCH, "moe serve"),
-            phase_prefill(torch, hybrid_config(), "hybrid prefill"),
-            phase_serving(torch, hybrid_config(), "hybrid serve")]
+    paged = phase_paged(torch)
+    runs = []
+    for arch, label in ((ARCH, ""), (MOE_ARCH, "moe "),
+                        (hybrid_config(), "hybrid ")):
+        prefill_runs, served = phase_prefill(torch, arch, f"{label}prefill")
+        runs += prefill_runs
+        runs.append(phase_serving(torch, arch, f"{label}serve", served))
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-8: {json.dumps(launches)}")
     flash, moe, ssm = kernel["prefill"], gather["prefill"], scan["prefill"]
+    decode = paged["decode"]
     line = {"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -642,7 +910,15 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in scan.values()),
         "ms": ssm["ms"], "plain_ms": ssm["plain_ms"],
         "bound_ms": ssm["bound_ms"], "bound_by": ssm["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None}, {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:65",
+        "launches": launches["paged_attention"],
+        "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"]}]}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""Serving step: one-token decode against the dense KV cache, sampling,
-and a continuous-batching host loop driven by the KV page allocator (port
-of ``repro.engine.serve_step``; eager PyTorch, no jit)."""
+"""Serving step: one-token decode against the KV cache, sampling, and a
+continuous-batching host loop driven by the KV page allocator (port of
+``repro.engine.serve_step``; eager PyTorch, no jit). The engine decodes
+against the dense cache, as the reference does, or against the paged
+pool, whose pages the allocator places."""
 from __future__ import annotations
 
 import dataclasses
@@ -53,26 +55,37 @@ class ServingEngine:
 
     Slots in the device batch are the buffer-pool frames; finished
     sequences release their KV pages back to the free list and the slot is
-    refilled from the queue. The model decodes against its dense cache
-    (and, for a hybrid model, its per-slot Mamba states)."""
+    refilled from the queue. With ``kv_layout="dense"`` the model decodes
+    against its dense cache, and the allocator only keeps the books, as in
+    the reference. With ``kv_layout="paged"`` it decodes against the paged
+    pool (``page_size`` tokens a page): before each step every active slot
+    gets room for one more token (a new page at a page boundary), and the
+    block tables and each slot's tail page go to the card in one copy
+    each; an idle slot's table row is all holes and its write is dropped.
+    A hybrid model also keeps its per-slot Mamba states."""
 
     def __init__(self, model: Model, batch_size: int, max_seq: int,
                  ctx: Optional[Ctx] = None, eos_id: int = 0,
-                 page_size: int = 64):
+                 page_size: int = 64, kv_layout: str = "dense"):
         self.model = model
         self.B = batch_size
         self.max_seq = max_seq
         self.ctx = ctx or Ctx()
         self.eos = eos_id
         cfg = model.cfg
+        n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
+                  else cfg.n_layers)
         self.kv_cfg = KVCacheConfig(
-            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+            n_layers=n_attn, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, max_seq_len=max_seq,
             page_size=page_size,
             num_pages=batch_size * (-(-max_seq // page_size)) * 2,
             num_shards=1)
         self.pages = KVPageManager(self.kv_cfg)
-        self.state = model.init_decode_state(batch_size, max_seq, model.dtype)
+        self.paged = kv_layout == "paged"
+        self.state = model.init_decode_state(
+            batch_size, max_seq, model.dtype, kv_layout=kv_layout,
+            page_size=page_size, num_pages=self.kv_cfg.num_pages)
         self.slots: List[Optional[_Seq]] = [None] * batch_size
         self.queue: List[_Seq] = []
         self.finished: List[_Seq] = []
@@ -111,8 +124,14 @@ class ServingEngine:
                 self._tokens[i, 0] = pend.pop(0)  # prompt feeding
         if active == 0:
             return 0
+        if self.paged:
+            self._place_pages()
         token = torch.from_numpy(self._tokens).to(self.model.device)
         nxt, _, self.state = self._step(token, self.state, generator)
+        if self.paged:
+            for seq in self.slots:
+                if seq is not None:
+                    self.pages.advance(seq.sid)
         nxt = nxt.cpu().numpy()
         lengths = self.state.length.cpu().numpy()
         for i, seq in enumerate(self.slots):
@@ -131,3 +150,16 @@ class ServingEngine:
                 self.slots[i] = None
                 self._prompts_pending.pop(i, None)
         return active
+
+    def _place_pages(self) -> None:
+        """Room for this step's token in every active slot's pages, then
+        the block tables and the tail pages to the card, once per step."""
+        sids, tail = [], np.full(self.B, -1, np.int32)
+        for i, seq in enumerate(self.slots):
+            sids.append(-1 if seq is None else seq.sid)  # -1: owns no page
+            if seq is not None:
+                self.pages.allocate(seq.sid, 1)
+                tail[i] = self.pages.tail_physical_page(seq.sid)
+        self.state.kv.block_tables.copy_(
+            torch.from_numpy(self.pages.build_tables(sids)))
+        self.state.tail.copy_(torch.from_numpy(tail))

@@ -10,11 +10,12 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_dispatch as _moe
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ssm
 
-__all__ = ["flash_attention", "moe_gather", "ssm_scan", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["flash_attention", "paged_attention", "moe_gather", "ssm_scan",
+           "launch_counts", "reset_launch_counts"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -25,6 +26,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
     return _fa.flash_attention_fwd(q, k, v, causal=causal)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, tables: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B,H,hd); k/v_pages: (P,page,K,hd); tables: (B,max_pages) int32
+    global page ids, -1 a hole; lengths: (B,) int32 -> (B,H,hd) in q's
+    dtype."""
+    _pa.check_shapes(q, k_pages, v_pages, tables, lengths)
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pages, v_pages, tables, lengths)
+    return _pa.paged_attention(q, k_pages, v_pages, tables, lengths)
 
 
 def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
@@ -50,11 +63,13 @@ def ssm_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 def launch_counts() -> dict:
     """Launches of each hand-written kernel since the last reset."""
     return {"flash_attention": _fa.LAUNCHES.count,
+            "paged_attention": _pa.LAUNCHES.count,
             "moe_gather": _moe.LAUNCHES.count,
             "ssm_scan": _ssm.LAUNCHES.count}
 
 
 def reset_launch_counts() -> None:
     _fa.LAUNCHES.count = 0
+    _pa.LAUNCHES.count = 0
     _moe.LAUNCHES.count = 0
     _ssm.LAUNCHES.count = 0

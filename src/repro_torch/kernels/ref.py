@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "moe_gather_ref", "ssm_scan_ref"]
+__all__ = ["attention_ref", "paged_attention_ref", "moe_gather_ref",
+           "ssm_scan_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -24,6 +25,32 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, tables: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B,H,hd); k/v_pages: (P,ps,K,hd); tables: (B,maxp) global page
+    ids (-1 = hole); lengths: (B,). Gathers every table entry's page (a
+    hole reads page 0, as the reference's ``max(tables, 0)``), then a full
+    float32 softmax with invalid positions at -1e30: a row with no valid
+    position gets the uniform mean of V over its gathered positions."""
+    B, H, hd = q.shape
+    P, ps, K, _ = k_pages.shape
+    maxp = tables.shape[1]
+    G = H // K
+    t = tables.long().clamp(min=0)
+    k_seq = k_pages[t].reshape(B, maxp * ps, K, hd)  # (B, S, K, hd)
+    v_seq = v_pages[t].reshape(B, maxp * ps, K, hd)
+    pos = torch.arange(maxp * ps, device=q.device)
+    page_ok = (tables >= 0).repeat_interleave(ps, dim=1)
+    valid = (pos[None] < lengths[:, None]) & page_ok
+    qg = q.reshape(B, K, G, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_seq.float()) * (hd ** -0.5)
+    s = s.masked_fill(~valid[:, None, None], -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", w, v_seq.float())
+    return o.reshape(B, H, hd).to(q.dtype)
 
 
 def moe_gather_ref(x: torch.Tensor, token_ids: torch.Tensor,

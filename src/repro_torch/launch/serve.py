@@ -1,8 +1,9 @@
-"""Serving driver: continuous batching over the KV page allocator.
+"""Serving entry point: continuous batching over the KV page allocator, against
+the dense KV cache or (``--kv-layout paged``) the paged pool.
 
 Usage (on a CUDA card unless --device names another):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen25_32b \\
-      --reduced --requests 8 --max-new 32
+      --reduced --requests 8 --max-new 32 [--kv-layout paged --page-size 16]
 """
 from __future__ import annotations
 
@@ -15,34 +16,50 @@ import torch
 
 from repro_torch.configs import ArchConfig, get_arch, reduced_config
 from repro_torch.engine.serve_step import ServingEngine
-from repro_torch.models import build_model, resolve_device
+from repro_torch.models import Model, build_model, resolve_device
 
-__all__ = ["serve_batch", "main"]
+__all__ = ["serve_batch", "serve_model", "main"]
 
 
 def serve_batch(arch: Union[str, ArchConfig], *, n_requests: int = 8, max_new: int = 32,
                 batch_size: int = 4, reduced: bool = True, seed: int = 0,
-                device=None, dtype=None, layers: Optional[int] = None):
+                device=None, dtype=None, layers: Optional[int] = None,
+                kv_layout: str = "dense", page_size: int = 64):
     """Serve ``n_requests`` seeded random prompts greedily to completion.
 
     ``arch`` is a name or an ``ArchConfig``. ``device`` defaults to CUDA
     (raises without a card), ``dtype`` to the config's ``param_dtype``,
     ``layers`` to the full depth. Weights are random, drawn on the device
-    from ``seed``."""
+    from ``seed``. The rest is ``serve_model``'s."""
     dev = resolve_device(device)
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     if reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg, layers=layers)
     model.init_params(torch.Generator(dev).manual_seed(seed), dtype)
+    return serve_model(model, n_requests=n_requests, max_new=max_new,
+                       batch_size=batch_size, seed=seed, kv_layout=kv_layout,
+                       page_size=page_size)
+
+
+def serve_model(model: Model, *, n_requests: int = 8, max_new: int = 32,
+                batch_size: int = 4, seed: int = 0, kv_layout: str = "dense",
+                page_size: int = 64):
+    """Serve ``n_requests`` prompts drawn from ``seed`` (2-7 tokens each)
+    greedily to completion through a ``ServingEngine`` over ``model``
+    (max_seq ``max_new + 16``; ``kv_layout`` "dense" or "paged",
+    ``page_size`` tokens a page). Returns the counts, the wall time and
+    each request's generated tokens in submission order."""
     eng = ServingEngine(model, batch_size=batch_size,
-                        max_seq=max_new + 16, eos_id=-1)
+                        max_seq=max_new + 16, eos_id=-1,
+                        page_size=page_size, kv_layout=kv_layout)
     rng = np.random.default_rng(seed)
     for _ in range(n_requests):
-        prompt = rng.integers(1, cfg.vocab_size, rng.integers(2, 8)).tolist()
+        prompt = rng.integers(1, model.cfg.vocab_size,
+                              rng.integers(2, 8)).tolist()
         eng.submit(prompt)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
     t0 = time.perf_counter()
     iters = 0
     while eng.queue or any(s is not None for s in eng.slots):
@@ -54,7 +71,9 @@ def serve_batch(arch: Union[str, ArchConfig], *, n_requests: int = 8, max_new: i
     toks = sum(len(s.out) for s in eng.finished)
     return {"finished": len(eng.finished), "tokens": toks,
             "seconds": dt, "iters": iters,
-            "pages_in_use": eng.pages.pages_in_use()}
+            "pages_in_use": eng.pages.pages_in_use(),
+            "outputs": [s.out for s in sorted(eng.finished,
+                                              key=lambda s: s.sid)]}
 
 
 def main(argv=None):
@@ -70,11 +89,17 @@ def main(argv=None):
                     help="default: the config's param_dtype")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (default: all layers)")
+    ap.add_argument("--kv-layout", choices=("dense", "paged"),
+                    default="dense",
+                    help="decode against the dense cache or the paged pool")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per KV page")
     args = ap.parse_args(argv)
     out = serve_batch(args.arch, n_requests=args.requests,
                       max_new=args.max_new, batch_size=args.batch,
                       reduced=args.reduced, device=args.device,
-                      dtype=args.dtype, layers=args.layers)
+                      dtype=args.dtype, layers=args.layers,
+                      kv_layout=args.kv_layout, page_size=args.page_size)
     print(f"served {out['finished']} requests, {out['tokens']} tokens in "
           f"{out['seconds']:.1f}s ({out['iters']} engine steps); "
           f"KV pages still held: {out['pages_in_use']}")

@@ -1,5 +1,6 @@
 """GQA attention: prefill (full + chunked online-softmax paths, or the
-hand-written flash kernel) and decode against a dense KV cache (port of
+hand-written flash kernel) and decode against a dense KV cache or, through
+the hand-written paged-attention kernel, a paged pool (port of
 ``repro.models.attention``; ``cross_attention_block`` waits for whisper).
 
 Layouts are the reference's: q (B,S,H,hd), k/v (B,T,K,hd); q head h
@@ -17,7 +18,8 @@ from repro_torch.models.layers import rope
 from repro_torch.models.params import ParamDef
 
 __all__ = ["attn_defs", "attn_project_qkv", "full_attention",
-           "chunked_attention", "decode_attention", "attention_block"]
+           "chunked_attention", "decode_attention", "paged_decode_attention",
+           "attention_block"]
 
 _NEG = -1e30
 CHUNKED_THRESHOLD = 8192  # use online-softmax KV chunking above this S
@@ -132,6 +134,17 @@ def decode_attention(cfg: ArchConfig, q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", w.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """One-token attention vs one layer's view of the paged pool.
+
+    q: (B,1,H,hd); k/v_pages: (P,page,K,hd); tables: (B,max_pages) int32
+    global page ids, -1 a hole; lengths: (B,) int32 valid prefix."""
+    return kops.paged_attention(q[:, 0], k_pages, v_pages, tables,
+                                lengths)[:, None]
 
 
 def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,

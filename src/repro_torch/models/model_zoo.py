@@ -98,13 +98,18 @@ class Model(nn.Module):
                               ctx or Ctx())
 
     def init_decode_state(self, batch: int, max_seq: int, dtype=None,
-                          kv_dtype: Optional[str] = None, device=None):
-        """Dense KV cache; dtype defaults to the config's ``param_dtype``
-        and device to the parameters' device."""
+                          kv_dtype: Optional[str] = None, device=None,
+                          kv_layout: str = "dense", page_size: int = 64,
+                          num_pages: Optional[int] = None):
+        """The dense KV cache (``kv_dtype="int8"``: int8 with scales) or,
+        with ``kv_layout="paged"``, the paged pool of ``page_size``-token
+        pages (``transformer.init_decode_state``); dtype defaults to the
+        config's ``param_dtype`` and device to the parameters' device."""
         return tf.init_decode_state(
             self.cfg, batch, max_seq,
             pp.torch_dtype(dtype or self.cfg.param_dtype),
-            device or self.device, kv_dtype=kv_dtype)
+            device or self.device, kv_dtype=kv_dtype, kv_layout=kv_layout,
+            page_size=page_size, num_pages=num_pages)
 
 
 def build_model(arch: Union[str, ArchConfig],

@@ -1,19 +1,35 @@
-"""Host allocator of the paged KV cache (port of
-``repro.objectmodel.kvcache``: ``KVCacheConfig`` and ``KVPageManager``).
+"""The paged KV cache (port of ``repro.objectmodel.kvcache``).
 
 Pages are fixed-size allocation blocks of a device pool, recycled through
-per-shard free lists (never compacted). The allocator is numpy and plain
-Python. The device side (``init_paged_state``, ``paged_append``,
-``gather_paged_kv``) waits for the paged-attention slice.
+per-shard free lists (never compacted). The host allocator
+(``KVPageManager``) is numpy and plain Python. The device side holds the
+two layouts:
+
+* ``dense``: ``(L, B, S_max, Kv, Hd)`` contiguous per sequence;
+* ``paged``: a pool ``(L, P, page, Kv, Hd)`` plus per-shard block tables
+  ``(shards, B, slots)`` of local page ids, -1 a hole; entry j of shard s
+  holds a sequence's (j * shards + s)-th page. ``global_page_tables``
+  turns them into the ``(B, slots * shards)`` global ids the
+  paged-attention kernel follows.
+
+The appends update the tensors in place (JAX returns new arrays) and
+return the state with ``length + 1``. A write with nowhere to go is
+dropped: past the end of a dense cache, or to a page id below 0 (an idle
+serving slot, or a sequence past its pages).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["KVCacheConfig", "KVPageManager"]
+__all__ = ["KVCacheConfig", "DenseKVCache", "PagedKVState", "KVPageManager",
+           "PagedWrite", "init_dense_cache", "init_paged_state",
+           "dense_append", "paged_append", "gather_paged_kv",
+           "global_page_tables", "plan_paged_write", "tail_pages",
+           "write_paged", "write_token"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +53,173 @@ class KVCacheConfig:
             raise ValueError(f"{self.num_pages} pages do not split over "
                              f"{self.num_shards} shards")
         return self.num_pages // max(1, self.num_shards)
+
+
+class DenseKVCache(NamedTuple):
+    k: torch.Tensor  # (L, B, S, Kv, Hd)
+    v: torch.Tensor
+    length: torch.Tensor  # (B,) int32: tokens currently cached
+
+
+class PagedKVState(NamedTuple):
+    k_pages: torch.Tensor  # (L, P, page, Kv, Hd)
+    v_pages: torch.Tensor
+    # Per-shard tables: (shards, B, pages_per_seq_per_shard) LOCAL page ids,
+    # -1 = hole. Entry j of shard s holds the sequence's (j*shards+s)-th page.
+    block_tables: torch.Tensor
+    length: torch.Tensor  # (B,) int32
+
+
+def _dtype(cfg: KVCacheConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_dense_cache(cfg: KVCacheConfig, batch: int,
+                     device=None) -> DenseKVCache:
+    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    return DenseKVCache(
+        torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def init_paged_state(cfg: KVCacheConfig, batch: int,
+                     device=None) -> PagedKVState:
+    if cfg.num_pages <= 0:
+        raise ValueError("the paged layout needs num_pages > 0")
+    shape = (cfg.n_layers, cfg.num_pages, cfg.page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    shards = max(1, cfg.num_shards)
+    slots = -(-cfg.pages_per_seq // shards)
+    return PagedKVState(
+        torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        torch.full((shards, batch, slots), -1, dtype=torch.int32,
+                   device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+# ---------------------------------------------------------------- appends
+def write_token(cache: torch.Tensor, new: torch.Tensor,
+                length: torch.Tensor) -> None:
+    """cache[b, length[b]] = new[b] in place, for every b with
+    length[b] < Smax. Rows at or past the end are dropped, as JAX drops an
+    out-of-range scatter: an idle serving slot keeps counting past Smax.
+    cache: (B, Smax, ...); new: (B, ...)."""
+    B, Smax = cache.shape[:2]
+    b_idx = torch.arange(B, device=cache.device)
+    pos = length.long().clamp(max=Smax - 1)
+    keep = (length < Smax).view(B, *([1] * (new.dim() - 1)))
+    cache[b_idx, pos] = torch.where(keep, new.to(cache.dtype),
+                                    cache[b_idx, pos])
+
+
+def dense_append(cache: DenseKVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> DenseKVCache:
+    """Write one token per sequence at position ``length`` of every layer,
+    in place. k_new/v_new: (L, B, Kv, Hd)."""
+    for layer in range(k_new.shape[0]):
+        write_token(cache.k[layer], k_new[layer], cache.length)
+        write_token(cache.v[layer], v_new[layer], cache.length)
+    return cache._replace(length=cache.length + 1)
+
+
+class PagedWrite(NamedTuple):
+    """Where one decode step writes each sequence's new token in a pool
+    layer: row b goes to ``(page[b], slot[b])`` and carries the token of
+    row ``src[b]``. A dropped row (page id below 0) is sent to the target
+    of the first kept row with that row's token, so that no two rows write
+    different values to one place in one scatter; with no kept row
+    (``any_kept`` false) every row writes back what is there."""
+    page: torch.Tensor  # (B,) int64
+    slot: torch.Tensor  # (B,) int64
+    src: torch.Tensor  # (B,) int64
+    any_kept: torch.Tensor  # () bool
+
+
+def plan_paged_write(physical_page: torch.Tensor, length: torch.Tensor,
+                     page_size: int) -> PagedWrite:
+    """The scatter of one step's tokens: sequence b writes position
+    ``length[b]`` into slot ``length[b] % page_size`` of page
+    ``physical_page[b]`` (its tail page, resolved on the host), or
+    nowhere when that id is below 0. No host sync."""
+    kept = physical_page >= 0
+    first = kept.int().argmax()  # the first kept row (0 when none)
+    slot = length.long() % page_size
+    rows = torch.arange(kept.shape[0], device=kept.device)
+    return PagedWrite(
+        page=torch.where(kept, physical_page, physical_page[first]).long()
+        .clamp(min=0),
+        slot=torch.where(kept, slot, slot[first]),
+        src=torch.where(kept, rows, first),
+        any_kept=kept.any())
+
+
+def write_paged(pages: torch.Tensor, new: torch.Tensor,
+                plan: PagedWrite) -> None:
+    """One pool layer's write, in place. pages: (P, page, Kv, Hd); new:
+    (B, Kv, Hd)."""
+    old = pages[plan.page, plan.slot]
+    pages[plan.page, plan.slot] = torch.where(
+        plan.any_kept, new[plan.src].to(pages.dtype), old)
+
+
+def paged_append(state: PagedKVState, k_new: torch.Tensor,
+                 v_new: torch.Tensor,
+                 physical_page: torch.Tensor) -> PagedKVState:
+    """Write one token per sequence into its current page, in every layer.
+
+    ``physical_page``: (B,) int32 global page id of each sequence's tail page
+    (resolved by the host page manager; below 0: the write is dropped).
+    k_new/v_new: (L, B, Kv, Hd)."""
+    plan = plan_paged_write(physical_page, state.length,
+                            state.k_pages.shape[2])
+    for layer in range(k_new.shape[0]):
+        write_paged(state.k_pages[layer], k_new[layer], plan)
+        write_paged(state.v_pages[layer], v_new[layer], plan)
+    return state._replace(length=state.length + 1)
+
+
+def global_page_tables(block_tables: torch.Tensor,
+                       pages_per_shard: int) -> torch.Tensor:
+    """(shards, B, slots) local ids -> (B, slots * shards) int32 global
+    ids, -1 kept for a hole: entry ``j * shards + s`` is
+    ``s * pages_per_shard + local`` of shard s's entry j."""
+    shards, B, slots = block_tables.shape
+    offset = (torch.arange(shards, dtype=torch.int32,
+                           device=block_tables.device)
+              * pages_per_shard).view(shards, 1, 1)
+    glob = torch.where(block_tables >= 0, block_tables + offset,
+                       torch.full_like(block_tables, -1))
+    return glob.permute(1, 2, 0).reshape(B, slots * shards).contiguous()
+
+
+def tail_pages(tables: torch.Tensor, length: torch.Tensor,
+               page_size: int) -> torch.Tensor:
+    """(B,) int32 global id of the page that holds position ``length[b]``
+    of each sequence, from its (B, max_pages) global table: -1 for a hole
+    or past the table's end (where ``KVPageManager.tail_physical_page``
+    clamps to the last page, the device drops the write). No host sync."""
+    idx = (length // page_size).long()
+    inside = idx < tables.shape[1]
+    page = tables.gather(1, idx.clamp(max=tables.shape[1] - 1)[:, None])
+    return torch.where(inside, page[:, 0], torch.full_like(page[:, 0], -1))
+
+
+def gather_paged_kv(state: PagedKVState, cfg: KVCacheConfig, seq: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reassemble sequence ``seq``'s K/V from its pages (a hole reads as
+    zeros). Returns an (L, S, Kv, Hd) pair, S = its length."""
+    tables = global_page_tables(state.block_tables, cfg.pages_per_shard)[seq]
+    held = (tables >= 0).view(1, -1, 1, 1, 1)
+    ids = tables.long().clamp(min=0)
+    n = int(state.length[seq])
+    out = []
+    for pool in (state.k_pages, state.v_pages):
+        pages = torch.where(held, pool[:, ids], torch.zeros_like(pool[:, ids]))
+        out.append(pages.flatten(1, 2)[:, :n])
+    return out[0], out[1]
 
 
 class KVPageManager:

@@ -10,7 +10,9 @@ bfloat16 for flash attention (the kernel rounds the softmax weights to
 bf16 before P@V, as the model's plain path does); none for ``moe_gather``,
 a copy held bit for bit; 1e-5 for ``ssm_scan``, as tests/test_kernels.py
 holds the Pallas scan (float32; the kernel fuses multiply-adds and sums
-the N states in another order than the plain version)."""
+the N states in another order than the plain version); 2e-5 in float32
+and 2e-2 in bfloat16 for ``paged_attention``, as tests/test_kernels.py
+holds the Pallas kernel (online softmax against the plain full softmax)."""
 import numpy as np
 import pytest
 
@@ -251,3 +253,116 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take(torch):
     with pytest.raises(ValueError, match="CUDA"):
         ss.ssm_scan(dt.cpu(), A.cpu(), B.cpu(), C.cpu(), x.cpu())
     assert ss.LAUNCHES.count == before
+
+
+def _paged_inputs(torch, B, H, K, hd, page, max_pages, dtype, seed=0,
+                  holes=True):
+    """Pages drawn as a random permutation of a pool larger than the
+    tables need; lengths not multiples of the page; with ``holes``, one
+    hole inside row 0's length and a last row of holes only."""
+    rng = np.random.default_rng(seed)
+    P = B * max_pages + 3
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
+    q = mk(B, H, hd)
+    k_pages, v_pages = mk(P, page, K, hd), mk(P, page, K, hd)
+    tables = rng.permutation(P)[:B * max_pages].reshape(B, max_pages)
+    lengths = rng.integers(1, max_pages * page + 1, B)
+    if holes:
+        lengths[0] = max(lengths[0], 2 * page + 1)
+        tables[0, 1] = -1
+        if B > 1:
+            tables[-1] = -1
+    return (q, k_pages, v_pages,
+            torch.from_numpy(tables.astype(np.int32)).to("cuda"),
+            torch.from_numpy(lengths.astype(np.int32)).to("cuda"))
+
+
+@pytest.mark.parametrize("B,H,K,hd,page,max_pages", [
+    (3, 8, 8, 128, 16, 4),    # G=1 (qwen2-moe's MHA)
+    (4, 10, 2, 128, 16, 5),   # G=5 (qwen2.5-32b's grouping)
+    (2, 40, 8, 128, 64, 8),   # qwen2.5-32b's heads
+    (3, 64, 8, 128, 32, 3),   # G=8 (jamba's heads)
+    (2, 12, 1, 64, 8, 7),     # G=12: two chunks of heads
+    (5, 6, 2, 32, 5, 9),      # odd page size
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_matches_plain(torch, B, H, K, hd, page,
+                                              max_pages, dtype):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attention_ref
+    dt = getattr(torch, dtype)
+    args = _paged_inputs(torch, B, H, K, hd, page, max_pages, dt)
+    before = pa.LAUNCHES.count
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES.count == before + 1
+    assert out.dtype == dt and out.shape == (B, H, hd)
+    want = paged_attention_ref(*args)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+def test_paged_attention_kernel_rows_with_no_valid_position(torch):
+    """Length 0, holes only, and length 0 over real pages: each row is the
+    reference's uniform mean of V over its gathered positions."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import paged_attention_ref
+    q, kp, vp, tables, lengths = _paged_inputs(torch, 4, 10, 2, 64, 8, 3,
+                                               torch.float32, holes=False)
+    tables[1] = -1
+    lengths[2] = 0
+    tables[3, 1] = -1
+    lengths[3] = 0
+    out = ops.paged_attention(q, kp, vp, tables, lengths)
+    want = paged_attention_ref(q, kp, vp, tables, lengths)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+    mean = vp[0].float().mean(0).repeat_interleave(5, 0)  # page 0, G=5
+    np.testing.assert_allclose(out[1].cpu().numpy(), mean.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_paged_attention_kernel_reads_the_model_pool_view(torch):
+    """One layer's view of the (L, P, page, K, hd) pool and q as the model
+    passes it, a (B, 1, H, hd) slice: read in place, no copy."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import paged_attention_ref
+    q, kp, vp, tables, lengths = _paged_inputs(torch, 3, 10, 2, 128, 16, 4,
+                                               torch.bfloat16)
+    pool_k = torch.stack([kp, kp.flip(0), kp])
+    pool_v = torch.stack([vp, vp, vp.flip(0)])
+    q4 = q[:, None]
+    out = ops.paged_attention(q4[:, 0], pool_k[1], pool_v[1], tables,
+                              lengths)
+    want = paged_attention_ref(q, kp.flip(0), vp, tables, lengths)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_paged_attention_kernel_refuses_what_it_does_not_take(torch):
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, tables, lengths = _paged_inputs(torch, 2, 4, 2, 64, 8, 3,
+                                               torch.bfloat16)
+    before = pa.LAUNCHES.count
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.half(), kp.half(), vp.half(), tables, lengths)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, kp.float(), vp, tables, lengths)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_attention(q, kp, vp, tables.long(), lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention(q, kp.transpose(0, 1).contiguous().transpose(0, 1),
+                           vp, tables, lengths)
+    q48 = torch.zeros(2, 4, 48, device="cuda", dtype=torch.bfloat16)
+    k48 = torch.zeros(5, 8, 2, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_attention(q48, k48, k48, tables, lengths)
+    with pytest.raises(ValueError, match="disagree"):
+        pa.paged_attention(q[:, :3], kp, vp, tables, lengths)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.paged_attention(q.cpu(), kp.cpu(), vp.cpu(), tables.cpu(),
+                           lengths.cpu())
+    assert pa.LAUNCHES.count == before

@@ -65,12 +65,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(torch):
         torch.ones(6, dtype=torch.bool)
     scan = [torch.zeros(s) for s in ((1, 5, 8), (8, 4), (1, 5, 4), (1, 5, 4),
                                      (1, 5, 8))]
+    pages = torch.zeros(3, 4, 1, 16)
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    lengths = torch.ones(1, dtype=torch.int32)
     ops.reset_launch_counts()
     ops.flash_attention(q, k, v)
     ops.moe_gather(x, ids, keep)
     ops.ssm_scan(*scan)
-    assert ops.launch_counts() == {"flash_attention": 0, "moe_gather": 0,
-                                   "ssm_scan": 0}
+    ops.paged_attention(q[:, 0], pages, pages, tables, lengths)
+    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0,
+                                   "moe_gather": 0, "ssm_scan": 0}
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, k, v)  # the kernel wrapper never runs CPU
     with pytest.raises(ValueError, match="CUDA"):

@@ -225,12 +225,12 @@ def test_from_jax_params_rejects_tree_mismatches(torch, cfg, carried):
         from_jax_params(reshaped, model)
 
 
-def test_unported_families_and_int8_kv_raise(torch, cfg, carried):
+def test_unported_families_raise(torch, cfg, carried):
     from repro_torch.models import build_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(port_cfg(reduced_config(get_arch("xlstm_125m"))))
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # audio
         build_model(port_cfg(reduced_config(get_arch("whisper_small"))))
     _, _, model = carried
-    with pytest.raises(NotImplementedError, match="int8"):
-        model.init_decode_state(2, 8, kv_dtype="int8")
+    with pytest.raises(ValueError, match="int8"):  # no int8 paged pool
+        model.init_decode_state(2, 8, kv_dtype="int8", kv_layout="paged")
