@@ -18,8 +18,12 @@ final line:
    ``index_select`` as yardstick) and ssm_scan within 1e-5 (jamba's
    prefill shape and a ragged shape; no PyTorch call computes a selective
    scan, so no yardstick) and paged_attention (the decode shapes of
-   qwen2.5-32b, jamba and qwen2-moe, and a ragged float32 case with holes;
-   SDPA over a dense copy gathered beforehand as yardstick);
+   qwen2.5-32b, jamba and qwen2-moe, head dims 96, 192 and 256 at the
+   heads of phi3-mini, nemotron-4-340b and gemma-7b, a ragged float32 case
+   with holes, and the long-context step's shape in bf16 and in float32
+   with holes; the bf16 cases also row by row against the float32 answer;
+   SDPA over a dense copy gathered beforehand as yardstick; the device's
+   share of the kernel's time by the profiler);
 3. dense prefill at full width: qwen2.5-32b, all 64 layers, bf16 random
    weights drawn on the card from a seed, B=1, S=4096, through the flash
    kernel (one launch per layer), checked against the plain attention
@@ -28,7 +32,10 @@ final line:
    launch per layer and step) and over the int8 cache; then the
    continuous-batching engine over the paged pool (page 16): 8 requests,
    batch 4, one paged-attention launch per layer and decode step, every
-   request finished and every page released;
+   request finished and every page released; then a long-context paged
+   decode step on the same weights: B=4, 4,000-4,090 cached tokens a row
+   (state built directly, random K/V), 5 steps, with the device's busy
+   share and paged_attention's share of device time;
 4. dense serving at full width through ``serve_batch``: 8 requests,
    batch 4, greedy, every request finished and every KV page released;
 5. MoE prefill at full width and depth: qwen2-moe-a2.7b, all 24 layers,
@@ -50,7 +57,8 @@ final line:
    batch 4, moe_gather 4 launches per decode step, no flash or scan.
 
 Launch counts are set to 0 just before each main-path run of phases 3-8
-(prefill, paged decode, paged serving, serving) and read just after it. The last two lines are a JSON object with one
+(prefill, paged decode, paged serving, the long-context step, serving)
+and read just after it. The last two lines are a JSON object with one
 entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -103,13 +111,30 @@ SCAN_TOL = 1e-5  # as tests/test_kernels.py holds the Pallas scan
 # paged_attention at the decode shapes: qwen2.5-32b (40/8 heads, 4,096
 # tokens of 64-token pages), jamba (64/8 heads, 128-token pages) and
 # qwen2-moe (16/16), lengths drawn in [1, max_pages * page], tables a
-# random permutation of a pool max_pages pages larger than they need; and
-# a ragged float32 case with a hole inside a row and a row of holes only.
-PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes)
-    ("decode", 32, 40, 8, 128, 64, 64, "bfloat16", False),
-    ("jamba", 8, 64, 8, 128, 128, 32, "bfloat16", False),
-    ("moe", 4, 16, 16, 128, 64, 8, "bfloat16", False),
-    ("ragged", 6, 10, 2, 64, 16, 9, "float32", True),
+# random permutation of a pool max_pages pages larger than they need; the
+# head dims of the reference's other configs (phi3-mini 96 at 32/32 heads,
+# nemotron-4-340b 192 at 96/8, gemma-7b 256 at 16/16); a ragged float32
+# case with a hole inside a row and a row of holes only; and the shape of
+# the long-context decode step below (its span plan), in bf16 and in
+# float32 with holes, lengths drawn in LONG_LENGTHS.
+# The long-context paged decode step on the loaded qwen2.5-32b weights:
+# B rows of LONG_LENGTHS cached tokens in pages of LONG_PAGE, LONG_STEPS
+# steps (the pool holds LONG_SEQ tokens a row, room for the steps).
+LONG_BATCH, LONG_SEQ, LONG_PAGE, LONG_STEPS = 4, 4096, 64, 5
+LONG_LENGTHS = (4000, LONG_SEQ - LONG_STEPS)
+PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes,
+    #                lengths drawn in [lo, hi) or None for [1, the table])
+    ("decode", 32, 40, 8, 128, 64, 64, "bfloat16", False, None),
+    ("jamba", 8, 64, 8, 128, 128, 32, "bfloat16", False, None),
+    ("moe", 4, 16, 16, 128, 64, 8, "bfloat16", False, None),
+    ("hd96", 8, 32, 32, 96, 64, 64, "bfloat16", False, None),
+    ("hd192", 8, 96, 8, 192, 64, 64, "bfloat16", False, None),
+    ("hd256", 8, 16, 16, 256, 64, 64, "bfloat16", False, None),
+    ("ragged", 6, 10, 2, 64, 16, 9, "float32", True, None),
+    ("long", LONG_BATCH, 40, 8, 128, LONG_PAGE, LONG_SEQ // LONG_PAGE,
+     "bfloat16", False, LONG_LENGTHS),
+    ("long_f32", LONG_BATCH, 40, 8, 128, LONG_PAGE, LONG_SEQ // LONG_PAGE,
+     "float32", True, LONG_LENGTHS),
 ]
 PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -119,6 +144,12 @@ PEAK_BYTES = 3.35e12
 # the f32 peak implies (67e12 / (132 SMs x 128 lanes x 2) = 1.98 GHz).
 PEAK_EXP = 132 * 16 * PEAK_FLOPS["float32"] / (132 * 128 * 2)
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # as tests/test_kernels.py
+# paged_attention's bf16 output against the float32 answer on the same
+# inputs, per (sequence, head) row: max |err| over the row's largest
+# |value|. The output's rounding costs at most 2^-8 of a value and the
+# kernel's bf16 P about as much again, so ~8e-3 at worst; a page lost at a
+# span's edge moves a 4,000-token row by a few 1e-2 of its scale.
+PAGED_ROW_TOL = 1e-2
 # Full-depth bf16 logits of two paths that round at different places
 # (flash rounds unnormalised P to bf16, the plain path normalised weights;
 # decode and prefill run matmuls of other shapes): max |a - b| over the
@@ -221,11 +252,32 @@ def rel_err(torch, got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def device_ms(torch, fn, reps: int, match: str) -> float:
+    """Device time per call of the kernels whose name holds ``match``,
+    over reps calls of fn under torch.profiler: the card's share of what
+    ``cuda_ms`` times, without the host's launch path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and match in e.key)
+    return total / 1e3 / reps
+
+
 def device_breakdown(torch, fn, wall_s: float, label: str,
-                     top: int = 6) -> None:
+                     top: int = 6) -> tuple:
     """Run fn once under torch.profiler and print the kernels' device time
     against ``wall_s`` (the same work timed without the profiler): the
-    device's busy share, and the kernels that take most of it."""
+    device's busy share, and the kernels that take most of it. Returns the
+    device seconds and {kernel name: device seconds}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,6 +299,7 @@ def device_breakdown(torch, fn, wall_s: float, label: str,
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
         log(f"[{label}]   {dev_us(e) / 1e3:8.2f} ms {dev_us(e) / 1e6 / busy:6.1%}"
             f" x{e.count:<5d} {e.key[:70]}")
+    return busy, {e.key: dev_us(e) / 1e6 for e in kernels}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -444,7 +497,8 @@ def phase_paged(torch) -> dict:
 
     rng = np.random.default_rng(SEED)
     results = {}
-    for name, B, H, K, hd, page, max_pages, dtype, holes in PAGED_CASES:
+    for name, B, H, K, hd, page, max_pages, dtype, holes, lens \
+            in PAGED_CASES:
         dt = getattr(torch, dtype)
         P = B * max_pages + max_pages
 
@@ -456,7 +510,8 @@ def phase_paged(torch) -> dict:
             mk(P, page, K, hd)
         tables_np = rng.permutation(P)[:B * max_pages].reshape(
             B, max_pages).astype(np.int32)
-        lengths_np = rng.integers(1, max_pages * page + 1, B).astype(np.int32)
+        lengths_np = rng.integers(*(lens or (1, max_pages * page + 1)),
+                                  B).astype(np.int32)
         if holes:  # a hole inside row 0's length, row B-1 holes only
             lengths_np[0] = max(lengths_np[0], 2 * page + 1)
             tables_np[0, 1] = -1
@@ -474,7 +529,22 @@ def phase_paged(torch) -> dict:
                 bool((diff > tol + tol * want.float().abs()).any()):
             raise AssertionError(f"paged_attention case {name}: max |err| "
                                  f"{err:.3g} outside atol=rtol={tol}")
+        row_note = ""
+        if dtype == "bfloat16":  # against the float32 answer, row by row
+            want32 = paged_attention_ref(q.float(), k_pages.float(),
+                                         v_pages.float(), tables, lengths)
+            row_err = float(((out.float() - want32).abs().amax(-1)
+                             / want32.abs().amax(-1)).max())
+            row_note = (f", row err vs the float32 answer {row_err:.3g} "
+                        f"(tol {PAGED_ROW_TOL})")
+            if not row_err <= PAGED_ROW_TOL:
+                raise AssertionError(f"paged_attention case {name}: row err "
+                                     f"{row_err:.3g} against the float32 "
+                                     f"answer, over {PAGED_ROW_TOL}")
+            del want32
         ms = cuda_ms(torch, lambda: ops.paged_attention(*args), 20)
+        dev_ms = device_ms(torch, lambda: ops.paged_attention(*args), 20,
+                           "paged_")
         plain_ms = cuda_ms(torch, lambda: paged_attention_ref(*args), 3,
                            warmup=1)
         # the yardstick: SDPA over a dense (B, K, T, hd) copy of the pages,
@@ -498,7 +568,8 @@ def phase_paged(torch) -> dict:
             f"max_pages={max_pages} pool={P} {dtype} lengths "
             f"{int(lengths_np.min())}..{int(lengths_np.max())} (mean "
             f"{lengths_np.mean():.0f}){', holes' if holes else ''}: "
-            f"max|err| {err:.3g} (tol {tol}) kernel {ms:.4f} ms, plain "
+            f"max|err| {err:.3g} (tol {tol}){row_note}; kernel {ms:.4f} ms "
+            f"by events ({dev_ms:.4f} ms of it on the device), plain "
             f"{plain_ms:.3f} ms, sdpa over the pre-gathered dense copy "
             f"(library_ms; gather not timed) {lib_ms:.4f} ms, bound "
             f"{bound:.4f} ms by {bound_by} (roofline share "
@@ -558,14 +629,16 @@ def hybrid_config():
     return dataclasses.replace(get_arch(HYBRID_ARCH), **HYBRID_CUTS)
 
 
-def phase_prefill(torch, arch, label: str) -> tuple:
+def phase_prefill(torch, arch, label: str,
+                  long_context: bool = False) -> tuple:
     """Full-width prefill through the flash kernel (and, for a MoE model,
     the moe_gather dispatch; for a hybrid, also the ssm_scan kernel),
     checked against the plain attention path and the decode paths (dense,
-    paged, int8); then serving over the paged pool. ``arch`` is a name
-    (all layers) or a cut ArchConfig. Returns the main-path runs' launch
-    counts (prefill, paged decode, paged serving) and the paged serving
-    run's result."""
+    paged, int8); then serving over the paged pool, and with
+    ``long_context`` the long-context paged decode step. ``arch`` is a
+    name (all layers) or a cut ArchConfig. Returns the main-path runs'
+    launch counts (prefill, paged decode, paged serving, long context)
+    and the paged serving run's result."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -721,6 +794,8 @@ def phase_prefill(torch, arch, label: str) -> tuple:
         del state
     served, serve_launches = paged_serving(torch, model, label)
     paged_runs.append(serve_launches)
+    if long_context:
+        paged_runs.append(long_context_decode(torch, model, label))
     del model, flash, plain, ref
     gc.collect()
     if moe:
@@ -730,6 +805,73 @@ def phase_prefill(torch, arch, label: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return paged_runs, served
+
+
+def long_context_decode(torch, model, label: str) -> dict:
+    """Paged decode steps at long context on the loaded model: the state
+    is built directly (random K/V drawn into the whole pool, each row's
+    table a slice of a random permutation of the pool's pages, lengths
+    drawn in ``LONG_LENGTHS``, the tail pages looked up from the tables),
+    not decoded up to there. Prints the wall time per step, the device's
+    busy share and ``paged_attention``'s share of device time; checks one
+    launch per attention layer and step and finite logits. Returns the
+    run's launch counts."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import PagedDecodeState
+    from repro_torch.objectmodel.kvcache import (global_page_tables,
+                                                 tail_pages)
+    cfg = model.cfg
+    B, page = LONG_BATCH, LONG_PAGE
+    state = model.init_decode_state(B, LONG_SEQ, kv_layout="paged",
+                                    page_size=page)
+    kv = state.kv
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    for pool in (kv.k_pages, kv.v_pages):
+        pool.normal_(generator=gen)
+    rng = np.random.default_rng(SEED)
+    n_pages = kv.k_pages.shape[1]
+    kv.block_tables[0].copy_(torch.from_numpy(
+        rng.permutation(n_pages).astype(np.int32).reshape(B, -1)))
+    lengths_np = rng.integers(*LONG_LENGTHS, B).astype(np.int32)
+    kv.length.copy_(torch.from_numpy(lengths_np))
+    tables = global_page_tables(kv.block_tables, n_pages)
+    state = PagedDecodeState(kv, tail_pages(tables, kv.length, page),
+                             state.mamba)
+    pool_gib = 2 * kv.k_pages.numel() * kv.k_pages.element_size() / 2**30
+    token = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1))).to(
+        DEVICE)
+    ops.reset_launch_counts()
+    steps, finite = [], True
+    for _ in range(LONG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, state = model.decode_step(token, state)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(out[..., :cfg.vocab_size]).all())
+    launches = ops.launch_counts()
+    want = decode_launches(cfg, LONG_STEPS)
+    wall = sorted(steps)[len(steps) // 2]
+    busy, by_name = device_breakdown(
+        torch, lambda: model.decode_step(token, state), wall,
+        f"{label}: long-context paged decode step")
+    paged_s = sum(t for k, t in by_name.items() if "paged_" in k)
+    log(f"[{label}: long-context paged decode] B={B} page {page} lengths "
+        f"{int(lengths_np.min())}..{int(lengths_np.max())} (+{LONG_STEPS} "
+        f"steps), pool {pool_gib:.2f} GiB: {wall * 1e3:.1f} ms/step median "
+        f"of {LONG_STEPS} ({sorted(round(t * 1e3, 1) for t in steps)} ms); "
+        f"device busy {busy / wall:.1%}; paged_attention {paged_s * 1e3:.2f} "
+        f"ms = {paged_s / busy:.1%} of device time "
+        f"({paged_s * 1e3 / n_attention_layers(cfg):.4f} ms per layer); "
+        f"logits finite: {finite}; launches {json.dumps(launches)}")
+    if launches != want or not finite:
+        raise AssertionError(f"long-context decode: launches {launches} "
+                             f"(want {want}), finite logits {finite}")
+    del state, kv, tables, out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def teacher_forced(torch, model, tokens, ref, n: int, label: str,
@@ -877,9 +1019,11 @@ def main() -> int:
     scan = phase_scan(torch)
     paged = phase_paged(torch)
     runs = []
-    for arch, label in ((ARCH, ""), (MOE_ARCH, "moe "),
-                        (hybrid_config(), "hybrid ")):
-        prefill_runs, served = phase_prefill(torch, arch, f"{label}prefill")
+    for arch, label, long_context in ((ARCH, "", True),
+                                      (MOE_ARCH, "moe ", False),
+                                      (hybrid_config(), "hybrid ", False)):
+        prefill_runs, served = phase_prefill(torch, arch, f"{label}prefill",
+                                             long_context)
         runs += prefill_runs
         runs.append(phase_serving(torch, arch, f"{label}serve", served))
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}

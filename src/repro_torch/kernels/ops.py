@@ -34,10 +34,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (B,H,hd); k/v_pages: (P,page,K,hd); tables: (B,max_pages) int32
     global page ids, -1 a hole; lengths: (B,) int32 -> (B,H,hd) in q's
     dtype."""
-    _pa.check_shapes(q, k_pages, v_pages, tables, lengths)
     if q.device.type == "cpu":
+        _pa.check_shapes(q, k_pages, v_pages, tables, lengths)
         return ref.paged_attention_ref(q, k_pages, v_pages, tables, lengths)
-    return _pa.paged_attention(q, k_pages, v_pages, tables, lengths)
+    return _pa.paged_attention(q, k_pages, v_pages, tables, lengths)  # checks
 
 
 def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,

@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "paged_attention_ref", "moe_gather_ref",
-           "ssm_scan_ref"]
+__all__ = ["attention_ref", "paged_attention_ref",
+           "paged_attention_split_ref", "moe_gather_ref", "ssm_scan_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,6 +51,66 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", w, v_seq.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, tables: torch.Tensor,
+                              lengths: torch.Tensor,
+                              tokens_per_span: int) -> torch.Tensor:
+    """``paged_attention_ref``'s function by the CUDA kernel's algorithm
+    (split-sequence flash-decoding), in plain PyTorch: each row's
+    ``max_pages * ps`` positions are cut into spans of ``tokens_per_span``
+    (a whole number of pages); each span gives a partial (max m, sum l of
+    p = exp(s - m), float32 accumulator of p V with p rounded to q's dtype
+    first, as the kernel feeds bf16 p to its tensor cores; the kernel's p
+    is relative to a running max, so its roundings differ in the bits)
+    over its valid positions, or an empty one (m -1e30, l 0); the
+    partials are merged in span order,
+    ``M = max m_s``, ``out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M)
+    l_s`` over the non-empty spans. A row whose every span is empty has no
+    valid position: the uniform mean of V over its gathered positions, as
+    the reference gives. Shapes as ``paged_attention_ref``."""
+    B, H, hd = q.shape
+    P, ps, K, _ = k_pages.shape
+    maxp = tables.shape[1]
+    if tokens_per_span <= 0 or tokens_per_span % ps:
+        raise ValueError(f"tokens_per_span {tokens_per_span}: a positive "
+                         f"multiple of the page size {ps}")
+    G = H // K
+    T = maxp * ps
+    t = tables.long().clamp(min=0)
+    k_seq = k_pages[t].reshape(B, T, K, hd).float()
+    v_seq = v_pages[t].reshape(B, T, K, hd).float()
+    pos = torch.arange(T, device=q.device)
+    page_ok = (tables >= 0).repeat_interleave(ps, dim=1)
+    valid = (pos[None] < lengths[:, None]) & page_ok  # (B, T)
+    qg = q.reshape(B, K, G, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_seq) * (hd ** -0.5)
+    neg = torch.tensor(-1e30, device=q.device)
+    parts = []
+    for s0 in range(0, T, tokens_per_span):  # each span's partial
+        sl = slice(s0, min(s0 + tokens_per_span, T))
+        ok = valid[:, None, None, sl]
+        x = torch.where(ok, s[..., sl], neg)
+        m = x.amax(-1)  # -1e30 for an empty span
+        p = torch.where(ok, torch.exp(x - m[..., None]), 0.)
+        p_v = p.to(q.dtype).float()
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgt,btkd->bkgd", p_v, v_seq[:, sl])))
+    # the combine: the largest max of the non-empty spans, then the sums
+    # in span order
+    M = torch.stack([torch.where(l > 0, m, neg) for m, l, _ in parts]).amax(0)
+    l_all = torch.zeros_like(M)
+    acc_all = torch.zeros((B, K, G, hd), device=q.device)
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - M), 0.)
+        l_all = l_all + w * l
+        acc_all = acc_all + w[..., None] * acc
+    out = acc_all / l_all.clamp(min=1e-30)[..., None]
+    mean = v_seq.mean(1)  # (B, K, hd): the uniform softmax of an empty row
+    none = (l_all == 0)[..., None]
+    out = torch.where(none, mean[:, :, None], out)
+    return out.reshape(B, H, hd).to(q.dtype)
 
 
 def moe_gather_ref(x: torch.Tensor, token_ids: torch.Tensor,

@@ -285,6 +285,10 @@ def _paged_inputs(torch, B, H, K, hd, page, max_pages, dtype, seed=0,
     (3, 64, 8, 128, 32, 3),   # G=8 (jamba's heads)
     (2, 12, 1, 64, 8, 7),     # G=12: two chunks of heads
     (5, 6, 2, 32, 5, 9),      # odd page size
+    (2, 32, 32, 96, 16, 5),   # hd 96, G=1 (phi3-mini's 32/32 heads)
+    (2, 96, 8, 192, 16, 4),   # hd 192, G=12 (nemotron-4-340b's 96/8)
+    (2, 16, 16, 256, 16, 3),  # hd 256, G=1 (gemma-7b's 16/16)
+    (1, 4, 4, 64, 16, 2),     # one span: no combine pass
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_matches_plain(torch, B, H, K, hd, page,
@@ -304,33 +308,83 @@ def test_paged_attention_kernel_matches_plain(torch, B, H, K, hd, page,
                                want.float().cpu().numpy(), atol=tol, rtol=tol)
 
 
-def test_paged_attention_kernel_rows_with_no_valid_position(torch):
-    """Length 0, holes only, and length 0 over real pages: each row is the
-    reference's uniform mean of V over its gathered positions."""
-    from repro_torch.kernels import ops
+@pytest.mark.parametrize("H,K,hd", [(10, 2, 64), (10, 2, 96), (10, 2, 128),
+                                    (24, 2, 192), (4, 4, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_long_rows_over_many_spans(torch, H, K, hd,
+                                                          dtype):
+    """40 pages of 16 split into several spans, every row's length in the
+    last page of its table (the last span partly filled), one hole: the
+    combine pass merges the spans, at every head dim of the reference's
+    configs (G=12 at hd 192, as nemotron-4-340b's heads)."""
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attention_ref
-    q, kp, vp, tables, lengths = _paged_inputs(torch, 4, 10, 2, 64, 8, 3,
-                                               torch.float32, holes=False)
+    dt = getattr(torch, dtype)
+    B, page, max_pages = 3, 16, 40
+    args = _paged_inputs(torch, B, H, K, hd, page, max_pages, dt,
+                         holes=False)
+    tables, lengths = args[3], args[4]
+    lengths.copy_(torch.tensor([max_pages * page, max_pages * page - 1,
+                                (max_pages - 1) * page + 3],
+                               dtype=torch.int32))
+    tables[1, 7] = -1
+    _, n_spans = pa.span_plan(B, K, max_pages, page)
+    assert n_spans > 1
+    before = pa.LAUNCHES.count
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES.count == before + 1
+    want = paged_attention_ref(*args)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+    # each (sequence, head) row against the float32 answer, relative to
+    # the row's scale: bf16 output and P roundings stay under 1e-2 of it
+    # (as chip_smoke.py's PAGED_ROW_TOL)
+    want32 = paged_attention_ref(*(a.float() for a in args[:3]), *args[3:])
+    row_err = ((out.float() - want32).abs().amax(-1)
+               / want32.abs().amax(-1)).max().item()
+    assert row_err <= (1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_rows_with_no_valid_position(torch, dtype):
+    """Length 0, holes only, and length 0 over real pages, with several
+    spans per row: each row is the reference's uniform mean of V over its
+    gathered positions, found by the combine pass."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attention_ref
+    dt = getattr(torch, dtype)
+    q, kp, vp, tables, lengths = _paged_inputs(torch, 4, 10, 2, 64, 8, 96,
+                                               dt, holes=False)
+    assert pa.span_plan(4, 2, 96, 8)[1] > 1
     tables[1] = -1
     lengths[2] = 0
     tables[3, 1] = -1
     lengths[3] = 0
+    before = pa.LAUNCHES.count
     out = ops.paged_attention(q, kp, vp, tables, lengths)
+    assert pa.LAUNCHES.count == before + 1
     want = paged_attention_ref(q, kp, vp, tables, lengths)
-    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
-                               atol=2e-5, rtol=2e-5)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
     mean = vp[0].float().mean(0).repeat_interleave(5, 0)  # page 0, G=5
-    np.testing.assert_allclose(out[1].cpu().numpy(), mean.cpu().numpy(),
-                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out[1].float().cpu().numpy(),
+                               mean.cpu().numpy(), atol=tol, rtol=tol)
 
 
 def test_paged_attention_kernel_reads_the_model_pool_view(torch):
     """One layer's view of the (L, P, page, K, hd) pool and q as the model
-    passes it, a (B, 1, H, hd) slice: read in place, no copy."""
+    passes it, a (B, 1, H, hd) slice: read in place, no copy; several
+    spans per row."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attention_ref
-    q, kp, vp, tables, lengths = _paged_inputs(torch, 3, 10, 2, 128, 16, 4,
+    q, kp, vp, tables, lengths = _paged_inputs(torch, 3, 10, 2, 128, 16, 48,
                                                torch.bfloat16)
+    assert pa.span_plan(3, 2, 48, 16)[1] > 1
     pool_k = torch.stack([kp, kp.flip(0), kp])
     pool_v = torch.stack([vp, vp, vp.flip(0)])
     q4 = q[:, None]
@@ -356,10 +410,13 @@ def test_paged_attention_kernel_refuses_what_it_does_not_take(torch):
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_attention(q, kp.transpose(0, 1).contiguous().transpose(0, 1),
                            vp, tables, lengths)
-    q48 = torch.zeros(2, 4, 48, device="cuda", dtype=torch.bfloat16)
-    k48 = torch.zeros(5, 8, 2, 48, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        pa.paged_attention(q48, k48, k48, tables, lengths)
+    # bf16 rows of 40 bytes (hd 20) are not whole 16-byte words; hd 264
+    # is past the largest head dim
+    for hd in (20, 264):
+        qx = torch.zeros(2, 4, hd, device="cuda", dtype=torch.bfloat16)
+        kx = torch.zeros(5, 8, 2, hd, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            pa.paged_attention(qx, kx, kx, tables, lengths)
     with pytest.raises(ValueError, match="disagree"):
         pa.paged_attention(q[:, :3], kp, vp, tables, lengths)
     with pytest.raises(ValueError, match="CUDA"):

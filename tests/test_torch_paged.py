@@ -93,7 +93,7 @@ def _grouped_inputs(seed=2):
 
 @pytest.mark.parametrize("case", [
     (3, 8, 2, 32, 16, 4), (1, 4, 4, 64, 8, 6), (2, 2, 1, 128, 32, 2),
-    "grouped"])
+    (2, 4, 2, 96, 8, 3), (2, 2, 2, 256, 4, 3), "grouped"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_matches_reference_oracle(torch, case, dtype):
     from repro_torch.kernels import ops
