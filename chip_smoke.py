@@ -12,8 +12,12 @@ final line:
    per source, all at once), each against its plain PyTorch version on
    the card, with its time, the plain version's, one library call's (the
    yardstick, never used by the port) and the bound: flash attention
-   (qwen2.5-32b and qwen2-moe prefill shapes, ragged causal, non-causal
-   T != S, float32; SDPA as yardstick) and moe_gather, bit for bit
+   (qwen2.5-32b and qwen2-moe prefill shapes, head dims 96, 192 and 256 at
+   the prefill heads of phi3-mini, nemotron-4-340b and gemma-7b, ragged
+   causal, non-causal T != S, float32; SDPA as yardstick; the device's
+   share of the kernel's time by the profiler; ptxas registers and spill
+   bytes of every flash instance, and the wgmma/TMA instructions in its
+   SASS) and moe_gather, bit for bit
    (qwen2-moe prefill and decode dispatch shapes, ragged float32;
    ``index_select`` as yardstick) and ssm_scan within 1e-5 (jamba's
    prefill shape and a ragged shape; no PyTorch call computes a selective
@@ -70,6 +74,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +94,14 @@ PREFILL_SEQ = 4096
 KERNEL_CASES = [  # (name, B, S, T, H, K, hd, causal, dtype)
     ("prefill", 1, PREFILL_SEQ, PREFILL_SEQ, 40, 8, 128, True, "bfloat16"),
     ("moe_prefill", 1, PREFILL_SEQ, PREFILL_SEQ, 16, 16, 128, True,
+     "bfloat16"),
+    # the head dims of phi3-mini (32/32 heads), nemotron-4-340b (96/8) and
+    # gemma-7b (16/16) at their prefill heads
+    ("prefill_hd96", 1, PREFILL_SEQ, PREFILL_SEQ, 32, 32, 96, True,
+     "bfloat16"),
+    ("prefill_hd192", 1, PREFILL_SEQ, PREFILL_SEQ, 96, 8, 192, True,
+     "bfloat16"),
+    ("prefill_hd256", 1, PREFILL_SEQ, PREFILL_SEQ, 16, 16, 256, True,
      "bfloat16"),
     ("ragged", 1, 1000, 1000, 40, 8, 128, True, "bfloat16"),
     ("cross", 2, 512, 1536, 40, 8, 128, False, "bfloat16"),
@@ -247,6 +260,49 @@ def paged_bound_ms(lengths, tables, page, H, K, hd, dtype, elem):
                                        else "bytes")
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_bf16<128>`` from a kernel's mangled name (a
+    length-prefixed name in an anonymous namespace, an int template
+    argument); the mangled name where it is not of that form."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)(.*)", mangled)
+    if not m:
+        return mangled
+    n, rest = int(m.group(1)), m.group(2)
+    name, rest = rest[:n], rest[n:]
+    arg = re.match(r"ILi(\d+)E", rest)
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
+def ptxas_report(log_path) -> list:
+    """[(kernel, registers, spill bytes)] for each entry function of an
+    nvcc build log (``-Xptxas -v``)."""
+    out, fn, spill = [], None, 0
+    for line in open(log_path).read().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = kernel_name(m.group(1)), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), spill))
+            fn = None
+    return out
+
+
+def sass_counts(lib, opcodes) -> dict:
+    """How many instructions of each opcode the library's SASS holds
+    (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: sum(f" {op}" in line for line in sass.splitlines())
+            for op in opcodes}
+
+
 def rel_err(torch, got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max())
@@ -344,9 +400,14 @@ def phase_kernel(torch) -> dict:
     log(f"[kernel] built {names} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for lib in libs:
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[kernel] ptxas {lib.stem}: {line.strip()}")
+        for fn, regs, spill in ptxas_report(lib.with_suffix(".log")):
+            log(f"[kernel] ptxas {lib.stem}: {fn}: {regs} registers, "
+                f"{spill} bytes of spill (stores + loads)")
+    flash_lib = libs[modules.index(fa)]
+    sass = sass_counts(flash_lib, ("HGMMA", "UTMALDG", "UTMASTG"))
+    log(f"[kernel] SASS of {flash_lib.name}: {json.dumps(sass)}")
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        raise AssertionError("the flash kernel issues no wgmma or TMA load")
 
     rng = np.random.default_rng(SEED)
     results = {}
@@ -371,6 +432,8 @@ def phase_kernel(torch) -> dict:
         del want
         ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v,
                                                         causal=causal), 20)
+        dev_ms = device_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=causal), 20, "flash_fwd")
         plain_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal),
                            3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -383,7 +446,8 @@ def phase_kernel(torch) -> dict:
                              bound_by=bound_by)
         log(f"[kernel] {name}: B={B} S={S} T={T} H={H} K={K} hd={hd} "
             f"causal={causal} {dtype}: max|err| {err:.3g} (tol {tol}) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"kernel {ms:.4f} ms by events ({dev_ms:.4f} ms of it on the "
+            f"device, {dev_ms / ms:.1%}), plain {plain_ms:.3f} ms, "
             f"sdpa (library_ms) {lib_ms:.4f} ms, bound {bound:.4f} ms by "
             f"{bound_by} "
             f"(roofline share {bound / ms:.1%})")
@@ -775,8 +839,12 @@ def phase_prefill(torch, arch, label: str,
             f"not held to {LOGITS_TOL}: the top-{cfg.top_k} router flips on "
             f"rounding and quantization differences; the float32 checks "
             f"after serving hold the paged path")
-    device_breakdown(torch, lambda: model.forward(
+    busy, by_name = device_breakdown(torch, lambda: model.forward(
         batch, Ctx(use_flash=True), last_only=True), prefill_s, label)
+    flash_s = sum(t for k, t in by_name.items() if "flash_fwd" in k)
+    log(f"[{label}] flash_attention: {flash_s * 1e3:.2f} ms = "
+        f"{flash_s / busy:.1%} of device time "
+        f"({flash_s * 1e3 / want['flash_attention']:.4f} ms per launch)")
     token = tokens[:, :1].expand(4, 1).contiguous()
     for layout in ("dense", "paged"):
         state = model.init_decode_state(4, 48, kv_layout=layout,

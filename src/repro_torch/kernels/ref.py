@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "paged_attention_ref",
+__all__ = ["attention_ref", "flash_attention_tiled_ref", "paged_attention_ref",
            "paged_attention_split_ref", "moe_gather_ref", "ssm_scan_ref"]
 
 
@@ -25,6 +25,52 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_tiled_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              q_tile: int = 128,
+                              kv_tile: int = 128) -> torch.Tensor:
+    """``attention_ref``'s function by the CUDA kernel's algorithm, in
+    plain PyTorch: for each tile of ``q_tile`` query rows, the kv tiles of
+    ``kv_tile`` positions in order (under ``causal`` only those up to the
+    tile's last row), an online softmax with float32 running max m, sum l
+    of p = exp(s - m) and accumulator of p V, where p enters p V rounded
+    to q's dtype (the kernel feeds bf16 p to its tensor cores; l adds the
+    float32 p); at the end acc / max(l, 1e-30). Masked scores are -1e30,
+    the causal mask top-left. Shapes as ``attention_ref``."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qf = q.reshape(B, S, K, G, hd).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, S, K, G, hd), dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, q_tile):
+        q1 = min(q0 + q_tile, S)
+        n = -(-T // kv_tile)
+        if causal:
+            n = min(n, (q1 - 1) // kv_tile + 1)
+        qi = torch.arange(q0, q1, device=q.device)
+        m = torch.full((B, K, G, q1 - q0), -1e30, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, K, G, q1 - q0, hd), device=q.device)
+        for t in range(n):
+            k0, k1 = t * kv_tile, min((t + 1) * kv_tile, T)
+            s = torch.einsum("bqkgd,btkd->bkgqt", qf[:, q0:q1],
+                             kf[:, k0:k1]) * (hd ** -0.5)
+            if causal:
+                ki = torch.arange(k0, k1, device=q.device)
+                s = s.masked_fill(ki[None, :] > qi[:, None], -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p.to(q.dtype).float(), vf[:, k0:k1])
+            m = m_new
+        out[:, q0:q1] = (acc / l.clamp(min=1e-30)[..., None]).permute(
+            0, 3, 1, 2, 4)
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

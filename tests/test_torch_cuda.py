@@ -45,6 +45,13 @@ CASES = [
     (3, 7, 300, 6, 3, 64),
     (1, 300, 5, 4, 1, 16),     # T shorter than one tile
     (1, 640, 640, 16, 16, 128),  # MHA (G=1), qwen2-moe's heads
+    # the head dims of phi3-mini (96), nemotron-4-340b (192), gemma-7b (256)
+    (1, 300, 300, 8, 2, 96),     # GQA, S ragged against the 128-row tiles
+    (1, 100, 20, 4, 4, 96),      # T shorter than one kv tile (128)
+    (2, 200, 200, 12, 4, 192),   # GQA, ragged against the 64-row kv tiles
+    (1, 70, 40, 4, 1, 192),      # T shorter than one kv tile (64)
+    (1, 333, 333, 4, 2, 256),    # GQA, ragged
+    (1, 130, 50, 2, 2, 256),     # MHA, T shorter than one kv tile
 ]
 
 
@@ -67,13 +74,15 @@ def test_flash_kernel_matches_plain(torch, B, S, T, H, K, hd, causal, dtype):
                                want.float().cpu().numpy(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("hd", [64, 96, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_kernel_reads_strided_inputs(torch, dtype):
+def test_flash_kernel_reads_strided_inputs(torch, dtype, hd):
     """q, k, v as views of the fused projection (B,S,(H+2K)*hd): no copies
-    in the wrapper, the kernel walks the strides."""
+    in the wrapper, the kernel walks the strides (the bf16 kernel's tensor
+    maps are encoded from them)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_ref
-    B, S, H, K, hd = 2, 130, 8, 2, 64
+    B, S, H, K = 2, 130, 8, 2
     rng = np.random.default_rng(1)
     fused = torch.from_numpy(rng.standard_normal(
         (B, S, H + 2 * K, hd), dtype=np.float32)).to("cuda",
@@ -100,6 +109,40 @@ def test_flash_kernel_refuses_what_it_does_not_take(torch):
                                k, v)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu())
+
+
+def test_flash_kernel_entry_refuses_a_plan_not_its_own(torch):
+    """The C entry holds the wrapper's plan against its instance's and
+    returns an error (no launch) when they differ."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(torch, 1, 128, 128, 2, 1, 128, torch.bfloat16)
+    out = torch.empty_like(q)
+    fn = fa.build().repro_flash_attention_fwd
+    good = fa.plan(128, torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in (good._replace(kv_tile=64), good._replace(stages=2),
+                good._replace(smem_bytes=good.smem_bytes - 8),
+                fa.plan(128, torch.float32)):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 1, 128, 128, 2, 1, 128, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *out.stride()[:3], 1, 1, 128 ** -0.5,
+                 *bad, stream)
+        assert err != 0, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("H,K,hd", [(32, 32, 96), (96, 8, 192),
+                                    (16, 16, 256)])
+def test_flash_kernel_at_wide_head_prefill_shapes(torch, H, K, hd):
+    """phi3-mini's, nemotron-4-340b's and gemma-7b's heads at S=T=2048."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    q, k, v = _qkv(torch, 1, 2048, 2048, H, K, hd, torch.bfloat16)
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_kernel_at_the_moe_prefill_shape(torch):
