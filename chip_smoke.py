@@ -18,10 +18,14 @@ final line:
    share of the kernel's time by the profiler; ptxas registers and spill
    bytes of every flash instance, and the wgmma/TMA instructions in its
    SASS) and moe_gather, bit for bit
-   (qwen2-moe prefill and decode dispatch shapes, ragged float32;
-   ``index_select`` as yardstick) and ssm_scan within 1e-5 (jamba's
+   (qwen2-moe prefill and decode dispatch shapes, ragged float32, bf16
+   rows that are not whole 16-byte words; ``index_select`` as yardstick;
+   whether rows move in 16-byte words or elements, the device's share of
+   the time by the profiler, one prefill call with x just written) and ssm_scan within 1e-5 (jamba's
    prefill shape and a ragged shape; no PyTorch call computes a selective
-   scan, so no yardstick) and paged_attention (the decode shapes of
+   scan, so no yardstick; the inputs copied for TMA; the scan kernels'
+   SASS instruction and MUFU.EX2 counts; a spill in the scan or the
+   gather fails the run) and paged_attention (the decode shapes of
    qwen2.5-32b, jamba and qwen2-moe, head dims 96, 192 and 256 at the
    heads of phi3-mini, nemotron-4-340b and gemma-7b, a ragged float32 case
    with holes, and the long-context step's shape in bf16 and in float32
@@ -52,7 +56,8 @@ final line:
 7. hybrid prefill at full width: jamba-1.5-large cut to one group of 8
    layers (7 Mamba, 1 attention; 4 MoE, 4 dense FFN) and 12 of its 16
    experts, so that its 66.3 GiB of bf16 weights fit one card; B=1,
-   S=4096, through flash (1 launch), moe_gather (4) and ssm_scan (7),
+   S=4096, through flash (1 launch), moe_gather (4) and ssm_scan (7;
+   the scan inputs copied for TMA printed, none at jamba's layout),
    checked against the plain attention path; decode (the plain one-step
    recurrence; dense and paged) checked against prefill (the scan kernel)
    with the capacity lifted (a hybrid config ignores the int8 KV cache, as
@@ -113,6 +118,9 @@ GATHER_CASES = [  # (name, T, d, S, n_kept, dtype)
     ("prefill", PREFILL_SEQ, 2048, 60 * 344, 4 * PREFILL_SEQ, "bfloat16"),
     ("decode", 4, 2048, 60 * 8, 16, "bfloat16"),
     ("ragged_f32", 100, 48, 333, 250, "float32"),
+    # rows of 2,002 bytes, not whole 16-byte words: copied element by
+    # element (the kernel's other instance)
+    ("odd_bf16", 100, 1001, 333, 250, "bfloat16"),
 ]
 # ssm_scan at jamba's prefill shape (Bt, L, di, N) and a ragged one (L
 # not a multiple of the 16-step chunk, di not of a block's channels)
@@ -153,9 +161,6 @@ PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: no tensor cores
 PEAK_BYTES = 3.35e12
-# Exponentials: 16 special-function lanes per SM x 132 SMs at the clock
-# the f32 peak implies (67e12 / (132 SMs x 128 lanes x 2) = 1.98 GHz).
-PEAK_EXP = 132 * 16 * PEAK_FLOPS["float32"] / (132 * 128 * 2)
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # as tests/test_kernels.py
 # paged_attention's bf16 output against the float32 answer on the same
 # inputs, per (sequence, head) row: max |err| over the row's largest
@@ -198,6 +203,22 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def single_call_ms(torch, fn, before, reps: int = 30) -> float:
+    """Median device time of one call of fn, each after ``before`` (which
+    sets the L2 cache's state), by CUDA events around the call alone."""
+    times = []
+    for _ in range(reps):
+        before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
 def attention_bound_ms(B, S, T, H, K, hd, causal, dtype, elem):
     """(ms, "operations" | "bytes"): the least time for the work these
     inputs need, 4*hd operations per (query, visible key) pair and head
@@ -209,29 +230,6 @@ def attention_bound_ms(B, S, T, H, K, hd, causal, dtype, elem):
     flops = 4.0 * hd * pairs * B * H
     nbytes = elem * (2 * B * S * H * hd + 2 * B * T * K * hd)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def gather_bound_ms(n_rows_read, d, S, elem):
-    """(ms, "bytes"): the least time to read each needed row of x, the ids
-    (int32) and keep flags (bool) once and write the (S, d) buffer once.
-    A copy does no arithmetic, so bytes bound it."""
-    nbytes = n_rows_read * d * elem + S * (4 + 1) + S * d * elem
-    return 1e3 * nbytes / PEAK_BYTES, "bytes"
-
-
-def scan_bound_ms(Bt, L, di, N):
-    """(ms, "operations" | "bytes"): dt and x (Bt,L,di) read once, B and C
-    (Bt,L,N) and A (di,N) read once, y (Bt,L,di) written once, all f32;
-    against L*di*N exponentials per batch row on the special-function
-    units and ~4 f32 operations per (t, c, n) (dt*A, the multiply-add
-    into h, dt*x*B, h*C) at the f32 peak. The slower of the two operation
-    counts is the operations bound."""
-    nbytes = 4 * (3 * Bt * L * di + 2 * Bt * L * N + di * N)
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(Bt * L * di * N / PEAK_EXP,
-                4.0 * Bt * L * di * N / PEAK_FLOPS["float32"])
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -293,14 +291,27 @@ def ptxas_report(log_path) -> list:
     return out
 
 
-def sass_counts(lib, opcodes) -> dict:
-    """How many instructions of each opcode the library's SASS holds
-    (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+def sass_function_counts(lib, match: str, opcodes) -> dict:
+    """For each kernel of the library whose mangled name holds ``match``
+    (every kernel for ""): its SASS instruction count and how many of them
+    are each opcode (``cuobjdump -sass``, from the toolkit beside nvcc)."""
     cuobjdump = os.path.join(os.path.dirname(_nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return {op: sum(f" {op}" in line for line in sass.splitlines())
-            for op in opcodes}
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = kernel_name(m.group(1)) if match in m.group(1) else None
+            if name:
+                out.setdefault(name, {"instructions": 0,
+                                      **{op: 0 for op in opcodes}})
+            continue
+        if name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
+            out[name]["instructions"] += 1
+            for op in opcodes:
+                out[name][op] += f" {op}" in line
+    return out
 
 
 def rel_err(torch, got, want) -> float:
@@ -404,10 +415,26 @@ def phase_kernel(torch) -> dict:
             log(f"[kernel] ptxas {lib.stem}: {fn}: {regs} registers, "
                 f"{spill} bytes of spill (stores + loads)")
     flash_lib = libs[modules.index(fa)]
-    sass = sass_counts(flash_lib, ("HGMMA", "UTMALDG", "UTMASTG"))
+    sass = {op: sum(c[op] for c in sass_function_counts(
+        flash_lib, "", ("HGMMA", "UTMALDG", "UTMASTG")).values())
+        for op in ("HGMMA", "UTMALDG", "UTMASTG")}
     log(f"[kernel] SASS of {flash_lib.name}: {json.dumps(sass)}")
     if not (sass["HGMMA"] and sass["UTMALDG"]):
         raise AssertionError("the flash kernel issues no wgmma or TMA load")
+    for m, kernel in ((ss, "ssm_scan_kernel"), (mg, "moe_gather_rows")):
+        lib = libs[modules.index(m)]
+        spills = [(fn, spill) for fn, _, spill in ptxas_report(
+            lib.with_suffix(".log")) if fn.startswith(kernel) and spill]
+        if spills:
+            raise AssertionError(f"{kernel} spills: {spills}")
+    scan_sass = sass_function_counts(libs[modules.index(ss)],
+                                     "ssm_scan_kernel",
+                                     ("MUFU.EX2", "UTMALDG", "UTMASTG"))
+    for fn, counts in scan_sass.items():
+        log(f"[kernel] SASS of {fn}: {json.dumps(counts)} (16 unrolled "
+            f"steps: one MUFU.EX2 a state step)")
+    if not all(c["MUFU.EX2"] and c["UTMALDG"] for c in scan_sass.values()):
+        raise AssertionError("the scan kernel has no ex2 or TMA load")
 
     rng = np.random.default_rng(SEED)
     results = {}
@@ -464,6 +491,7 @@ def phase_gather(torch) -> dict:
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import moe_gather_ref
+    from repro_torch.launch.bounds import gather_bound_ms
 
     rng = np.random.default_rng(SEED)
     results = {}
@@ -484,17 +512,40 @@ def phase_gather(torch) -> dict:
                                  f"the plain version")
         err = float((out.float() - want.float()).abs().max())
         ms = cuda_ms(torch, lambda: ops.moe_gather(x, ids, keep), 50)
+        dev_ms = device_ms(torch, lambda: ops.moe_gather(x, ids, keep), 50,
+                           "moe_gather")
+        words = ("16-byte words" if (d * x.element_size()) % 16 == 0
+                 else "elements")
         plain_ms = cuda_ms(torch, lambda: moe_gather_ref(x, ids, keep), 50)
         lib_ids = ids.clamp(min=0)
         lib_ms = cuda_ms(torch, lambda: torch.index_select(x, 0, lib_ids), 50)
         rows = len(np.unique(ids_np[slots]))
         bound, bound_by = gather_bound_ms(rows, d, S, x.element_size())
+        if name == "prefill":  # one call, x just written, as in the model
+            x_copy = x.clone()
+            flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+
+            def written():
+                flush.zero_()
+                x.copy_(x_copy)
+
+            one = single_call_ms(
+                torch, lambda: ops.moe_gather(x, ids, keep), written)
+            one_lib = single_call_ms(
+                torch, lambda: torch.index_select(x, 0, lib_ids), written)
+            log(f"[gather] {name}: one call with x just written (L2 "
+                f"flushed, then x copied in): kernel {one:.4f} ms "
+                f"({bound / one:.1%} of the bound), index_select "
+                f"{one_lib:.4f} ms")
+            del x_copy, flush
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound,
                              bound_by=bound_by)
         log(f"[gather] {name}: T={T} d={d} S={S} kept {n_kept} ({rows} "
-            f"distinct rows) {dtype}: bit-equal, max|err| {err:.3g} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+            f"distinct rows) {dtype}: bit-equal, max|err| {err:.3g}; "
+            f"copied in {words}: kernel {ms:.4f} ms by events ({dev_ms:.4f} "
+            f"ms of it on the device, {dev_ms / ms:.1%}), plain "
+            f"{plain_ms:.4f} ms, index_select "
             f"(library_ms) {lib_ms:.4f} ms, bound {bound:.4f} ms by "
             f"{bound_by} (roofline share {bound / ms:.1%})")
         del x, ids, keep, out, want, lib_ids
@@ -511,6 +562,7 @@ def phase_scan(torch) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels.ref import ssm_scan_ref
+    from repro_torch.launch.bounds import scan_bound_ms
 
     gen = torch.Generator(DEVICE).manual_seed(SEED)
     results = {}
@@ -523,8 +575,10 @@ def phase_scan(torch) -> dict:
         A = -torch.exp(mk(di, N) * 0.3)
         B, C, x = mk(Bt, L, N), mk(Bt, L, N), mk(Bt, L, di)
         want = ssm_scan_ref(dt, A, B, C, x)
+        copies = ss.COPIES.count
         out = ss.ssm_scan(dt, A, B, C, x)
         torch.cuda.synchronize()
+        copies = ss.COPIES.count - copies
         diff = (out - want).abs()
         err = float(diff.max())
         rel = err / float(want.abs().max())
@@ -541,7 +595,8 @@ def phase_scan(torch) -> dict:
                              bound_by=bound_by)
         log(f"[scan] {name}: Bt={Bt} L={L} di={di} N={N} float32: "
             f"max|err| {err:.3g} (max|err|/max|plain| {rel:.3g}; tol "
-            f"atol=rtol={SCAN_TOL}) kernel {ms:.4f} ms, plain "
+            f"atol=rtol={SCAN_TOL}; inputs copied for TMA: {copies}) "
+            f"kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, no library call, bound {bound:.4f} ms "
             f"by {bound_by} (roofline share {bound / ms:.1%})")
         del dt, A, B, C, x, want, out, diff, bad
@@ -707,6 +762,7 @@ def phase_prefill(torch, arch, label: str,
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import Ctx, build_model
 
     torch.cuda.reset_peak_memory_stats()
@@ -741,6 +797,7 @@ def phase_prefill(torch, arch, label: str,
     batch = {"tokens": tokens}
 
     kept = []
+    copies = ss.COPIES.count
     ops.reset_launch_counts()
     with kept_slots(ops, kept):
         flash, aux = model.forward(batch, Ctx(use_flash=True),
@@ -749,6 +806,10 @@ def phase_prefill(torch, arch, label: str,
     launches = ops.launch_counts()
     want = expected_launches(cfg)
     log(f"[{label}] launches in one forward: {json.dumps(launches)}")
+    if want["ssm_scan"]:
+        log(f"[{label}] ssm_scan inputs copied for TMA in the forward: "
+            f"{ss.COPIES.count - copies} (B and C read in place as column "
+            f"slices of the x_proj output)")
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     if flash.shape != (1, 1, cfg.padded_vocab) or \

@@ -45,15 +45,17 @@
 // tensor maps are encoded per call from the strides, so nothing is
 // transposed or padded in device memory. cuTensorMapEncodeTiled is a
 // driver function, reached through cudaGetDriverEntryPoint so that the
-// library needs no -lcuda. The f32 path is a plain FMA kernel of the same
+// library needs no -lcuda (hopper.cuh, with the PTX wrappers the port's
+// kernels share). The f32 path is a plain FMA kernel of the same
 // algorithm (the check path, not the model's). The C entry point returns
 // cudaGetLastError() after the launch.
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 128;  // the f32 kernel: 4 warps
 constexpr float kNeg = -1e30f;
@@ -98,102 +100,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 2^x on the special-function unit (-1e30-scale inputs give 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ------------------------------------------------- Hopper primitives (PTX)
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: a box of the 4-d tensor map (cols, rows, head, batch) into shared
-// memory, completing `bytes` on the barrier; out-of-bounds rows read 0.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// TMA: a box of shared memory to the tensor map; rows out of bounds are
-// not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1,
-                                          int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile(
-      "cp.async.bulk.commit_group;\n"
-      "cp.async.bulk.wait_group.read 0;\n" ::
-          : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -534,7 +446,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       mbar_init(full_v(s), 1);
       mbar_init(empty(s), kConsumers * 4);  // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -548,7 +460,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       mbar_expect_tx(full_q, P::kQBytes);
 #pragma unroll
       for (int c = 0; c < P::kChunks; ++c)
-        tma_load(base + c * P::kQChunk, &tm_q, full_q, c * CW, q_start, h, b);
+        tma_load_4d(base + c * P::kQChunk, &tm_q, full_q, c * CW, q_start, h,
+                    b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % ST;
         mbar_wait(empty(s), ((t / ST) & 1) ^ 1);  // round 0 passes at once
@@ -556,13 +469,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_expect_tx(full_k(s), P::kTileBytes);
 #pragma unroll
         for (int c = 0; c < P::kChunks; ++c)
-          tma_load(kt + c * P::kKVChunk, &tm_k, full_k(s), c * CW, t * BN,
-                   kvh, b);
+          tma_load_4d(kt + c * P::kKVChunk, &tm_k, full_k(s), c * CW, t * BN,
+                      kvh, b);
         mbar_expect_tx(full_v(s), P::kTileBytes);
 #pragma unroll
         for (int c = 0; c < P::kChunks; ++c)
-          tma_load(vt + c * P::kKVChunk, &tm_v, full_v(s), c * CW, t * BN,
-                   kvh, b);
+          tma_load_4d(vt + c * P::kKVChunk, &tm_v, full_v(s), c * CW, t * BN,
+                      kvh, b);
       }
     }
   } else {
@@ -643,13 +556,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float m_new = fmaxf(m[r], quad_max(mx[r]) * p.scale_log2);
-        corr[r] = fast_exp2(m[r] - m_new);
+        corr[r] = ex2(m[r] - m_new);
         m[r] = m_new;
       }
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
         const int r = (i / 2) & 1;
-        sc[i] = fast_exp2(fmaf(sc[i], p.scale_log2, -m[r]));
+        sc[i] = ex2(fmaf(sc[i], p.scale_log2, -m[r]));
         sum[r] += sc[i];
       }
 #pragma unroll
@@ -759,14 +672,15 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       *reinterpret_cast<uint32_t*>(gbase + off) =
           pack_bf16(o[i] * inv[r], o[i + 1] * inv[r]);
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_smem();
     named_barrier(1 + wg, 128);
     if (tid == 0) {
 #pragma unroll
       for (int c = 0; c < P::kChunks; ++c)
-        tma_store(&tm_o, base + c * P::kQChunk + wg * 64 * CW * 2, c * CW,
-                  wg_q0, h, b);
-      tma_store_wait();
+        tma_store_4d(&tm_o, base + c * P::kQChunk + wg * 64 * CW * 2, c * CW,
+                     wg_q0, h, b);
+      bulk_commit();
+      bulk_wait_read<0>();
     }
   }
 }
@@ -874,31 +788,6 @@ cudaError_t launch_f32(Kernel kernel, size_t smem_bytes, const Params& p,
 }
 
 // ------------------------------------------------------- host: tensor maps
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The 4-d bf16 tensor map of a (batch, rows, heads, hd) tensor with element
 // strides (sb, sr, sh) and a contiguous head dim, read in boxes of
 // (box_cols, box_rows, 1, 1). A dimension of extent 1 gets a stride that

@@ -14,14 +14,22 @@
 // by device-memory bytes (each needed row of x read, each slot row
 // written). So the kernel moves 16-byte words where x, the output and both
 // row strides are 16-byte aligned, which is every row width the models use,
-// and elements one at a time otherwise. The copy moves raw bits, so bf16
-// and float32 differ only in the element size, and the result equals the
-// plain version bit for bit. The C entry point returns cudaGetLastError()
-// after the launch.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// and elements one at a time otherwise; an unkept row is zero-filled
+// without reading x. The copy moves raw bits, so bf16 and float32 differ
+// only in the element size, and the result equals the plain version bit for
+// bit. A version that moved rows through shared memory by Hopper's 1-D bulk
+// copies (cp.async.bulk, a ring of mbarrier-guarded row buffers a warp, a
+// persistent grid) measured the same at the prefill shape on an H100
+// (PERF.md): the time is the memory system's write path, not the copy's
+// form. At the decode shape the device takes a few microseconds of the
+// call; the rest is the host's launch path, which the wrapper keeps short
+// (kernels/nvcc.py ``launch``). The C entry point takes the device index
+// and returns a cudaError_t.
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kWarps = 8;  // slots per block, one warp each
 
@@ -52,9 +60,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 template <typename W>
-void launch(const void* x, const int32_t* token_ids, const uint8_t* keep,
-            void* out, int64_t S, int64_t T, int64_t row_bytes,
-            int64_t x_stride_bytes, cudaStream_t stream) {
+void launch_rows(const void* x, const int32_t* token_ids,
+                 const uint8_t* keep, void* out, int64_t S, int64_t T,
+                 int64_t row_bytes, int64_t x_stride_bytes,
+                 cudaStream_t stream) {
   const int64_t blocks = (S + kWarps - 1) / kWarps;
   moe_gather_rows<W><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
                        stream>>>(
@@ -63,29 +72,44 @@ void launch(const void* x, const int32_t* token_ids, const uint8_t* keep,
       row_bytes);
 }
 
-}  // namespace
-
 // x: (T, d) rows x_row_stride elements apart, elements of elem_size bytes
 // (2: bf16, 4: float32); token_ids: (S,) int32; keep: (S,) bool as bytes;
 // out: (S, d) contiguous. S > 0 and T > 0.
-extern "C" int repro_moe_gather(const void* x, const void* token_ids,
-                                const void* keep, void* out, int64_t S,
-                                int64_t T, int64_t d, int64_t x_row_stride,
-                                int elem_size, void* stream) {
+int gather(int device, const void* x, const void* token_ids,
+           const void* keep, void* out, int64_t S, int64_t T, int64_t d,
+           int64_t x_row_stride, int elem_size, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
+  if (S <= 0 || T <= 0 || (elem_size != 2 && elem_size != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t row_bytes = d * elem_size;
   const int64_t x_stride_bytes = x_row_stride * elem_size;
-  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                   row_bytes % 16 == 0 && x_stride_bytes % 16 == 0;
   const auto* ids = static_cast<const int32_t*>(token_ids);
   const auto* kp = static_cast<const uint8_t*>(keep);
   auto st = static_cast<cudaStream_t>(stream);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   row_bytes % 16 == 0 && x_stride_bytes % 16 == 0;
   if (vec) {
-    launch<uint4>(x, ids, kp, out, S, T, row_bytes, x_stride_bytes, st);
+    launch_rows<uint4>(x, ids, kp, out, S, T, row_bytes, x_stride_bytes, st);
   } else if (elem_size == 2) {
-    launch<uint16_t>(x, ids, kp, out, S, T, row_bytes, x_stride_bytes, st);
+    launch_rows<uint16_t>(x, ids, kp, out, S, T, row_bytes, x_stride_bytes,
+                          st);
   } else {
-    launch<uint32_t>(x, ids, kp, out, S, T, row_bytes, x_stride_bytes, st);
+    launch_rows<uint32_t>(x, ids, kp, out, S, T, row_bytes, x_stride_bytes,
+                          st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The wrapper's arguments as one block of n = 11 int64 (kernels/nvcc.py
+// ``launch``: one ctypes argument instead of 11 conversions): device, x,
+// token_ids, keep, out, S, T, d, x_row_stride, elem_size, stream.
+extern "C" int repro_moe_gather(const int64_t* a, int n) {
+  if (n != 11) return static_cast<int>(cudaErrorInvalidValue);
+  auto p = [&](int i) { return reinterpret_cast<void*>(a[i]); };
+  return gather(static_cast<int>(a[0]), p(1), p(2), p(3), p(4), a[5], a[6],
+                a[7], a[8], static_cast<int>(a[9]), p(10));
 }

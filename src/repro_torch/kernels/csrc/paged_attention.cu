@@ -73,10 +73,12 @@
 //   writes the output itself and the second is not launched.
 // The C entry point returns cudaGetLastError() after the launches.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using hopper::smem_addr;
 
 constexpr int kMaxWarps = 4;
 constexpr int kStages = 2;
@@ -146,10 +148,6 @@ __host__ __device__ inline Layout make_layout(int elem, int hd, int qrows,
 }
 
 // ------------------------------------------------------------ helpers
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),

@@ -3,10 +3,16 @@
 Each source under ``csrc/`` has plain C entry points (no PyTorch headers)
 and becomes one shared library, compiled with nvcc for sm_90a at first use
 into ``build/repro_torch/`` (git-ignored) under a name that carries the
-digest of the source, so an edited source is rebuilt and an unchanged one
-is not. ``compile_all`` starts one nvcc per missing library, all at once,
-and waits for every one of them. The ptxas report (registers, shared
+digest of the source and of the headers beside it (``csrc/*.cuh``), so an
+edited source or header is rebuilt and an unchanged one is not.
+``compile_all`` starts one nvcc per missing library, all at once, and waits
+for every one of them. The ptxas report (registers, shared
 memory, spills) is kept beside each library as ``.log``.
+
+``launch`` is the lean call path of a kernel's C entry (``bind``): the
+arguments packed into one block of int64, no Python context manager, the
+device index handed to the C side (which switches device only when it
+must), the raw handle of the device's current stream.
 """
 from __future__ import annotations
 
@@ -15,13 +21,16 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 from pathlib import Path
 from typing import Iterable, List
 
+import torch
+
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "LaunchCounter", "nvcc_path",
-           "compile_all", "load"]
+           "compile_all", "load", "launch", "bind"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,7 +55,10 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
@@ -100,3 +112,30 @@ def load(source: Path) -> ctypes.CDLL:
     """The library built from ``source`` (compiled first if missing)."""
     lib, = compile_all([source])
     return ctypes.CDLL(str(lib))
+
+
+def launch(fn: ctypes._CFuncPtr, name: str, index: int, *args: int) -> None:
+    """Call a kernel's C entry ``fn(block, n)`` on the current stream of
+    CUDA device ``index`` and raise RuntimeError on the CUDA error it
+    returns (``cudaGetLastError()`` after the launch). ``block`` holds the
+    n int64 ``index, *args, stream``, packed by one ``struct.pack``: one
+    ctypes argument to convert instead of one per argument, the larger
+    part of a small kernel's host path. The stream is the one
+    ``torch.cuda.current_stream(index)`` stands for, read as its raw handle
+    without building a Stream object. The C entry makes the device current
+    only when it is not already, and restores the caller's afterwards."""
+    n = len(args) + 2
+    block = struct.pack(f"{n}q", index, *args,
+                        torch._C._cuda_getCurrentRawStream(index))
+    err = fn(block, n)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def bind(lib: ctypes.CDLL, symbol: str) -> ctypes._CFuncPtr:
+    """The C entry ``int symbol(const int64_t* block, int n)`` of a library
+    called through ``launch``."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn

@@ -44,20 +44,20 @@ def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
                keep: torch.Tensor) -> torch.Tensor:
     """x: (T,d); token_ids: (S,) int32; keep: (S,) bool -> (S,d) dispatch
     buffer in x's dtype (the caller reshapes to (E,C,d))."""
-    _moe.check_shapes(x, token_ids, keep)
-    if x.device.type == "cpu":
+    if x.is_cpu:
+        _moe.check_shapes(x, token_ids, keep)
         return ref.moe_gather_ref(x, token_ids, keep)
-    return _moe.moe_gather(x, token_ids, keep)
+    return _moe.moe_gather(x, token_ids, keep)  # checks
 
 
 def ssm_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """dt, x: (Bt,L,di); A: (di,N); B, C: (Bt,L,N) -> y (Bt,L,di) float32.
     The kernel takes float32 only; the plain version upcasts."""
-    _ssm.check_shapes(dt, A, B, C, x)
     if x.device.type == "cpu":
+        _ssm.check_shapes(dt, A, B, C, x)
         return ref.ssm_scan_ref(dt, A, B, C, x)
-    return _ssm.ssm_scan(dt, A, B, C, x)
+    return _ssm.ssm_scan(dt, A, B, C, x)  # checks
 
 
 def launch_counts() -> dict:

@@ -5,7 +5,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ["attention_ref", "flash_attention_tiled_ref", "paged_attention_ref",
-           "paged_attention_split_ref", "moe_gather_ref", "ssm_scan_ref"]
+           "paged_attention_split_ref", "moe_gather_ref", "ssm_scan_ref",
+           "ssm_scan_ex2_ref"]
+
+LOG2E = 1.4426950408889634
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -187,6 +190,47 @@ def ssm_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         h = torch.exp(dt_t * A) * h + (dt_t * x[:, t, :, None]) \
             * B[:, t, None, :]
         ys.append((h * C[:, t, None, :]).sum(-1))
+    if not ys:
+        return x.new_zeros((Bt, 0, di))
+    return torch.stack(ys, dim=1)
+
+
+def ssm_scan_ex2_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                     C: torch.Tensor, x: torch.Tensor,
+                     lanes: int = 2) -> torch.Tensor:
+    """``ssm_scan_ref``'s function by the CUDA kernel's arithmetic, in
+    plain PyTorch, all float32: A is scaled by log2 e once and the decay
+    is ``exp2(dt_t * A')``; the N states (zero-padded to 16) are split
+    among ``lanes`` lanes in runs of 16 / lanes, each lane sums its
+    ``h * C_t`` terms in state order, and the lanes' parts are added as the
+    kernel's reduce-scatter adds them (2 lanes: p0 + p1; 4 lanes:
+    (p0 + p2) + (p1 + p3)). Shapes as ``ssm_scan_ref``."""
+    if lanes not in (1, 2, 4, 8, 16):
+        raise ValueError(f"lanes {lanes}: a power of two dividing 16")
+    dt, A, B, C, x = (t.float() for t in (dt, A, B, C, x))
+    Bt, L, di = x.shape
+    N = A.shape[1]
+    if N > 16:
+        raise ValueError(f"state size N={N} over the kernel's 16")
+    A2 = A * torch.tensor(LOG2E, dtype=torch.float32)
+    per = 16 // lanes
+    h = torch.zeros((Bt, di, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        dt_t = dt[:, t, :, None]  # (Bt, di, 1)
+        h = torch.exp2(dt_t * A2) * h + (dt_t * x[:, t, :, None]) \
+            * B[:, t, None, :]
+        hc = torch.nn.functional.pad(h * C[:, t, None, :], (0, 16 - N))
+        parts = []
+        for q in range(lanes):
+            acc = hc[..., q * per]
+            for j in range(q * per + 1, (q + 1) * per):
+                acc = acc + hc[..., j]
+            parts.append(acc)
+        while len(parts) > 1:  # the reduce-scatter's rounds
+            half = len(parts) // 2
+            parts = [parts[i] + parts[i + half] for i in range(half)]
+        ys.append(parts[0])
     if not ys:
         return x.new_zeros((Bt, 0, di))
     return torch.stack(ys, dim=1)

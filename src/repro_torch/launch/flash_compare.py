@@ -15,12 +15,12 @@ this, other, twice; beside one SDPA call and the bound (4*hd operations per
 visible pair and head at 989 TFLOP/s, or the bytes of q, k, v, o at 3.35
 TB/s). A case whose head dim the other kernel does not take is timed on
 this one only. Prints one line per case, the card's name and power limit,
-and a JSON object of the numbers as the last line.
+and a JSON object of the numbers as the last line. The loader and the
+turns are ``kernel_compare``'s.
 """
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import subprocess
 import sys
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import attention_ref
+from repro_torch.launch.kernel_compare import events_ms, load_other, turns
 
 __all__ = ["CASES", "bound_ms", "main"]
 
@@ -56,27 +57,6 @@ def bound_ms(B, S, T, H, K, hd, causal, elem=2) -> tuple:
                                        else "bytes")
 
 
-def _events_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _load_other(root: Path):
-    path = root / "src" / "repro_torch" / "kernels" / "flash_attention.py"
-    spec = importlib.util.spec_from_file_location("other_flash", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, required=True)
@@ -84,7 +64,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flash_compare: no CUDA device", file=sys.stderr)
         return 2
-    other = _load_other(args.other.resolve())
+    other = load_other(args.other.resolve(), "flash_attention")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -108,17 +88,13 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: {who} kernel off by "
                                      f"{errs[who]:.3g}")
         del want, out
-        times = {who: [] for who in kernels}
         order = (["other", "this", "this", "other"] if "other" in kernels
                  else ["this", "this"])
-        for _ in range(ROUNDS):
-            for who in order:
-                mod = kernels[who]
-                times[who].append(_events_ms(
-                    lambda: mod.flash_attention_fwd(q, k, v, causal=causal),
-                    REPS))
+        times = turns({who: (lambda mod=mod: mod.flash_attention_fwd(
+            q, k, v, causal=causal)) for who, mod in kernels.items()},
+            order, REPS, ROUNDS)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = _events_ms(lambda: F.scaled_dot_product_attention(
+        sdpa = events_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), REPS)
         bound, by = bound_ms(B, S, T, H, K, hd, causal)
         results[name] = {"shape": [B, S, T, H, K, hd, causal],

@@ -223,6 +223,34 @@ def test_moe_gather_kernel_refuses_what_it_does_not_take(torch):
         moe_dispatch.moe_gather(x.cpu(), ids.cpu(), keep.cpu())
 
 
+@pytest.mark.parametrize("T,d,S,kept", [
+    (4, 2048, 480, 16 / 480),   # qwen2-moe decode at batch 4
+    (4096, 2048, 20_640, 0.8),  # qwen2-moe prefill
+    (100, 48, 333, 0.75),       # ragged: S against the blocks, 96/192 B rows
+    (37, 1032, 1001, 0.5),      # rows of 2,064 / 4,128 bytes
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gather_kernel_over_row_layouts(torch, T, d, S, kept, dtype):
+    """Bit-equal to the plain version with kept ids out of range (clamped),
+    on x itself and on x as a column slice of a wider matrix: at a 16-byte
+    aligned base (copied in 16-byte words) and at a base one element past
+    it (copied element by element)."""
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.kernels.ref import moe_gather_ref
+    dt = getattr(torch, dtype)
+    wide, ids, keep = _gather_inputs(torch, T, 2 * d + 8, S, dt, kept=kept)
+    ids[:3] = torch.tensor([-7, T, 10 * T], dtype=torch.int32)
+    keep[:3] = True
+    for x in (wide[:, :d].contiguous(), wide[:, 8:8 + d],
+              wide[:, 1:1 + d]):
+        before = moe_dispatch.LAUNCHES.count
+        out = moe_dispatch.moe_gather(x, ids, keep)
+        torch.cuda.synchronize()
+        assert moe_dispatch.LAUNCHES.count == before + 1
+        assert out.is_contiguous()
+        _same_bits(torch, out, moe_gather_ref(x, ids, keep))
+
+
 def _scan_inputs(torch, Bt, L, di, N, seed=0):
     """tests/test_kernels.py's distribution: dt = 0.1 softplus(normal),
     A = -exp(0.3 normal), B, C, x standard normal; float32 on the card."""
@@ -466,3 +494,48 @@ def test_paged_attention_kernel_refuses_what_it_does_not_take(torch):
         pa.paged_attention(q.cpu(), kp.cpu(), vp.cpu(), tables.cpu(),
                            lengths.cpu())
     assert pa.LAUNCHES.count == before
+
+
+@pytest.mark.parametrize("L", [1, 65, 1001])
+@pytest.mark.parametrize("N", [1, 4, 8, 16])
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_ssm_scan_kernel_ragged_steps_channels_and_states(torch, L, N,
+                                                          lanes):
+    """L against the 32-step chunk, di = 100 against the block's 32
+    channels, N below the 16 states held: against the plain version and
+    the kernel's arithmetic in plain PyTorch, both at 1e-5."""
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ref import ssm_scan_ex2_ref, ssm_scan_ref
+    dt, A, B, C, x = _scan_inputs(torch, 2, L, 100, N)
+    copies = ss.COPIES.count
+    out = ss._scan(dt, A, B, C, x, lanes)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape
+    assert ss.COPIES.count == copies + (2 if N % 4 else 0)  # B and C
+    for want in (ssm_scan_ref(dt, A, B, C, x),
+                 ssm_scan_ex2_ref(dt, A, B, C, x, lanes=lanes)):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_ssm_scan_kernel_copies_only_what_tma_cannot_read(torch):
+    """B and C as column slices of a projection whose rows are not whole
+    16-byte words (R = 23), dt and x of 99 channels: each is copied into a
+    padded buffer first (four copies), y is a column view; at jamba's
+    layout (R = 512, rows of 2,176 bytes) nothing is copied."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ref import ssm_scan_ref
+    gen = torch.Generator("cuda").manual_seed(5)
+    for R, di, copies in ((23, 99, 4), (512, 96, 0)):
+        Bt, L, N = 2, 70, 16
+        dt, A, _, _, x = _scan_inputs(torch, Bt, L, di, N)
+        proj = torch.randn(Bt, L, R + 2 * N, device="cuda", generator=gen)
+        B, C = proj[..., R:R + N], proj[..., R + N:]
+        before = ss.COPIES.count
+        out = ops.ssm_scan(dt, A, B, C, x)
+        torch.cuda.synchronize()
+        assert ss.COPIES.count == before + copies
+        want = ssm_scan_ref(dt, A, B.contiguous(), C.contiguous(), x)
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
