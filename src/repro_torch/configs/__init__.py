@@ -2,8 +2,8 @@
 
 A plain copy of the reference registry: frozen :class:`ArchConfig`,
 :class:`ShapeConfig`, ``SHAPES``, ``get_arch`` and ``reduced_config``.
-``get_arch`` loads ``repro_torch.configs.<name>``; only the architectures
-whose family the port runs have a config module here so far.
+``get_arch`` loads ``repro_torch.configs.<name>``, a plain copy of the
+reference's config module, for every architecture of ``ARCH_IDS``.
 """
 from __future__ import annotations
 

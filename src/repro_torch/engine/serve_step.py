@@ -61,8 +61,11 @@ class ServingEngine:
     pool (``page_size`` tokens a page): before each step every active slot
     gets room for one more token (a new page at a page boundary), and the
     block tables and each slot's tail page go to the card in one copy
-    each; an idle slot's table row is all holes and its write is dropped.
-    A hybrid model also keeps its per-slot Mamba states."""
+    each; an idle slot's table row is all holes and its write is dropped
+    (the dense, MoE, vlm and hybrid families; audio and ssm raise). A
+    hybrid or xLSTM model also keeps its per-slot recurrent states; an
+    audio model decodes against ``enc_out`` zeros, as the reference's
+    serving never runs the encoder."""
 
     def __init__(self, model: Model, batch_size: int, max_seq: int,
                  ctx: Optional[Ctx] = None, eos_id: int = 0,
@@ -73,6 +76,7 @@ class ServingEngine:
         self.ctx = ctx or Ctx()
         self.eos = eos_id
         cfg = model.cfg
+        # the reference's books count cfg.n_layers (an ssm config's too)
         n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
                   else cfg.n_layers)
         self.kv_cfg = KVCacheConfig(
@@ -107,8 +111,9 @@ class ServingEngine:
                 self.pages.allocate(seq.sid, len(seq.prompt) + 8)
                 self._prompts_pending[i] = list(seq.prompt)
                 # reset this slot's cache length. As in the reference, a
-                # hybrid model's Mamba state (h, conv window) is not reset:
-                # a new request starts from the previous one's state.
+                # hybrid model's Mamba state (h, conv window) and an xLSTM
+                # model's states are not reset: a new request starts from
+                # the previous one's state.
                 self.state.length[i] = 0
 
     def step(self, generator: Optional[torch.Generator] = None) -> int:

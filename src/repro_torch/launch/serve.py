@@ -1,6 +1,13 @@
 """Serving entry point: continuous batching over the KV page allocator, against
 the dense KV cache or (``--kv-layout paged``) the paged pool.
 
+Every architecture of the registry serves (``--arch gemma-7b``,
+``phi3-mini-3.8b``, ``internvl2-26b``, ``whisper-small``, ``xlstm-125m``,
+...). The paged pool is for the dense, MoE, vlm and hybrid families; audio
+and ssm raise ValueError there, as the reference has no paged decode for
+them. Whisper serves from ``enc_out`` zeros: the reference's serving never
+runs the encoder.
+
 Usage (on a CUDA card unless --device names another):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen25_32b \\
       --reduced --requests 8 --max-new 32 [--kv-layout paged --page-size 16]

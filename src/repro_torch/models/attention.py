@@ -1,7 +1,7 @@
 """GQA attention: prefill (full + chunked online-softmax paths, or the
-hand-written flash kernel) and decode against a dense KV cache or, through
-the hand-written paged-attention kernel, a paged pool (port of
-``repro.models.attention``; ``cross_attention_block`` waits for whisper).
+hand-written flash kernel), decode against a dense KV cache or, through
+the hand-written paged-attention kernel, a paged pool, and the
+encoder-decoder's cross-attention (port of ``repro.models.attention``).
 
 Layouts are the reference's: q (B,S,H,hd), k/v (B,T,K,hd); q head h
 reads kv head h // G (contiguous grouping).
@@ -19,7 +19,7 @@ from repro_torch.models.params import ParamDef
 
 __all__ = ["attn_defs", "attn_project_qkv", "full_attention",
            "chunked_attention", "decode_attention", "paged_decode_attention",
-           "attention_block"]
+           "attention_block", "cross_attention_block"]
 
 _NEG = -1e30
 CHUNKED_THRESHOLD = 8192  # use online-softmax KV chunking above this S
@@ -43,17 +43,22 @@ def attn_defs(cfg: ArchConfig, stacked: Optional[int] = None) -> Dict:
     return out
 
 
-def attn_project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor
+def attn_project_qkv(cfg: ArchConfig, p: Dict, xq: torch.Tensor,
+                     xkv: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q (B,S,H,hd), k/v (B,S,K,hd)."""
+    """Returns q (B,S,H,hd) from xq, k/v (B,T,K,hd) from xkv (default
+    xq; the encoder output for cross-attention)."""
+    if xkv is None:
+        xkv = xq
     hd = cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = xq @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    B, S = x.shape[:2]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, K, hd),
-            v.reshape(B, S, K, hd))
+    B, S = xq.shape[:2]
+    T = xkv.shape[1]
+    return (q.reshape(B, S, H, hd), k.reshape(B, T, K, hd),
+            v.reshape(B, T, K, hd))
 
 
 def _gqa_shape(cfg: ArchConfig, q: torch.Tensor) -> torch.Tensor:
@@ -162,4 +167,14 @@ def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         out = chunked_attention(cfg, q, k, v, causal)
     else:
         out = full_attention(cfg, q, k, v, causal)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                          enc: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention onto the encoder output: the plain path,
+    no positions, not causal (as the reference)."""
+    q, k, v = attn_project_qkv(cfg, p, x, enc)
+    out = full_attention(cfg, q, k, v, causal=False)
+    B, S = x.shape[:2]
     return out.reshape(B, S, -1) @ p["wo"]

@@ -1,5 +1,5 @@
-"""Common layers: rmsnorm, rotary embeddings, dense FFN variants,
-embeddings (port of ``repro.models.layers``, for the dense family).
+"""Common layers: norms, rotary embeddings, dense FFN variants, embeddings
+(port of ``repro.models.layers``).
 
 Matmuls run in the param dtype with float32 norm statistics; logits are
 float32. The casts sit exactly where the reference puts them, because in
@@ -15,8 +15,9 @@ import torch.nn.functional as F
 from repro_torch.configs import ArchConfig
 from repro_torch.models.params import ParamDef
 
-__all__ = ["rmsnorm", "norm_def", "apply_norm", "rope",
-           "ffn_defs", "ffn_apply", "embed_defs", "embed_lookup", "logits"]
+__all__ = ["rmsnorm", "layernorm", "norm_def", "apply_norm", "rope",
+           "ffn_defs", "ffn_apply", "embed_defs", "embed_lookup",
+           "position_lookup", "logits"]
 
 
 # ------------------------------------------------------------------ norms
@@ -28,14 +29,28 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance in f32, cast back to x's dtype, then scale and
+    bias."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
 def norm_def(cfg: ArchConfig, stacked: Optional[int] = None) -> Dict:
     lead = (stacked,) if stacked else ()
     la = ("layers",) if stacked else ()
-    return {"scale": ParamDef((*lead, cfg.d_model), (*la, None), init="ones")}
+    d = {"scale": ParamDef((*lead, cfg.d_model), (*la, None), init="ones")}
+    if cfg.norm == "layernorm":
+        d["bias"] = ParamDef((*lead, cfg.d_model), (*la, None), init="zeros")
+    return d
 
 
 def apply_norm(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """rmsnorm; layernorm (whisper) waits for the audio slice."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
 
 
@@ -96,11 +111,31 @@ def embed_defs(cfg: ArchConfig) -> Dict:
     if not cfg.tie_embeddings:
         d["head"] = ParamDef((cfg.d_model, cfg.padded_vocab),
                              ("embed", "vocab"))
+    if cfg.pos_embedding == "learned":
+        # sized to the largest assigned full-sequence shape (prefill_32k)
+        d["positions"] = ParamDef((32_768, cfg.d_model), (None, "embed"),
+                                  init="small")
+    if cfg.encoder_len:
+        d["enc_positions"] = ParamDef((cfg.encoder_len, cfg.d_model),
+                                      (None, "embed"), init="small")
+    if cfg.n_patches:
+        d["patch_pos"] = ParamDef((cfg.n_patches, cfg.d_model),
+                                  (None, "embed"), init="small")
     return d
 
 
 def embed_lookup(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens.long(), p["tokens"])
+
+
+def position_lookup(table: torch.Tensor, index: torch.Tensor
+                    ) -> torch.Tensor:
+    """``table[index]`` for (B,) indices as ``jnp.take`` gives it: a row
+    past the table's end is NaN (its "fill" mode), never an error. An idle
+    serving slot's length keeps counting past max_seq."""
+    n = table.shape[0]
+    rows = table[index.long().clamp(max=n - 1)]
+    return torch.where((index < n)[:, None], rows, float("nan"))
 
 
 def logits(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:

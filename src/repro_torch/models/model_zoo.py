@@ -93,6 +93,16 @@ class Model(nn.Module):
         return tf.forward(self.cfg, self.params(), batch, ctx or Ctx(),
                           last_only)
 
+    def encode(self, frames: torch.Tensor, ctx: Optional[Ctx] = None
+               ) -> torch.Tensor:
+        """The whisper encoder: frames (B, encoder_len, d) -> its output,
+        which decode reads as ``DecodeState.enc_out``."""
+        if self.cfg.family != "audio":
+            raise ValueError(f"encode: {self.cfg.name} ({self.cfg.family}) "
+                             f"has no encoder")
+        return tf.encode_whisper(self.cfg, self.params(), frames,
+                                 ctx or Ctx())
+
     def decode_step(self, token, state, ctx: Optional[Ctx] = None):
         return tf.decode_step(self.cfg, self.params(), token, state,
                               ctx or Ctx())
@@ -101,10 +111,11 @@ class Model(nn.Module):
                           kv_dtype: Optional[str] = None, device=None,
                           kv_layout: str = "dense", page_size: int = 64,
                           num_pages: Optional[int] = None):
-        """The dense KV cache (``kv_dtype="int8"``: int8 with scales) or,
-        with ``kv_layout="paged"``, the paged pool of ``page_size``-token
-        pages (``transformer.init_decode_state``); dtype defaults to the
-        config's ``param_dtype`` and device to the parameters' device."""
+        """The dense KV cache (``kv_dtype="int8"``: int8 with scales;
+        another float type: a cache of it), the xLSTM states, or, with
+        ``kv_layout="paged"``, the paged pool of ``page_size``-token pages
+        (``transformer.init_decode_state``); dtype defaults to the config's
+        ``param_dtype`` and device to the parameters' device."""
         return tf.init_decode_state(
             self.cfg, batch, max_seq,
             pp.torch_dtype(dtype or self.cfg.param_dtype),
@@ -114,8 +125,9 @@ class Model(nn.Module):
 
 def build_model(arch: Union[str, ArchConfig],
                 layers: Optional[int] = None) -> Model:
-    """``layers`` cuts the depth (never the width). A hybrid stack runs
-    whole groups, so its depth must be a multiple of ``attn_period``
+    """``layers`` cuts the depth (never the width; whisper's decoder
+    only). A hybrid stack runs whole groups, so its depth must be a
+    multiple of ``attn_period``, an xLSTM stack's of ``slstm_period``
     (ValueError otherwise)."""
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     if layers is not None:

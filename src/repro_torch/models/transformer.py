@@ -1,22 +1,29 @@
-"""Model assembly for the dense and MoE decoder-only families and the
-jamba hybrid (port of ``repro.models.transformer``).
+"""Model assembly for every family of the reference (port of
+``repro.models.transformer``): the decoder-only stacks (dense, MoE and
+vlm), the jamba hybrid, the xLSTM stack (ssm) and the whisper
+encoder-decoder (audio).
 
-The stack loops over layer-stacked parameters ``(L, ...)``, slicing one
+The stacks loop over layer-stacked parameters ``(L, ...)``, slicing one
 layer's views per step where the reference scans. A MoE config with
 ``moe_period == 1`` puts ``blocks["moe"]`` in every layer where a dense
-one has ``blocks["mlp"]``. The hybrid family keeps the reference's
-``groups`` tree: each subtree is stacked over all groups, and layer j of
-group gi reads leaf ``gi * k + j`` (k layers of that kind per group) where
-the reference reshapes to ``(groups, k, ...)`` and scans. Other families
-(vlm, ssm, audio) raise NotImplementedError: they are queued in ROADMAP.md
-("Modules to port").
+one has ``blocks["mlp"]``; a vlm config replaces the first ``n_patches``
+positions with the batch's patch embeddings. The heterogeneous stacks
+(hybrid, ssm) keep the reference's ``groups`` tree: each subtree is
+stacked over all groups, and layer j of group gi reads leaf ``gi * k +
+j`` (k layers of that kind per group) where the reference reshapes to
+``(groups, k, ...)`` and scans. Whisper keeps ``encoder`` and
+``decoder`` stacks; its encoder runs the plain attention path, as the
+reference's does, and its decoder's self-attention goes through flash
+under ``Ctx(use_flash=True)``.
 
 Decode runs against the state the caller builds with
 ``init_decode_state``: a dense cache (``DecodeState``; with
-``kv_dtype="int8"`` int8 values and per-(token, head) scales, as in the
-reference), or a paged pool (``PagedDecodeState``, ``kv_layout="paged"``)
-whose every attention layer reads through the paged-attention kernel.
-``decode_step`` dispatches on the state's type.
+``kv_dtype="int8"`` int8 values and per-(token, head) scales, with another
+float ``kv_dtype`` a cache of that type, as in the reference), the
+xLSTM stack's recurrent states (``DecodeState.mlstm`` / ``slstm``), or a
+paged pool (``PagedDecodeState``, ``kv_layout="paged"``; the dense, MoE,
+vlm and hybrid families) whose every attention layer reads through the
+paged-attention kernel. ``decode_step`` dispatches on the state's type.
 """
 from __future__ import annotations
 
@@ -25,13 +32,16 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import (attn_defs, attn_project_qkv,
-                                          attention_block, decode_attention,
+                                          attention_block,
+                                          cross_attention_block,
+                                          decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import (apply_norm, embed_defs, embed_lookup,
-                                       ffn_apply, ffn_defs, logits, norm_def,
-                                       rope)
+                                       ffn_apply, ffn_defs, logits,
+                                       norm_def, position_lookup, rope)
 from repro_torch.models.moe import moe_apply, moe_defs
 from repro_torch.models.params import torch_dtype
 from repro_torch.models.ssm import (MambaState, mamba_apply,
@@ -44,23 +54,29 @@ from repro_torch.objectmodel.kvcache import (KVCacheConfig, PagedKVState,
                                              write_paged, write_token)
 
 __all__ = ["model_defs", "forward", "decode_step", "init_decode_state",
-           "DecodeState", "PagedDecodeState"]
+           "encode_whisper", "DecodeState", "PagedDecodeState"]
+
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 class DecodeState(NamedTuple):
     """Per-layer decode state over the dense cache, stacked along the layer
-    dim.
+    (or group) dim; the fields a family does not use are None.
 
     With the int8 KV cache (``kv_dtype="int8"``) the caches are int8 and
     ``k_scale``/``v_scale`` hold per-(token, kv head) absmax scales.
-    ``decode_step`` updates the caches and the Mamba states in place (JAX
-    donates them instead) and returns a state holding the same tensors."""
-    k_cache: torch.Tensor  # (L_attn, B, Smax, K, hd)
-    v_cache: torch.Tensor
-    length: torch.Tensor  # (B,) int32
+    ``decode_step`` updates the caches and the recurrent states in place
+    (JAX donates them instead) and returns a state holding the same
+    tensors."""
+    k_cache: Optional[torch.Tensor] = None  # (L_attn, B, Smax, K, hd)
+    v_cache: Optional[torch.Tensor] = None
+    length: Optional[torch.Tensor] = None  # (B,) int32
     k_scale: Optional[torch.Tensor] = None  # (L_attn, B, Smax, K) f32, int8
     v_scale: Optional[torch.Tensor] = None
     mamba: Optional[MambaState] = None  # hybrid: stacked (L_mamba, ...)
+    mlstm: Optional[xl.MLSTMState] = None  # ssm: stacked (L_mlstm, ...)
+    slstm: Optional[xl.SLSTMState] = None  # ssm: stacked (L_slstm, ...)
+    enc_out: Optional[torch.Tensor] = None  # audio: (B, encoder_len, d)
 
 
 class PagedDecodeState(NamedTuple):
@@ -83,30 +99,33 @@ class PagedDecodeState(NamedTuple):
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    dense = cfg.family == "dense" and not cfg.is_moe
-    moe = cfg.family == "moe" and cfg.is_moe and cfg.moe_period == 1
-    hybrid = cfg.family == "hybrid" and cfg.attn_period > 0
-    if not (dense or moe or hybrid):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"'Modules to port': other model families)")
-    if hybrid and cfg.n_layers % cfg.attn_period:
+    """Raise for a config whose stack cannot be assembled."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r}: one of {FAMILIES}")
+    if cfg.family == "hybrid" and (cfg.attn_period <= 0
+                                   or cfg.n_layers % cfg.attn_period):
         raise ValueError(
             f"a hybrid stack runs whole groups of attn_period="
             f"{cfg.attn_period} layers; n_layers={cfg.n_layers} is not a "
             f"multiple")
-    if cfg.norm != "rmsnorm" or cfg.pos_embedding not in ("rope", "none"):
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} / positions {cfg.pos_embedding!r} are not "
-            f"ported yet (ROADMAP.md, 'Modules to port')")
+    if cfg.family == "ssm" and cfg.n_layers % _xlstm_period(cfg):
+        raise ValueError(
+            f"an xLSTM stack runs whole groups of slstm_period="
+            f"{cfg.slstm_period} blocks; n_layers={cfg.n_layers} is not a "
+            f"multiple")
+
+
+def _xlstm_period(cfg: ArchConfig) -> int:
+    """Blocks per xLSTM group: slstm_period - 1 mLSTM, then one sLSTM."""
+    return cfg.slstm_period or cfg.n_layers
 
 
 def model_defs(cfg: ArchConfig) -> Dict:
     _check_supported(cfg)
     defs: Dict[str, Any] = {"embed": embed_defs(cfg),
                             "final_norm": norm_def(cfg)}
-    if cfg.family == "hybrid":
+    fam = cfg.family
+    if fam == "hybrid":
         g = cfg.attn_period  # layers per group (e.g. 8: 7 mamba + 1 attn)
         ng = cfg.n_layers // g
         n_moe = g // cfg.moe_period
@@ -121,15 +140,33 @@ def model_defs(cfg: ArchConfig) -> Dict:
             "mlp_ln": norm_def(cfg, ng * n_dense),
             "mlp": ffn_defs(cfg, ng * n_dense),
         }
-        return defs
-    n = cfg.n_layers
-    blocks = {"ln1": norm_def(cfg, n), "attn": attn_defs(cfg, n),
-              "ln2": norm_def(cfg, n)}
-    if cfg.is_moe:
-        blocks["moe"] = moe_defs(cfg, n)
-    else:
-        blocks["mlp"] = ffn_defs(cfg, n)
-    defs["blocks"] = blocks
+    elif fam == "ssm":  # xlstm
+        g = _xlstm_period(cfg)
+        ng = cfg.n_layers // g
+        defs["groups"] = {
+            "mlstm_ln": norm_def(cfg, ng * (g - 1)),
+            "mlstm": xl.mlstm_defs(cfg, ng * (g - 1)),
+            "slstm_ln": norm_def(cfg, ng),
+            "slstm": xl.slstm_defs(cfg, ng),
+        }
+    elif fam == "audio":  # whisper encoder-decoder
+        ne, nd = cfg.encoder_layers, cfg.n_layers
+        defs["encoder"] = {"ln1": norm_def(cfg, ne), "attn": attn_defs(cfg, ne),
+                           "ln2": norm_def(cfg, ne), "mlp": ffn_defs(cfg, ne)}
+        defs["enc_final_norm"] = norm_def(cfg)
+        defs["decoder"] = {"ln1": norm_def(cfg, nd), "attn": attn_defs(cfg, nd),
+                           "lnx": norm_def(cfg, nd),
+                           "xattn": attn_defs(cfg, nd),
+                           "ln2": norm_def(cfg, nd), "mlp": ffn_defs(cfg, nd)}
+    else:  # dense, moe, vlm: one uniform stack
+        n = cfg.n_layers
+        blocks = {"ln1": norm_def(cfg, n), "attn": attn_defs(cfg, n),
+                  "ln2": norm_def(cfg, n)}
+        if cfg.is_moe and cfg.moe_period == 1:
+            blocks["moe"] = moe_defs(cfg, n)
+        else:
+            blocks["mlp"] = ffn_defs(cfg, n)
+        defs["blocks"] = blocks
     return defs
 
 
@@ -192,15 +229,28 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits_f32, aux_loss).
 
+    ``batch`` holds ``tokens`` (B, S); a vlm config may add ``patches``
+    (B, n_patches, d), which replace the first n_patches positions; an
+    audio config needs ``frames`` (B, encoder_len, d).
     last_only=True (prefill): the LM head is applied to the final position
     only, so no (B, S, V) logits buffer ever materializes."""
+    if cfg.family == "audio":
+        return _whisper_forward(cfg, params, batch, ctx, last_only)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = ctx.constrain(embed_lookup(params["embed"], tokens),
-                      "batch", None, None)
+    x = embed_lookup(params["embed"], tokens)
+    if cfg.family == "vlm" and "patches" in batch:
+        P = cfg.n_patches
+        patches = batch["patches"] + params["embed"]["patch_pos"]
+        x = torch.cat([patches.to(x.dtype), x[:, P:]], dim=1)
+    if cfg.pos_embedding == "learned":
+        x = x + params["embed"]["positions"][:S]
+    x = ctx.constrain(x, "batch", None, None)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     if cfg.family == "hybrid":
         x, aux = _jamba_stack(cfg, params["groups"], x, positions, ctx)
+    elif cfg.family == "ssm":
+        x, aux = _xlstm_stack(cfg, params["groups"], x, ctx)
     else:
         x, aux = _uniform_stack(cfg, params["blocks"], x, positions, ctx)
     if last_only:
@@ -250,6 +300,69 @@ def _jamba_stack(cfg, groups, x, positions, ctx):
     return x, aux
 
 
+def _xlstm_layers(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """The reference's group body, unrolled over the groups: in each group
+    of slstm_period blocks, slstm_period - 1 mLSTM blocks then one sLSTM;
+    each as (kind, index of its leaf in the ``groups`` subtree), which is
+    also the index of its decode state."""
+    g = _xlstm_period(cfg)
+    out = []
+    for gi in range(cfg.n_layers // g):
+        out += [("mlstm", gi * (g - 1) + i) for i in range(g - 1)]
+        out.append(("slstm", gi))
+    return out
+
+
+def _xlstm_stack(cfg, groups, x, ctx):
+    """Returns (x, aux): no block has an aux loss (zero)."""
+    for kind, i in _xlstm_layers(cfg):
+        z = apply_norm(cfg, _take(groups[kind + "_ln"], i), x)
+        block = xl.mlstm_apply if kind == "mlstm" else xl.slstm_apply
+        x = x + block(cfg, _take(groups[kind], i), z, ctx)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ------------------------------------------------------------------ whisper
+def encode_whisper(cfg: ArchConfig, params: Dict, frames: torch.Tensor,
+                   ctx: Ctx) -> torch.Tensor:
+    """frames: (B, encoder_len, d) stub embeddings -> the encoder output.
+    Self-attention through the plain path (not causal), as the
+    reference's encoder runs it whatever ``ctx.use_flash`` says."""
+    x = frames + params["embed"]["enc_positions"][:frames.shape[1]]
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for i in range(cfg.encoder_layers):
+        layer_p = _take(params["encoder"], i)
+        x = x + attention_block(cfg, layer_p["attn"],
+                                apply_norm(cfg, layer_p["ln1"], x), positions,
+                                causal=False, use_flash=False)
+        x = x + ffn_apply(cfg, layer_p["mlp"],
+                          apply_norm(cfg, layer_p["ln2"], x))
+    return apply_norm(cfg, params["enc_final_norm"], x)
+
+
+def _whisper_forward(cfg, params, batch, ctx, last_only: bool = False):
+    enc = encode_whisper(cfg, params, batch["frames"], ctx)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_lookup(params["embed"], tokens) + params["embed"]["positions"][:S]
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        layer_p = _take(params["decoder"], i)
+        x = x + attention_block(cfg, layer_p["attn"],
+                                apply_norm(cfg, layer_p["ln1"], x), positions,
+                                causal=True, use_flash=ctx.use_flash)
+        x = x + cross_attention_block(cfg, layer_p["xattn"],
+                                      apply_norm(cfg, layer_p["lnx"], x), enc)
+        x = x + ffn_apply(cfg, layer_p["mlp"],
+                          apply_norm(cfg, layer_p["ln2"], x))
+    if last_only:
+        x = x[:, -1:]
+    x = apply_norm(cfg, params["final_norm"], x)
+    return (logits(cfg, params["embed"], x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 # =============================================================== decode step
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       dtype: torch.dtype, device,
@@ -258,27 +371,59 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       num_pages: Optional[int] = None):
     """The decode state for ``batch`` sequences of up to ``max_seq`` tokens.
 
-    ``kv_layout="dense"`` gives a ``DecodeState``; ``kv_dtype="int8"``
-    makes its caches int8 with float32 scales starting at ones (a hybrid
-    config ignores ``kv_dtype`` and caches in ``dtype``, as the reference
-    does). ``kv_layout="paged"`` gives a ``PagedDecodeState`` over a pool
-    of ``num_pages`` pages of ``page_size`` tokens (default: just enough),
-    in which sequence b holds pages ``b * n`` to ``b * n + n - 1``,
-    n = ceil(max_seq / page_size), so that it decodes from position 0
-    with no page manager. The paged pool has no int8 form."""
+    ``kv_layout="dense"`` gives a ``DecodeState``. Its caches are in
+    ``kv_dtype`` where given, else ``dtype``: ``"int8"`` with float32
+    scales starting at ones, or a float type no wider than ``dtype`` (a
+    bf16 cache under float32 parameters). As in the reference, a hybrid
+    config ignores ``kv_dtype``; an ssm config has no cache, only the
+    xLSTM states (zeros); an audio config carries ``enc_out``, zeros, for
+    the caller to set from ``encode_whisper``. Two ``kv_dtype`` that the
+    reference accepts here and then fails to decode raise ValueError: a
+    float type wider than ``dtype`` (JAX promotes the residual stream to
+    it, and the reference's layer scan refuses a carry that changes type)
+    and ``"int8"`` on audio (its decode step passes no scales).
+
+    ``kv_layout="paged"`` gives a ``PagedDecodeState`` over a pool of
+    ``num_pages`` pages of ``page_size`` tokens (default: just enough), in
+    which sequence b holds pages ``b * n`` to ``b * n + n - 1``, n =
+    ceil(max_seq / page_size), so that it decodes from position 0 with no
+    page manager. The paged pool holds ``dtype`` (no other ``kv_dtype``),
+    and the audio and ssm families have none (ValueError)."""
     _check_supported(cfg)
+    fam = cfg.family
     if kv_layout not in ("dense", "paged"):
         raise ValueError(f"kv_layout {kv_layout!r}: 'dense' or 'paged'")
+    if kv_layout == "paged" and fam in ("audio", "ssm"):
+        raise ValueError(
+            f"kv_layout='paged' for the {fam} family: the reference decodes "
+            f"it over the dense layout only (ROADMAP.md, queue 3)")
     if kv_layout == "paged" and kv_dtype is not None:
         raise ValueError(f"kv_dtype={kv_dtype!r} with the paged layout: the "
                          f"pool holds {dtype} (the reference has no int8 "
                          f"paged pool)")
-    hybrid = cfg.family == "hybrid"
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if fam == "ssm":
+        g = _xlstm_period(cfg)
+        ng = cfg.n_layers // g
+        return DecodeState(
+            length=length,
+            mlstm=xl.mlstm_init_state(cfg, batch, dtype, device,
+                                      ng * (g - 1)),
+            slstm=xl.slstm_init_state(cfg, batch, device, ng))
+    hybrid = fam == "hybrid"
     kv_dt = torch_dtype(kv_dtype) if kv_dtype and not hybrid else dtype
-    if kv_dt not in (dtype, torch.int8):
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: only 'int8' is ported (ROADMAP.md, "
-            f"'Modules to port')")
+    if kv_dt != torch.int8 and (not kv_dt.is_floating_point
+                                or torch.promote_types(kv_dt, dtype) != dtype):
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} under {dtype} parameters: 'int8' or a "
+            f"float type no wider (the reference's decode fails on a wider "
+            f"cache: its layer scan refuses the promoted residual stream; "
+            f"ROADMAP.md, queue 3)")
+    if fam == "audio" and kv_dt == torch.int8:
+        raise ValueError(
+            "kv_dtype='int8' for the audio family: the reference's audio "
+            "decode step passes no scales to its int8 cache and fails "
+            "(ROADMAP.md, queue 3)")
     n_attn, mamba = cfg.n_layers, None
     if hybrid:
         g = cfg.attn_period
@@ -306,13 +451,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
         return torch.ones(shape[:-1], dtype=torch.float32, device=device)
 
     int8 = kv_dt == torch.int8
+    enc = (torch.zeros((batch, cfg.encoder_len, cfg.d_model), dtype=dtype,
+                       device=device) if fam == "audio" else None)
     return DecodeState(
         k_cache=torch.zeros(shape, dtype=kv_dt, device=device),
         v_cache=torch.zeros(shape, dtype=kv_dt, device=device),
-        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+        length=length,
         k_scale=scales() if int8 else None,
         v_scale=scales() if int8 else None,
-        mamba=mamba)
+        mamba=mamba, enc_out=enc)
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -377,7 +524,9 @@ def _attn_decode(cfg, p, z, state, i: int,
         write_token(k_l, k[:, 0], length)
         write_token(v_l, v[:, 0], length)
         out = decode_attention(cfg, q, k_l, v_l, length + 1)
-    return out.reshape(B, 1, -1) @ p["wo"]
+    # a cache narrower than the parameters (bf16 under float32) gives an
+    # output in its type, which JAX promotes for the product
+    return out.reshape(B, 1, -1).to(p["wo"].dtype) @ p["wo"]
 
 
 def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
@@ -386,13 +535,22 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
 
     ``state`` is a ``DecodeState`` or a ``PagedDecodeState``. Every slot's
     ``length`` advances, idle ones included (as in the reference); the
-    caches, pool and Mamba states are updated in place."""
+    caches, pool and recurrent states are updated in place. Learned
+    positions are read at each slot's ``length`` (NaN past the table's
+    end, as ``jnp.take`` fills)."""
     paged = (_paged_step(state) if isinstance(state, PagedDecodeState)
              else None)
-    x = ctx.constrain(embed_lookup(params["embed"], token),
-                      "batch", None, None)
+    x = embed_lookup(params["embed"], token)
+    if cfg.pos_embedding == "learned":
+        x = x + position_lookup(params["embed"]["positions"],
+                                state.length)[:, None]
+    x = ctx.constrain(x, "batch", None, None)
     if cfg.family == "hybrid":
         x = _hybrid_decode(cfg, params["groups"], x, state, ctx, paged)
+    elif cfg.family == "ssm":
+        x = _xlstm_decode(cfg, params["groups"], x, state)
+    elif cfg.family == "audio":
+        x = _whisper_decode(cfg, params["decoder"], x, state)
     else:
         for i in range(cfg.n_layers):
             layer_p = _take(params["blocks"], i)
@@ -410,6 +568,42 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
                             state.kv.k_pages.shape[2]))
     x = apply_norm(cfg, params["final_norm"], x)
     return logits(cfg, params["embed"], x), state
+
+
+def _whisper_decode(cfg: ArchConfig, decoder: Dict, x: torch.Tensor,
+                    state: DecodeState) -> torch.Tensor:
+    """The decoder stack for one token: self-attention over the dense
+    cache (written in place), cross-attention onto ``state.enc_out``."""
+    for i in range(cfg.n_layers):
+        layer_p = _take(decoder, i)
+        z = apply_norm(cfg, layer_p["ln1"], x)
+        x = x + _attn_decode(cfg, layer_p["attn"], z, state, i)
+        x = x + cross_attention_block(cfg, layer_p["xattn"],
+                                      apply_norm(cfg, layer_p["lnx"], x),
+                                      state.enc_out)
+        x = x + ffn_apply(cfg, layer_p["mlp"],
+                          apply_norm(cfg, layer_p["ln2"], x))
+    return x
+
+
+def _xlstm_decode(cfg: ArchConfig, groups: Dict, x: torch.Tensor,
+                  state: DecodeState) -> torch.Tensor:
+    """The xLSTM stack for one token; writes each block's new state into
+    ``state.mlstm`` / ``state.slstm`` in place."""
+    for kind, i in _xlstm_layers(cfg):
+        z = apply_norm(cfg, _take(groups[kind + "_ln"], i), x)
+        if kind == "mlstm":
+            mine = xl.MLSTMState(*(t[i] for t in state.mlstm))
+            y, new = xl.mlstm_decode_step(cfg, _take(groups[kind], i), z,
+                                          mine)
+        else:
+            mine = xl.SLSTMState(*(t[i] for t in state.slstm))
+            y, new = xl.slstm_decode_step(cfg, _take(groups[kind], i), z,
+                                          mine)
+        for old, t in zip(mine, new):
+            old.copy_(t)
+        x = x + y
+    return x
 
 
 def _hybrid_decode(cfg: ArchConfig, groups: Dict, x: torch.Tensor, state,

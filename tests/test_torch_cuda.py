@@ -52,6 +52,8 @@ CASES = [
     (1, 70, 40, 4, 1, 192),      # T shorter than one kv tile (64)
     (1, 333, 333, 4, 2, 256),    # GQA, ragged
     (1, 130, 50, 2, 2, 256),     # MHA, T shorter than one kv tile
+    (1, 300, 300, 12, 2, 128),   # G=6 (internvl2-26b's 48/8 grouping)
+    (8, 448, 448, 12, 12, 64),   # whisper-small's decoder: S=448, ragged
 ]
 
 
@@ -132,9 +134,10 @@ def test_flash_kernel_entry_refuses_a_plan_not_its_own(torch):
 
 
 @pytest.mark.parametrize("H,K,hd", [(32, 32, 96), (96, 8, 192),
-                                    (16, 16, 256)])
+                                    (16, 16, 256), (48, 8, 128)])
 def test_flash_kernel_at_wide_head_prefill_shapes(torch, H, K, hd):
-    """phi3-mini's, nemotron-4-340b's and gemma-7b's heads at S=T=2048."""
+    """phi3-mini's, nemotron-4-340b's, gemma-7b's and internvl2-26b's
+    heads at S=T=2048."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_ref
     q, k, v = _qkv(torch, 1, 2048, 2048, H, K, hd, torch.bfloat16)
@@ -360,6 +363,9 @@ def _paged_inputs(torch, B, H, K, hd, page, max_pages, dtype, seed=0,
     (2, 96, 8, 192, 16, 4),   # hd 192, G=12 (nemotron-4-340b's 96/8)
     (2, 16, 16, 256, 16, 3),  # hd 256, G=1 (gemma-7b's 16/16)
     (1, 4, 4, 64, 16, 2),     # one span: no combine pass
+    (2, 48, 8, 128, 64, 8),   # G=6 (internvl2-26b's 48/8 heads)
+    (3, 12, 2, 128, 16, 5),   # G=6, several spans
+    (2, 12, 12, 64, 16, 4),   # whisper-small's 12/12 heads of 64
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_matches_plain(torch, B, H, K, hd, page,
@@ -462,6 +468,24 @@ def test_paged_attention_kernel_reads_the_model_pool_view(torch):
     out = ops.paged_attention(q4[:, 0], pool_k[1], pool_v[1], tables,
                               lengths)
     want = paged_attention_ref(q, kp.flip(0), vp, tables, lengths)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_paged_attention_kernel_reads_the_last_layer_of_a_deep_pool(torch):
+    """gemma-7b's 16/16 heads of 256 read from the last layer's view of a
+    28-layer pool, as its decode step reads layer 27 (the other layers
+    hold other values)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import paged_attention_ref
+    q, kp, vp, tables, lengths = _paged_inputs(torch, 2, 16, 16, 256, 16, 6,
+                                               torch.bfloat16)
+    pool_k = torch.full((28, *kp.shape), 3.0, dtype=kp.dtype, device="cuda")
+    pool_v = torch.full_like(pool_k, -3.0)
+    pool_k[-1], pool_v[-1] = kp, vp
+    out = ops.paged_attention(q, pool_k[-1], pool_v[-1], tables, lengths)
+    want = paged_attention_ref(q, kp, vp, tables, lengths)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=2e-2,
                                rtol=2e-2)
