@@ -86,9 +86,24 @@ final line:
    decode step's ms and busy share, serving tokens/s, peak memory, beside
    the card's name and power limit.
 
-Launch counts are set to 0 just before each main-path run of phases 3-18
-(prefill, paged decode, paged serving, the long-context step, serving)
-and read just after it. The last two lines are a JSON object with one
+19. the relational engine: the expression core (K1) over every (op,
+   dtype pair) numpy computes at the executor's 8,192-row batch, and the
+   segment reduction (K2) over sum / min / max at 3 and 10,000 groups
+   (float64 with NaN and +-0.0, int32 wrapping, bool, a (rows, 3)
+   column), each bit for bit against numpy's bytes and its plain version,
+   no FMA in either's SASS but the division routines' own (as many as a
+   ``-fmad=false`` build holds); then TPC-H Q1 at scale factor 10
+   (59,986,052 lineitems, 4 partitions) through ``Session`` /
+   ``q1_pricing_summary``: the numpy backend once as the oracle, the
+   torch backend warm and then 3 timed runs, every column byte-identical
+   to the oracle's, K1 once per batch and K2 once per partition, K1's and
+   K2's ms at the query's own inputs, the device's busy share over one
+   query and the peak device memory. Phase 2 builds K1 and K2 with the
+   other four kernels.
+
+Launch counts are set to 0 just before each main-path run of phases 3-19
+(prefill, paged decode, paged serving, the long-context step, serving,
+the timed Q1 runs) and read just after it. The last two lines are a JSON object with one
 entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -202,6 +217,20 @@ PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes,
 ]
 POOL_LAYERS = {"gemma_pool": 28}
 PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
+# the relational kernels launch nowhere on a model's path
+NO_RELATIONAL = {"expr_core": 0, "segment_reduce": 0}
+# phase 19, the relational engine: TPC-H Q1 at scale factor 10 (the spec's
+# lineitem rows) over the executor's 4 partitions; K1's op x dtype matrix
+# at the executor's batch of 8,192 rows; K2's cases (name, rows, groups)
+Q1_ROWS = 59_986_052
+Q1_PARTITIONS = 4
+Q1_TIMED = 3
+EXPR_ROWS = 8192
+SEGMENT_CASES = [("3 groups", 200_000, 3), ("10k groups", 200_000, 10_000)]
+# the relational kernels' operations (float64, integer, compares) run on
+# CUDA cores, at most at the H100's float32 rate (NVIDIA's data sheet,
+# 67 TFLOP/s; float64 is slower), so their time is at least count / rate
+PEAK_OPS_CUDA_CORES = 67e12
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: no tensor cores
 PEAK_BYTES = 3.35e12
@@ -439,15 +468,17 @@ def phase_kernel(torch) -> dict:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch.kernels import expr_core as ec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as mg
     from repro_torch.kernels import nvcc, ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import segment_reduce as sr
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels.ref import attention_ref
 
     t0 = time.perf_counter()
-    modules = (fa, mg, ss, pa)
+    modules = (fa, mg, ss, pa, ec, sr)
     libs = nvcc.compile_all([m.SOURCE for m in modules])
     for m in modules:
         m.build()
@@ -792,9 +823,10 @@ def expected_launches(cfg) -> dict:
     if cfg.family == "hybrid":
         return {"flash_attention": n_attn, "paged_attention": 0,
                 "moe_gather": cfg.n_layers // cfg.moe_period,
-                "ssm_scan": cfg.n_layers - n_attn}
+                "ssm_scan": cfg.n_layers - n_attn, **NO_RELATIONAL}
     return {"flash_attention": n_attn, "paged_attention": 0,
-            "moe_gather": cfg.n_layers if cfg.is_moe else 0, "ssm_scan": 0}
+            "moe_gather": cfg.n_layers if cfg.is_moe else 0, "ssm_scan": 0,
+            **NO_RELATIONAL}
 
 
 def decode_launches(cfg, steps: int) -> dict:
@@ -803,7 +835,7 @@ def decode_launches(cfg, steps: int) -> dict:
     moe = expected_launches(cfg)["moe_gather"]
     return {"flash_attention": 0, "paged_attention":
             n_attention_layers(cfg) * steps, "moe_gather": moe * steps,
-            "ssm_scan": 0}
+            "ssm_scan": 0, **NO_RELATIONAL}
 
 
 def hybrid_config():
@@ -1262,7 +1294,8 @@ def phase_serving(torch, arch, label: str, paged, summary: dict) -> dict:
         raise AssertionError(f"serving did not complete: "
                              f"{ {k: v for k, v in out.items() if k != 'outputs'} }")
     want = {"flash_attention": 0, "paged_attention": 0,
-            "moe_gather": layers * out["iters"], "ssm_scan": 0}
+            "moe_gather": layers * out["iters"], "ssm_scan": 0,
+            **NO_RELATIONAL}
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     if paged is None:
@@ -1282,6 +1315,438 @@ def phase_serving(torch, arch, label: str, paged, summary: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------- phase 19
+def expr_values(np, rng, dt, n: int):
+    """n values of numpy dtype dt for the expression matrix: random over
+    the type's range, small integers, and the edge values (the extremes,
+    0, +-0.0, +-inf, NaN); a NaN only ever meets a NaN of the same bits
+    (numpy's choice between two different NaNs depends on its code path)."""
+    dt = np.dtype(dt)
+    if dt.kind == "b":
+        return rng.integers(0, 2, n).astype(bool)
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        small = rng.integers(-3 if dt.kind == "i" else 0, 4, n).astype(dt)
+        v = np.where(rng.random(n) < 0.3, small, v)
+        edge = [info.min, info.max, 0, 1, info.max - 1, info.min + 1]
+    else:
+        with np.errstate(over="ignore"):
+            v = (rng.standard_normal(n)
+                 * 10.0 ** rng.integers(-5, 6, n)).astype(dt)
+        v = np.where(rng.random(n) < 0.2,
+                     rng.integers(-3, 4, n).astype(dt), v)
+        edge = [0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0,
+                np.finfo(dt).tiny, np.finfo(dt).max]
+    v[:len(edge)] = (np.array(edge, dt) if dt.kind != "f"
+                     else np.array(edge, np.float64).astype(dt))
+    return v
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two tensors equal bit for bit (NaNs included)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def max_abs_diff(torch, a, b) -> float:
+    """The largest |a - b| between two tensors of one shape, in float64:
+    0 where both are NaN or equal (infinities too), inf where only one is
+    NaN."""
+    x, y = a.to(torch.float64), b.to(torch.float64)
+    same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+    d = torch.nan_to_num((x - y).abs(), nan=float("inf"))
+    d = torch.where(same, torch.zeros_like(d), d)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def span_split(trace) -> dict:
+    """{span name: ms} over one query's trace: the op spans, and the
+    "stage" (fused runs: host prologue, copy in, K1, copy out, host
+    epilogue) and "agg" (AGG: concatenation, key discovery, copy in, K2,
+    copy out or the host's scatter, the merge into the map) spans that
+    split them."""
+    out: dict = {}
+    for sp in trace.spans:
+        if sp.cat in ("op", "stage", "agg"):
+            out[sp.name] = out.get(sp.name, 0.0) + sp.dur_ms
+    return out
+
+
+def expr_bound_ms(program, inputs, n: int) -> tuple:
+    """(ms, "bytes" | "operations"): K1's inputs read once (a constant one
+    value) and its outputs written once, against one operation per
+    instruction and element."""
+    nbytes = sum(x.numel() * x.element_size() for x in inputs)
+    nbytes += sum(n * dt.itemsize for dt in program.out_dtypes)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = n * len(program.instrs) / PEAK_OPS_CUDA_CORES
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def segment_bound_ms(inv, n: int, vals, dtypes, combiners) -> tuple:
+    """(ms, "bytes" | "operations"): K2's group ids and values read once
+    and its accumulators written once, against one operation per value."""
+    from repro_torch.kernels.segment_reduce import acc_dtype
+    nbytes = inv.numel() * 8 + sum(v.numel() * v.element_size()
+                                   for v in vals)
+    nbytes += sum(n * max(1, v[:1].numel()) * acc_dtype(dt, c).itemsize
+                  for v, dt, c in zip(vals, dtypes, combiners))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = sum(v.numel() for v in vals) / PEAK_OPS_CUDA_CORES
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_relational_kernels(torch) -> dict:
+    """K1 and K2 on the card, bit for bit against numpy's bytes and their
+    plain versions: K1 over every (op, dtype pair) numpy computes, at the
+    executor's batch; K2 over sum / min / max of float64 (NaN and +-0.0
+    among the values), int32 (wrapping sums), bool and a (rows, 3) float32
+    column, at 3 and 10,000 groups. Neither source's SASS may hold an FMA
+    that nvcc contracted from a product and a sum: each must hold as many
+    DFMA and FFMA (the division routines' own) as its build with
+    ``-fmad=false``, which contracts nothing."""
+    import itertools
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.kernels import expr_core as ec
+    from repro_torch.kernels import nvcc, ops
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels.transfer import to_device
+
+    t0 = time.perf_counter()
+    sources = [ec.SOURCE, sr.SOURCE]
+    nofmad = [nvcc.BUILD_DIR / f"{s.stem}-fmad-false.so" for s in sources]
+    nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = [subprocess.Popen([_nvcc_path(), *nvcc.NVCC_FLAGS,
+                                "-fmad=false", "-o", str(out), str(s)],
+                               stdout=subprocess.DEVNULL,
+                               stderr=subprocess.DEVNULL)
+              for s, out in zip(sources, nofmad)]
+    libs = nvcc.compile_all(sources)
+    ec.build(), sr.build()
+    for proc in builds:
+        if proc.wait(timeout=600) != 0:
+            raise AssertionError("the -fmad=false build of the relational "
+                                 "sources failed")
+    for lib in libs:
+        for fn, regs, spill in ptxas_report(lib.with_suffix(".log")):
+            log(f"[relational] ptxas {lib.stem}: {fn}: {regs} registers, "
+                f"{spill} bytes of spill (stores + loads)")
+    fma = ("DFMA", "FFMA", "DADD", "DMUL", "MUFU.RCP64H")
+    for lib, lib_nofmad in zip(libs, nofmad):
+        counts = sass_function_counts(lib, "", fma)
+        plain = sass_function_counts(lib_nofmad, "", fma)
+        for fn, c in counts.items():
+            log(f"[relational] SASS of {fn}: {json.dumps(c)}; with "
+                f"-fmad=false: {json.dumps(plain.get(fn))}")
+        if not counts or set(counts) != set(plain) or any(
+                (c["DFMA"], c["FFMA"]) != (plain[fn]["DFMA"],
+                                           plain[fn]["FFMA"])
+                for fn, c in counts.items()):
+            raise AssertionError(f"{lib.stem}: FMAs beyond those of its "
+                                 f"-fmad=false build (a contraction), or "
+                                 f"no function: {counts} against {plain}")
+
+    rng = np.random.default_rng(SEED)
+    dev = torch.device(DEVICE)
+    ufuncs = {"==": np.equal, "!=": np.not_equal, "<": np.less,
+              "<=": np.less_equal, ">": np.greater, ">=": np.greater_equal,
+              "+": np.add, "-": np.subtract, "*": np.multiply,
+              "/": np.true_divide, "&&": np.logical_and,
+              "||": np.logical_or}
+    dtypes = ["?", "i1", "i2", "i4", "i8", "u1", "u2", "u4", "u8", "f2",
+              "f4", "f8"]
+    n, cases = EXPR_ROWS, 0
+    for op, da, db in itertools.product(ufuncs, dtypes, dtypes):
+        a, b = expr_values(np, rng, da, n), expr_values(np, rng, db, n)
+        try:
+            with np.errstate(all="ignore"), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                want = ufuncs[op](a, b)
+        except TypeError:  # numpy refuses it (bool - bool)
+            continue
+        prog = ec.encode([(op, 2, (0, 1))],
+                         {0: a.dtype, 1: b.dtype, 2: want.dtype}, [0, 1], [2])
+        ins = to_device([a, b], dev)
+        got = ops.expr_core(prog, ins, n)[0]
+        plain = ec.expr_core_ref(prog, ins, n)[0]
+        torch.cuda.synchronize()
+        got_np = got.cpu().numpy().view(want.dtype)
+        if got_np.tobytes() != want.tobytes() \
+                or not same_bits(torch, got, plain):
+            bad = np.nonzero(got_np.view(np.uint8).reshape(n, -1)
+                             != want.view(np.uint8).reshape(n, -1))[0][:3]
+            raise AssertionError(
+                f"expr_core {da} {op} {db}: not numpy's bytes (or the plain "
+                f"version's) at rows {bad}: a {a[bad]}, b {b[bad]}, kernel "
+                f"{got_np[bad]}, numpy {want[bad]}")
+        cases += 1
+    for da in dtypes:  # logical not
+        a = expr_values(np, rng, da, n)
+        want = np.logical_not(a)
+        prog = ec.encode([("!", 1, (0,))], {0: a.dtype, 1: want.dtype},
+                         [0], [1])
+        ins = to_device([a], dev)
+        got = ops.expr_core(prog, ins, n)[0]
+        if got.cpu().numpy().tobytes() != want.tobytes() or not same_bits(
+                torch, got, ec.expr_core_ref(prog, ins, n)[0]):
+            raise AssertionError(f"expr_core !{da}: not numpy's bytes")
+        cases += 1
+    log(f"[relational] expr_core: {cases} (op, dtype pair) cases at "
+        f"{n} rows bit-equal to numpy and to the plain version on the card")
+
+    segs = 0
+    for name, rows, groups in SEGMENT_CASES:
+        inv = rng.integers(0, groups, rows).astype(np.int64)
+        inv[:groups] = rng.permutation(groups)
+        f64 = rng.standard_normal(rows) * 10.0 ** rng.integers(-3, 4, rows)
+        k = rng.random(rows)
+        f64[k < 0.01] = np.nan
+        f64[(k >= 0.01) & (k < 0.03)] = 0.0
+        f64[(k >= 0.03) & (k < 0.05)] = -0.0
+        cols = {"float64": f64,
+                "int32": rng.integers(-2**31, 2**31 - 1, rows,
+                                      dtype=np.int32),
+                "bool": rng.random(rows) < 0.5,
+                "float32 (rows, 3)": rng.standard_normal(
+                    (rows, 3)).astype(np.float32)}
+        for comb in ("sum", "min", "max"):
+            vals = list(cols.values())
+            wants = []
+            for v in vals:
+                acc = sr.acc_dtype(v.dtype, comb)
+                shape = (groups,) + v.shape[1:]
+                if comb == "sum":
+                    w = np.zeros(shape, acc)
+                    np.add.at(w, inv, v)
+                else:
+                    w = np.full(shape, np.inf if comb == "min" else -np.inf)
+                    (np.minimum if comb == "min" else np.maximum).at(w, inv,
+                                                                     v)
+                wants.append(w)
+            flat = to_device([inv] + vals, dev)
+            tv = [t.reshape(v.shape) for t, v in zip(flat[1:], vals)]
+            dts = [v.dtype for v in vals]
+            got = ops.segment_reduce(flat[0], groups, tv, dts,
+                                     [comb] * len(vals))
+            plain = sr.segment_reduce_ref(flat[0], groups, tv, dts,
+                                          [comb] * len(vals))
+            torch.cuda.synchronize()
+            for col, g, p, w in zip(cols, got, plain, wants):
+                g_np = g.cpu().numpy().view(w.dtype)
+                if g_np.tobytes() != w.tobytes() \
+                        or not same_bits(torch, g, p):
+                    raise AssertionError(
+                        f"segment_reduce {name} {comb} {col}: not numpy's "
+                        f"bytes (or the plain version's)")
+            segs += 1
+    log(f"[relational] segment_reduce: {segs} calls of {len(cols)} columns "
+        f"(float64 with NaN and +-0.0, int32 wrapping, bool, float32 "
+        f"(rows, 3)) at 3 and 10,000 groups, bit-equal to np.add.at / "
+        f"np.minimum.at / np.maximum.at and to the plain version; "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return {"expr_cases": cases, "segment_calls": segs}
+
+
+def capture_first_call(ops, name: str, record: dict):
+    """A context that keeps the arguments of the first call of
+    ``ops.<name>`` in ``record[name]`` (the calls run as before)."""
+    inner = getattr(ops, name)
+
+    def spy(*args, **kw):
+        record.setdefault(name, (args, kw))
+        return inner(*args, **kw)
+
+    @contextlib.contextmanager
+    def patched():
+        setattr(ops, name, spy)
+        try:
+            yield
+        finally:
+            setattr(ops, name, inner)
+    return patched()
+
+
+def phase_q1(torch, smi: str) -> dict:
+    """TPC-H Q1 at scale factor 10 through the Session API: the numpy
+    backend once as the oracle, then ``expr_backend="torch"`` on the card
+    (one warm run, then Q1_TIMED timed): every output column
+    byte-identical to the oracle's, shuffle bytes and elided exchanges
+    equal, K1 launched once per batch and K2 once per partition. Times K1
+    and K2 at the query's own inputs."""
+    import numpy as np
+
+    from repro_torch.apps.tpch import LineitemQ1, q1_pricing_summary
+    from repro_torch.core import Session
+    from repro_torch.data.synthetic import tpch_q1_lineitems
+    from repro_torch.kernels import expr_core as ec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.obs import render_analyze
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    recs = tpch_q1_lineitems(Q1_ROWS, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = Session(num_partitions=Q1_PARTITIONS, expr_backend="numpy")
+    ds = host.load("lineitem", recs, LineitemQ1)
+    load_s = time.perf_counter() - t0
+    del recs
+    stored = host.store.get_set(ds.set_name)
+    batches = sum(-(-int(c) // host.executor.vector_rows)
+                  for c in stored.counts)
+    log(f"[q1] {Q1_ROWS:,} lineitems ({stored.dtype.itemsize} bytes each, "
+        f"{len(stored.counts)} pages, {batches} batches of "
+        f"{host.executor.vector_rows} rows): generated in {gen_s:.2f} s, "
+        f"loaded in {load_s:.2f} s")
+
+    def run(sess):
+        t = time.perf_counter()
+        out = q1_pricing_summary(sess.store, ds.set_name,
+                                 session=sess).collect()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    host.trace = True  # per-op spans (obs.trace), and the splits of ops
+    want, host_s = run(host)
+    host_stats = host.last_stats
+    host_split = span_split(host.last_trace)
+    for line in render_analyze(host.last_trace).splitlines():
+        log(f"[q1: numpy backend] {line}")
+    card = Session(store=host.store, num_partitions=Q1_PARTITIONS,
+                   expr_backend="torch")
+    seen: dict = {}
+    with capture_first_call(ops, "expr_core", seen), \
+            capture_first_call(ops, "segment_reduce", seen):
+        _, warm_s = run(card)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    walls, got = [], None
+    for _ in range(Q1_TIMED):
+        got, wall = run(card)
+        walls.append(wall)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = sorted(walls)[len(walls) // 2]
+    stats = card.last_stats
+    for name in want:
+        if got[name].dtype != want[name].dtype \
+                or got[name].tobytes() != want[name].tobytes():
+            raise AssertionError(f"q1: column {name} differs from the numpy "
+                                 f"backend's bytes")
+    if (stats.shuffle_bytes, stats.exchanges_elided) != (
+            host_stats.shuffle_bytes, host_stats.exchanges_elided):
+        raise AssertionError(
+            f"q1: shuffle_bytes/exchanges_elided {stats.shuffle_bytes}/"
+            f"{stats.exchanges_elided}, numpy backend's "
+            f"{host_stats.shuffle_bytes}/{host_stats.exchanges_elided}")
+    per_query = {k: v / Q1_TIMED for k, v in launches.items()}
+    parts = min(len(stored.counts), Q1_PARTITIONS)  # partitions with pages
+    want_launches = {**{k: 0 for k in launches}, "expr_core": batches,
+                     "segment_reduce": parts}
+    if per_query != want_launches:
+        raise AssertionError(f"q1 launches per query {per_query}, want "
+                             f"{want_launches}")
+    groups = len(next(iter(want.values())))
+    log(f"[q1] numpy backend (oracle): {host_s:.2f} s, "
+        f"{Q1_ROWS / host_s:,.0f} rows/s; torch backend on the card: warm "
+        f"run {warm_s:.2f} s, then {wall:.2f} s median of {Q1_TIMED} "
+        f"({', '.join(f'{w:.2f}' for w in walls)} s), "
+        f"{Q1_ROWS / wall:,.0f} rows/s; {groups} groups, every column "
+        f"byte-identical to the oracle's; shuffle_bytes "
+        f"{stats.shuffle_bytes}, exchanges_elided {stats.exchanges_elided} "
+        f"on both; peak device memory {peak:.2f} GiB; {smi}")
+    log(f"[q1] launches per query: expr_core {per_query['expr_core']:.0f} "
+        f"(batches that reached the core: {batches}), segment_reduce "
+        f"{per_query['segment_reduce']:.0f} (partitions holding rows: "
+        f"{parts} of {Q1_PARTITIONS})")
+    card.trace = True
+    _, traced_s = run(card)
+    card.trace = False
+    card_split = span_split(card.last_trace)
+    for line in render_analyze(card.last_trace).splitlines():
+        log(f"[q1: torch backend] {line}")
+    for label, split, s in (("numpy backend", host_split, host_s),
+                            ("torch backend", card_split, traced_s)):
+        log(f"[q1: {label}] one traced query, {s:.2f} s; ms by span: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    busy, by_name = device_breakdown(torch, lambda: run(card), wall,
+                                     "q1: one query on the card")
+
+    (prog, ins, n), _ = seen["expr_core"]
+    got1 = ops.expr_core(prog, ins, n)
+    plain1 = ec.expr_core_ref(prog, ins, n)
+    torch.cuda.synchronize()
+    if not all(same_bits(torch, g, p) for g, p in zip(got1, plain1)):
+        raise AssertionError("expr_core at Q1's batch: not the plain "
+                             "version's bytes")
+    k1_err = max(max_abs_diff(torch, g, p) for g, p in zip(got1, plain1))
+    k1_ms = cuda_ms(torch, lambda: ops.expr_core(prog, ins, n), 200)
+    k1_plain = cuda_ms(torch, lambda: ec.expr_core_ref(prog, ins, n), 20)
+    k1_bound, k1_by = expr_bound_ms(prog, ins, n)
+    (inv, groups_n, vals, dts, combs), _ = seen["segment_reduce"]
+    k2_ms = cuda_ms(torch, lambda: ops.segment_reduce(
+        inv, groups_n, vals, dts, combs), 3, warmup=1)
+    t0 = time.perf_counter()
+    plain = sr.segment_reduce_ref(inv, groups_n, vals, dts, combs)
+    torch.cuda.synchronize()
+    k2_plain = (time.perf_counter() - t0) * 1e3
+    got2 = ops.segment_reduce(inv, groups_n, vals, dts, combs)
+    for g, p in zip(got2, plain):
+        if not same_bits(torch, g, p):
+            raise AssertionError("segment_reduce at Q1's partition: not the "
+                                 "plain version's bytes")
+    k2_err = max(max_abs_diff(torch, g, p) for g, p in zip(got2, plain))
+
+    def scatter_reduce():  # the yardstick: atomics, not numpy's bytes
+        for v, dt, c in zip(vals, dts, combs):
+            acc = torch.zeros((groups_n,) + tuple(v.shape[1:]),
+                              dtype=torch.float64 if c != "sum" or
+                              dt.kind == "f" else torch.int64, device=inv.device)
+            src = v.to(acc.dtype)
+            acc.scatter_reduce_(0, inv.view((-1,) + (1,) * (v.dim() - 1))
+                                .expand_as(src), src,
+                                {"sum": "sum", "min": "amin",
+                                 "max": "amax"}[c])
+    k2_lib = cuda_ms(torch, scatter_reduce, 3, warmup=1)
+    k2_bound, k2_by = segment_bound_ms(inv, groups_n, vals, dts, combs)
+    k1_dev = sum(t for k, t in by_name.items() if "expr_core" in k)
+    k2_dev = sum(t for k, t in by_name.items()
+                 if any(f in k for f in ("count_chunks", "scan_counts",
+                                         "scatter_rows", "reduce_groups")))
+    log(f"[q1] expr_core at Q1's batch ({n} rows, {len(ins)} inputs, "
+        f"{len(prog.instrs)} instructions, {len(prog.outputs)} outputs): "
+        f"{k1_ms:.4f} ms per launch by events, plain {k1_plain:.4f} ms, "
+        f"bound {k1_bound:.6f} ms by {k1_by}; {k1_dev * 1e3:.1f} ms of the "
+        f"query's device time")
+    log(f"[q1] segment_reduce at Q1's first partition ({inv.shape[0]:,} "
+        f"rows, {groups_n} groups, {len(vals)} columns): {k2_ms:.2f} ms per "
+        f"launch by events, plain (on the host) {k2_plain:.1f} ms, "
+        f"scatter_reduce_ (library_ms, atomics: not numpy's bytes) "
+        f"{k2_lib:.3f} ms, bound {k2_bound:.4f} ms by {k2_by} "
+        f"({k2_bound / k2_ms:.2%} of it); {k2_dev * 1e3:.1f} ms of the "
+        f"query's device time")
+    log(f"[q1] largest |kernel - plain version| at Q1's inputs: "
+        f"expr_core {k1_err}, segment_reduce {k2_err}")
+    log(f"[q1] phase: {time.perf_counter() - t_phase:.1f} s")
+    del seen, ins, inv, vals, got1, plain1, got2, plain
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "expr_core": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+                              bound_ms=k1_bound, bound_by=k1_by,
+                              library_ms=None),
+            "segment_reduce": dict(max_abs_err=k2_err, ms=k2_ms,
+                                   plain_ms=k2_plain, bound_ms=k2_bound,
+                                   bound_by=k2_by, library_ms=k2_lib)}
 
 
 def main() -> int:
@@ -1324,6 +1789,11 @@ def main() -> int:
             f"{m['peak_gib']:.2f} GiB; {smi}")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18: {json.dumps(launches)}")
+    t0 = time.perf_counter()
+    phase_relational_kernels(torch)
+    q1 = phase_q1(torch, smi)
+    log(f"[timing] relational phase: {time.perf_counter() - t0:.1f} s (run "
+        f"so far {time.perf_counter() - start:.1f} s)")
     flash, moe, ssm = kernel["prefill"], gather["prefill"], scan["prefill"]
     decode = paged["decode"]
     line = {"kernels": [{
@@ -1358,7 +1828,14 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"]}]}
+        "library_ms": decode["library_ms"]}] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": q1["launches"][name] // Q1_TIMED, **q1[name]}
+        for name, replaces in (
+            ("expr_core", "src/repro/core/exprc.py:490"),
+            ("segment_reduce", "src/repro/core/relops.py:562"))]}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

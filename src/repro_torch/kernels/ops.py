@@ -6,16 +6,21 @@ CUDA tensors to the hand-written kernel, which counts its launches. There
 is no fallback from one to the other."""
 from __future__ import annotations
 
+from typing import List, Optional, Sequence
+
 import torch
 
+from repro_torch.kernels import expr_core as _ec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_dispatch as _moe
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import segment_reduce as _sr
 from repro_torch.kernels import ssm_scan as _ssm
 
 __all__ = ["flash_attention", "paged_attention", "moe_gather", "ssm_scan",
-           "launch_counts", "reset_launch_counts"]
+           "expr_core", "segment_reduce", "launch_counts",
+           "reset_launch_counts"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -60,12 +65,39 @@ def ssm_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     return _ssm.ssm_scan(dt, A, B, C, x)  # checks
 
 
+def expr_core(program: _ec.ExprProgram, inputs: Sequence[torch.Tensor],
+              n: int, outs: Optional[Sequence[torch.Tensor]] = None
+              ) -> List[torch.Tensor]:
+    """One fused run's numeric core (an ``expr_core.ExprProgram``) over n
+    elements: inputs are flat tensors of n elements or one (a constant),
+    holding numpy columns (``transfer.torch_dtype``) -> one (n,) tensor per
+    program output, numpy's bytes. ``outs`` (a card's only) receives
+    them."""
+    if inputs[0].device.type == "cpu":
+        return _ec.expr_core_ref(program, inputs, n)
+    return _ec.expr_core(program, inputs, n, outs)  # checks
+
+
+def segment_reduce(inv: torch.Tensor, n: int, vals: Sequence[torch.Tensor],
+                   dtypes: Sequence, combiners: Sequence[str]
+                   ) -> List[torch.Tensor]:
+    """inv: (rows,) int64 group ids in [0, n); vals: (rows, ...) tensors
+    holding numpy columns of ``dtypes`` -> one (n, ...) accumulator per
+    column, reduced by its combiner (sum / min / max) with the bytes of
+    numpy's ``np.add.at`` / ``np.minimum.at`` / ``np.maximum.at``."""
+    if inv.device.type == "cpu":
+        return _sr.segment_reduce_ref(inv, n, vals, dtypes, combiners)
+    return _sr.segment_reduce(inv, n, vals, dtypes, combiners)  # checks
+
+
 def launch_counts() -> dict:
     """Launches of each hand-written kernel since the last reset."""
     return {"flash_attention": _fa.LAUNCHES.count,
             "paged_attention": _pa.LAUNCHES.count,
             "moe_gather": _moe.LAUNCHES.count,
-            "ssm_scan": _ssm.LAUNCHES.count}
+            "ssm_scan": _ssm.LAUNCHES.count,
+            "expr_core": _ec.LAUNCHES.count,
+            "segment_reduce": _sr.LAUNCHES.count}
 
 
 def reset_launch_counts() -> None:
@@ -73,3 +105,5 @@ def reset_launch_counts() -> None:
     _pa.LAUNCHES.count = 0
     _moe.LAUNCHES.count = 0
     _ssm.LAUNCHES.count = 0
+    _ec.LAUNCHES.count = 0
+    _sr.LAUNCHES.count = 0

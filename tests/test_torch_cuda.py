@@ -563,3 +563,150 @@ def test_ssm_scan_kernel_copies_only_what_tma_cannot_read(torch):
         want = ssm_scan_ref(dt, A, B.contiguous(), C.contiguous(), x)
         np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                    atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------- the relational kernels
+# K1 (expr_core) and K2 (segment_reduce) hold numpy's bytes, no tolerance.
+_EXPR_OPS = {"==": np.equal, "!=": np.not_equal, "<": np.less,
+             "<=": np.less_equal, ">": np.greater, ">=": np.greater_equal,
+             "+": np.add, "-": np.subtract, "*": np.multiply,
+             "/": np.true_divide, "&&": np.logical_and,
+             "||": np.logical_or}
+_EXPR_DTYPES = ["?", "i1", "i2", "i4", "i8", "u1", "u2", "u4", "u8", "f2",
+                "f4", "f8"]
+
+
+def _expr_values(rng, dt, n):
+    """Random values of dt with its edge values; a NaN only meets NaNs of
+    its own bits (numpy's choice between two NaNs depends on its path)."""
+    dt = np.dtype(dt)
+    if dt.kind == "b":
+        return rng.integers(0, 2, n).astype(bool)
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        edge = np.array([info.min, info.max, 0, 1], dt)
+    else:
+        with np.errstate(over="ignore"):
+            v = (rng.standard_normal(n)
+                 * 10.0 ** rng.integers(-5, 6, n)).astype(dt)
+        edge = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0]).astype(dt)
+    v[:len(edge)] = edge
+    return v
+
+
+@pytest.mark.parametrize("op", list(_EXPR_OPS))
+def test_expr_core_kernel_gives_numpy_bytes(torch, op):
+    """Every dtype pair numpy computes ``op`` for, at 8,192 rows (the
+    executor's batch) and 1,000: the kernel, its plain version on the
+    card and numpy, bit for bit."""
+    import warnings
+
+    from repro_torch.kernels import expr_core as ec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.transfer import to_device
+    rng = np.random.default_rng(sum(map(ord, op)))
+    for n in (8192, 1000):
+        for da in _EXPR_DTYPES:
+            for db in _EXPR_DTYPES:
+                a, b = _expr_values(rng, da, n), _expr_values(rng, db, n)
+                try:
+                    with np.errstate(all="ignore"), \
+                            warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        want = _EXPR_OPS[op](a, b)
+                except TypeError:  # numpy refuses it (bool - bool)
+                    continue
+                prog = ec.encode([(op, 2, (0, 1))], {
+                    0: a.dtype, 1: b.dtype, 2: want.dtype}, [0, 1], [2])
+                ins = to_device([a, b], torch.device("cuda"))
+                got, = ops.expr_core(prog, ins, n)
+                plain, = ec.expr_core_ref(prog, ins, n)
+                got_np = got.cpu().numpy().view(want.dtype)
+                assert got_np.tobytes() == want.tobytes(), (da, op, db)
+                assert got_np.tobytes() == plain.cpu().numpy().view(
+                    want.dtype).tobytes(), (da, op, db)
+
+
+def test_expr_core_kernel_constants_and_refusals(torch):
+    from repro_torch.kernels import expr_core as ec
+    from repro_torch.kernels import ops
+    a = torch.tensor([1.5, -2.0, float("nan"), 4.0], device="cuda",
+                     dtype=torch.float64)
+    k = torch.tensor([3], device="cuda")  # one value for every row
+    dts = {0: np.dtype(np.float64), 1: np.dtype(np.int64),
+           2: np.dtype(bool), 3: np.dtype(np.float64)}
+    prog = ec.encode([("<", 2, (0, 1)), ("*", 3, (0, 1))], dts, [0, 1],
+                     [2, 3])
+    before = ec.LAUNCHES.count
+    lt, prod = ops.expr_core(prog, [a, k], 4)
+    assert ec.LAUNCHES.count == before + 1
+    assert lt.tolist() == [True, True, False, False]
+    assert prod.cpu().numpy().tobytes() == (a.cpu().numpy() * 3).tobytes()
+    with pytest.raises(ValueError, match="want"):
+        ops.expr_core(prog, [a, k.to(torch.int32)], 4)
+
+
+@pytest.mark.parametrize("groups", [3, 10_000])
+def test_segment_reduce_kernel_gives_numpy_bytes(torch, groups):
+    """sum / min / max of float64 (NaN, +-0.0), int32 (wrapping sums), bool
+    (int64 sums), a (rows, 3) float32 column and uint64, one call each:
+    the kernel, its plain version and numpy's indexed loops, bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels.transfer import to_device
+    rng = np.random.default_rng(groups)
+    rows = 200_000
+    inv = rng.integers(0, groups, rows).astype(np.int64)
+    inv[:groups] = rng.permutation(groups)
+    f64 = rng.standard_normal(rows) * 10.0 ** rng.integers(-3, 4, rows)
+    f64[rng.random(rows) < 0.01] = np.nan
+    f64[rng.random(rows) < 0.02] = 0.0
+    f64[rng.random(rows) < 0.02] = -0.0
+    vals = [f64, rng.integers(-2**31, 2**31 - 1, rows, dtype=np.int32),
+            rng.random(rows) < 0.5,
+            rng.standard_normal((rows, 3)).astype(np.float32),
+            rng.integers(0, 2**64 - 1, rows, dtype=np.uint64)]
+    for comb in ("sum", "min", "max"):
+        flat = to_device([inv] + vals, torch.device("cuda"))
+        cols = [t.reshape(v.shape) for t, v in zip(flat[1:], vals)]
+        dts = [v.dtype for v in vals]
+        before = sr.LAUNCHES.count
+        got = ops.segment_reduce(flat[0], groups, cols, dts,
+                                 [comb] * len(vals))
+        assert sr.LAUNCHES.count == before + 1
+        plain = sr.segment_reduce_ref(flat[0], groups, cols, dts,
+                                      [comb] * len(vals))
+        for g, p, v in zip(got, plain, vals):
+            acc = sr.acc_dtype(v.dtype, comb)
+            shape = (groups,) + v.shape[1:]
+            if comb == "sum":
+                want = np.zeros(shape, acc)
+                np.add.at(want, inv, v)
+            else:
+                want = np.full(shape, np.inf if comb == "min" else -np.inf)
+                with np.errstate(invalid="ignore"):
+                    (np.minimum if comb == "min" else np.maximum).at(
+                        want, inv, v)
+            g_np = g.cpu().numpy().view(acc)
+            assert g_np.tobytes() == want.tobytes(), (comb, v.dtype)
+            assert g_np.tobytes() == p.cpu().numpy().view(acc).tobytes()
+
+
+def test_q1_on_the_card_is_byte_identical_to_the_numpy_backend(torch):
+    from repro_torch.apps.tpch import LineitemQ1, q1_pricing_summary
+    from repro_torch.core import Session
+    from repro_torch.data.synthetic import tpch_q1_lineitems
+    from repro_torch.kernels import ops
+    lines = tpch_q1_lineitems(100_000, seed=2)
+    results = []
+    ops.reset_launch_counts()
+    for backend in ("numpy", "torch"):
+        sess = Session(num_partitions=4, expr_backend=backend)
+        ds = sess.load("lineitem", lines, LineitemQ1)
+        results.append(q1_pricing_summary(sess.store, ds.set_name,
+                                          session=sess).collect())
+    counts = ops.launch_counts()
+    assert counts["segment_reduce"] == 4 and counts["expr_core"] > 0
+    for col in results[0]:
+        assert results[0][col].tobytes() == results[1][col].tobytes(), col

@@ -60,3 +60,17 @@ def test_serve_batch_without_a_device_raises_when_there_is_no_card(torch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_relational_core_loads_no_planner_and_no_jax():
+    """``repro_torch.core`` is the reference's package without its sharding
+    planner (whose module imports jax.sharding in the reference)."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); "
+            "import repro_torch.core as c, repro_torch.apps.tpch; "
+            "assert 'torch' in c.EXPR_BACKENDS and 'jax' not in "
+            "c.EXPR_BACKENDS; "
+            "bad = [m for m in sys.modules if 'planner' in m or m == 'jax' "
+            "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -74,7 +74,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(torch):
     ops.ssm_scan(*scan)
     ops.paged_attention(q[:, 0], pages, pages, tables, lengths)
     assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0,
-                                   "moe_gather": 0, "ssm_scan": 0}
+                                   "moe_gather": 0, "ssm_scan": 0,
+                                   "expr_core": 0, "segment_reduce": 0}
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, k, v)  # the kernel wrapper never runs CPU
     with pytest.raises(ValueError, match="CUDA"):
