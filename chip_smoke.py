@@ -88,18 +88,28 @@ final line:
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
-   segment reduction (K2) over sum / min / max at 3 and 10,000 groups
-   (float64 with NaN and +-0.0, int32 wrapping, bool, a (rows, 3)
-   column), each bit for bit against numpy's bytes and its plain version,
-   no FMA in either's SASS but the division routines' own (as many as a
-   ``-fmad=false`` build holds); then TPC-H Q1 at scale factor 10
-   (59,986,052 lineitems, 4 partitions) through ``Session`` /
-   ``q1_pricing_summary``: the numpy backend once as the oracle, the
-   torch backend warm and then 3 timed runs, every column byte-identical
-   to the oracle's, K1 once per batch and K2 once per partition, K1's and
-   K2's ms at the query's own inputs, the device's busy share over one
-   query and the peak device memory. Phase 2 builds K1 and K2 with the
-   other four kernels.
+   segment reduction (K2) over sum / min / max at 3, 10,000 and 2^20 + 1
+   groups (float64 with NaN payloads and +-0.0, int32 wrapping, bool, a
+   (rows, 3) column; rows outside [0, n) dropped) and at linalg's shape
+   ((rows, 16,384) float64 blocks into 64 groups), each bit for bit
+   against numpy's bytes and its plain version, K2's sums timed by events
+   and on the device; ptxas registers, stack frame and spill bytes of
+   both sources (K2's chain kernel, ``ring_sums``, must have neither), no
+   FMA in either's SASS but the division routines' own (as many as a
+   ``-fmad=false`` build holds); the card's DADD latency (a one-thread
+   chain of dependent ``__dadd_rn``) and host link rates (pinned copies
+   each way); then TPC-H Q1 at scale factor 10 (59,986,052 lineitems, 4
+   partitions) through ``Session`` / ``q1_pricing_summary``: the numpy
+   backend once as the oracle, the torch backend warm and then 3 timed
+   runs, every column byte-identical to the oracle's, K1 once per batch
+   and K2 once per partition, a traced query's span split (its copies
+   through pinned staging: no pageable one), K1 at the query's batch over
+   both input paths (mapped pinned reads, the engine's; one staged copy)
+   beside its bytes and link bounds, K2 at the first partition beside its
+   bytes bound, its chain bound (the largest group's rows x the DADD
+   latency) and ``scatter_reduce_``, with its kernels' device split, the
+   device's busy share over one query and the peak device memory. Phase
+   2 builds K1 and K2 with the other four kernels.
 
 Launch counts are set to 0 just before each main-path run of phases 3-19
 (prefill, paged decode, paged serving, the long-context step, serving,
@@ -226,7 +236,14 @@ Q1_ROWS = 59_986_052
 Q1_PARTITIONS = 4
 Q1_TIMED = 3
 EXPR_ROWS = 8192
-SEGMENT_CASES = [("3 groups", 200_000, 3), ("10k groups", 200_000, 10_000)]
+SEGMENT_CASES = [  # (name, rows, groups, inner: None for the column mix)
+    ("3 groups", 200_000, 3, None), ("10k groups", 200_000, 10_000, None),
+    ("2^20+1 groups", 1_500_000, 2**20 + 1, None),
+    ("linalg blocks", 1024, 64, 16_384)]
+DADD_STEPS = 1 << 23  # the DADD latency probe's chain
+K2_KERNELS = ("count_digits", "scan_tiles", "scan_tile_sums", "scan_apply",
+              "scatter_digits", "group_starts", "gather_lanes",
+              "piece_partials", "finish", "ring_sums")  # segment_reduce.cu
 # the relational kernels' operations (float64, integer, compares) run on
 # CUDA cores, at most at the H100's float32 rate (NVIDIA's data sheet,
 # 67 TFLOP/s; float64 is slower), so their time is at least count / rate
@@ -252,10 +269,10 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
@@ -345,21 +362,24 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_report(log_path) -> list:
-    """[(kernel, registers, spill bytes)] for each entry function of an
-    nvcc build log (``-Xptxas -v``)."""
-    out, fn, spill = [], None, 0
+    """[(kernel, registers, spill bytes, stack frame bytes)] for each entry
+    function of an nvcc build log (``-Xptxas -v``)."""
+    out, fn, spill, stack = [], None, 0, 0
     for line in open(log_path).read().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            fn, spill = kernel_name(m.group(1)), 0
+            fn, spill, stack = kernel_name(m.group(1)), 0, 0
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            stack = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
             spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
-            out.append((fn, int(m.group(1)), spill))
+            out.append((fn, int(m.group(1)), spill, stack))
             fn = None
     return out
 
@@ -486,7 +506,7 @@ def phase_kernel(torch) -> dict:
     log(f"[kernel] built {names} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for lib in libs:
-        for fn, regs, spill in ptxas_report(lib.with_suffix(".log")):
+        for fn, regs, spill, _ in ptxas_report(lib.with_suffix(".log")):
             log(f"[kernel] ptxas {lib.stem}: {fn}: {regs} registers, "
                 f"{spill} bytes of spill (stores + loads)")
     flash_lib = libs[modules.index(fa)]
@@ -498,7 +518,7 @@ def phase_kernel(torch) -> dict:
         raise AssertionError("the flash kernel issues no wgmma or TMA load")
     for m, kernel in ((ss, "ssm_scan_kernel"), (mg, "moe_gather_rows")):
         lib = libs[modules.index(m)]
-        spills = [(fn, spill) for fn, _, spill in ptxas_report(
+        spills = [(fn, spill) for fn, _, spill, _ in ptxas_report(
             lib.with_suffix(".log")) if fn.startswith(kernel) and spill]
         if spills:
             raise AssertionError(f"{kernel} spills: {spills}")
@@ -1436,9 +1456,14 @@ def phase_relational_kernels(torch) -> dict:
             raise AssertionError("the -fmad=false build of the relational "
                                  "sources failed")
     for lib in libs:
-        for fn, regs, spill in ptxas_report(lib.with_suffix(".log")):
+        for fn, regs, spill, stack in ptxas_report(lib.with_suffix(".log")):
             log(f"[relational] ptxas {lib.stem}: {fn}: {regs} registers, "
-                f"{spill} bytes of spill (stores + loads)")
+                f"{stack} bytes stack frame, {spill} bytes of spill "
+                f"(stores + loads)")
+            if fn.startswith("ring_sums") and (stack or spill):
+                raise AssertionError(f"{fn}: {stack} bytes of stack frame, "
+                                     f"{spill} of spill: K2's chain is in "
+                                     f"local memory")
     fma = ("DFMA", "FFMA", "DADD", "DMUL", "MUFU.RCP64H")
     for lib, lib_nofmad in zip(libs, nofmad):
         counts = sass_function_counts(lib, "", fma)
@@ -1502,21 +1527,38 @@ def phase_relational_kernels(torch) -> dict:
     log(f"[relational] expr_core: {cases} (op, dtype pair) cases at "
         f"{n} rows bit-equal to numpy and to the plain version on the card")
 
-    segs = 0
-    for name, rows, groups in SEGMENT_CASES:
+    probes = relational_probes(torch, sr)
+    segs, k2_ms = 0, {}
+    for name, rows, groups, inner in SEGMENT_CASES:
         inv = rng.integers(0, groups, rows).astype(np.int64)
         inv[:groups] = rng.permutation(groups)
-        f64 = rng.standard_normal(rows) * 10.0 ** rng.integers(-3, 4, rows)
-        k = rng.random(rows)
-        f64[k < 0.01] = np.nan
-        f64[(k >= 0.01) & (k < 0.03)] = 0.0
-        f64[(k >= 0.03) & (k < 0.05)] = -0.0
-        cols = {"float64": f64,
-                "int32": rng.integers(-2**31, 2**31 - 1, rows,
-                                      dtype=np.int32),
-                "bool": rng.random(rows) < 0.5,
-                "float32 (rows, 3)": rng.standard_normal(
-                    (rows, 3)).astype(np.float32)}
+        inv[rng.random(rows) < 0.001] = -1  # dropped, as numpy drops it
+        if inner is None:
+            f64 = rng.standard_normal(rows) * 10.0 ** rng.integers(-3, 4, rows)
+            k = rng.random(rows)
+            f64[k < 0.01] = np.nan
+            f64[(k >= 0.01) & (k < 0.03)] = 0.0
+            f64[(k >= 0.03) & (k < 0.05)] = -0.0
+            cols = {"float64": f64,
+                    "int32": rng.integers(-2**31, 2**31 - 1, rows,
+                                          dtype=np.int32),
+                    "bool": rng.random(rows) < 0.5,
+                    "float32 (rows, 3)": rng.standard_normal(
+                        (rows, 3)).astype(np.float32)}
+        else:  # linalg's block sums: (rows, inner) float64 blocks
+            f64 = rng.standard_normal((rows, inner))
+            f64[rng.random(f64.shape) < 0.001] = np.nan
+            f64[rng.random(f64.shape) < 0.01] = -0.0
+            cols = {f"float64 (rows, {inner})": f64}
+        # NaNs of one group share a payload: numpy keeps either of two
+        # different NaNs by its code path
+        bits = f64.view(np.uint64)
+        nan = np.isnan(f64)
+        where = np.broadcast_to(inv.reshape((-1,) + (1,) * (f64.ndim - 1)),
+                                f64.shape)[nan]
+        bits[nan] = np.uint64(0x7ff8000000000000) | (
+            (where % 7).astype(np.uint64) + np.uint64(1))
+        kept = (inv >= 0) & (inv < groups)
         for comb in ("sum", "min", "max"):
             vals = list(cols.values())
             wants = []
@@ -1525,19 +1567,19 @@ def phase_relational_kernels(torch) -> dict:
                 shape = (groups,) + v.shape[1:]
                 if comb == "sum":
                     w = np.zeros(shape, acc)
-                    np.add.at(w, inv, v)
+                    np.add.at(w, inv[kept], v[kept])
                 else:
                     w = np.full(shape, np.inf if comb == "min" else -np.inf)
-                    (np.minimum if comb == "min" else np.maximum).at(w, inv,
-                                                                     v)
+                    with np.errstate(invalid="ignore"):
+                        (np.minimum if comb == "min" else np.maximum).at(
+                            w, inv[kept], v[kept])
                 wants.append(w)
             flat = to_device([inv] + vals, dev)
             tv = [t.reshape(v.shape) for t, v in zip(flat[1:], vals)]
             dts = [v.dtype for v in vals]
-            got = ops.segment_reduce(flat[0], groups, tv, dts,
-                                     [comb] * len(vals))
-            plain = sr.segment_reduce_ref(flat[0], groups, tv, dts,
-                                          [comb] * len(vals))
+            combs = [comb] * len(vals)
+            got = ops.segment_reduce(flat[0], groups, tv, dts, combs)
+            plain = sr.segment_reduce_ref(flat[0], groups, tv, dts, combs)
             torch.cuda.synchronize()
             for col, g, p, w in zip(cols, got, plain, wants):
                 g_np = g.cpu().numpy().view(w.dtype)
@@ -1546,23 +1588,69 @@ def phase_relational_kernels(torch) -> dict:
                     raise AssertionError(
                         f"segment_reduce {name} {comb} {col}: not numpy's "
                         f"bytes (or the plain version's)")
+            if comb == "sum":
+                def call():
+                    return ops.segment_reduce(flat[0], groups, tv, dts,
+                                              combs)
+                k2_ms[name] = cuda_ms(torch, call, 3, warmup=1)
+                on_device = device_ms(torch, call, 3, "")
+                log(f"[relational] segment_reduce {name} ({rows:,} rows, "
+                    f"{groups:,} groups, {len(vals)} columns, sums): "
+                    f"{k2_ms[name]:.3f} ms by events, {on_device:.3f} ms "
+                    f"on the device; {probes['smi']}")
             segs += 1
-    log(f"[relational] segment_reduce: {segs} calls of {len(cols)} columns "
-        f"(float64 with NaN and +-0.0, int32 wrapping, bool, float32 "
-        f"(rows, 3)) at 3 and 10,000 groups, bit-equal to np.add.at / "
-        f"np.minimum.at / np.maximum.at and to the plain version; "
-        f"{time.perf_counter() - t0:.1f} s")
+            del flat, tv, got, plain
+    log(f"[relational] segment_reduce: {segs} calls (float64 with NaN "
+        f"payloads and +-0.0, int32 wrapping, bool, float32 (rows, 3); "
+        f"(rows, 16,384) float64 blocks) at "
+        f"{', '.join(c[0] for c in SEGMENT_CASES)}, rows outside [0, n) "
+        f"dropped, bit-equal to np.add.at / np.minimum.at / np.maximum.at "
+        f"and to the plain version; {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    return {"expr_cases": cases, "segment_calls": segs}
+    return {"expr_cases": cases, "segment_calls": segs,
+            "segment_ms": k2_ms, **probes}
+
+
+def relational_probes(torch, sr) -> dict:
+    """The card's own figures for K1's and K2's second bounds: the
+    latency of one DADD (a one-thread chain of dependent ``__dadd_rn``,
+    ``segment_reduce.dadd_chain``, by events) and the host link's rates
+    (a pinned copy each way, ``kernel_compare.link_rates``)."""
+    from repro_torch.launch.kernel_compare import link_rates
+
+    x = torch.tensor([1.0, 2.0 ** -60], dtype=torch.float64, device=DEVICE)
+    out = sr.dadd_chain(x, 8)
+    torch.cuda.synchronize()
+    if float(out[0]) != 1.0:  # 1 + 2^-60 rounds back to 1, eight times
+        raise AssertionError(f"dadd_chain: {float(out[0])!r}")
+    ms = cuda_ms(torch, lambda: sr.dadd_chain(x, DADD_STEPS), 3, warmup=1)
+    dadd_ns = ms * 1e6 / DADD_STEPS
+    rates = link_rates()
+    smi = nvidia_smi()
+    clocks = nvidia_smi("clocks.sm,clocks.max.sm")
+    log(f"[relational] DADD latency: {dadd_ns:.3f} ns ({DADD_STEPS:,} "
+        f"dependent __dadd_rn in one thread, {ms:.2f} ms by events; SM "
+        f"clock now, max: {clocks}); host link, pinned copies of "
+        f"256 MiB: {rates['h2d'] / 1e9:.2f} GB/s to the card, "
+        f"{rates['d2h'] / 1e9:.2f} GB/s back; {smi}")
+    return {"dadd_ns": dadd_ns, "link": rates, "smi": smi}
 
 
 def capture_first_call(ops, name: str, record: dict):
     """A context that keeps the arguments of the first call of
-    ``ops.<name>`` in ``record[name]`` (the calls run as before)."""
+    ``ops.<name>`` in ``record[name]`` (the calls run as before); host
+    tensors (views of a staging buffer that the next call refills) as
+    copies."""
     inner = getattr(ops, name)
 
+    def keep(a):
+        if isinstance(a, (list, tuple)):
+            return type(a)(keep(x) for x in a)
+        return a.clone() if hasattr(a, "is_cuda") and not a.is_cuda else a
+
     def spy(*args, **kw):
-        record.setdefault(name, (args, kw))
+        if name not in record:
+            record[name] = (keep(args), kw)
         return inner(*args, **kw)
 
     @contextlib.contextmanager
@@ -1575,13 +1663,16 @@ def capture_first_call(ops, name: str, record: dict):
     return patched()
 
 
-def phase_q1(torch, smi: str) -> dict:
+def phase_q1(torch, smi: str, probes: dict) -> dict:
     """TPC-H Q1 at scale factor 10 through the Session API: the numpy
     backend once as the oracle, then ``expr_backend="torch"`` on the card
     (one warm run, then Q1_TIMED timed): every output column
     byte-identical to the oracle's, shuffle bytes and elided exchanges
-    equal, K1 launched once per batch and K2 once per partition. Times K1
-    and K2 at the query's own inputs."""
+    equal, K1 launched once per batch and K2 once per partition, the
+    traced query's copies through pinned staging (no pageable one). Times
+    K1 (both input paths, ``kernel_compare.compare_expr_io``) and K2 at the
+    query's own inputs, beside their bounds: bytes, and K1's link bound and
+    K2's chain bound from ``probes`` (``relational_probes``)."""
     import numpy as np
 
     from repro_torch.apps.tpch import LineitemQ1, q1_pricing_summary
@@ -1673,6 +1764,12 @@ def phase_q1(torch, smi: str) -> dict:
     _, traced_s = run(card)
     card.trace = False
     card_split = span_split(card.last_trace)
+    pageable = {"stage:to_device", "stage:to_host", "agg:to_device"}
+    if pageable & set(card_split) or not {
+            "stage:pinned_in", "stage:pinned_out",
+            "agg:pinned_in"} <= set(card_split):
+        raise AssertionError(f"q1: the traced query's copies are not the "
+                             f"pinned path's: {sorted(card_split)}")
     for line in render_analyze(card.last_trace).splitlines():
         log(f"[q1: torch backend] {line}")
     for label, split, s in (("numpy backend", host_split, host_s),
@@ -1682,7 +1779,12 @@ def phase_q1(torch, smi: str) -> dict:
     busy, by_name = device_breakdown(torch, lambda: run(card), wall,
                                      "q1: one query on the card")
 
+    from repro_torch.launch.kernel_compare import compare_expr_io
+
     (prog, ins, n), _ = seen["expr_core"]
+    arrays = [x.numpy().view(dt) for x, dt in zip(ins, prog.in_dtypes)]
+    io = compare_expr_io(prog, arrays, n, probes["link"])
+    ins = [x.to(DEVICE) for x in ins]
     got1 = ops.expr_core(prog, ins, n)
     plain1 = ec.expr_core_ref(prog, ins, n)
     torch.cuda.synchronize()
@@ -1690,7 +1792,7 @@ def phase_q1(torch, smi: str) -> dict:
         raise AssertionError("expr_core at Q1's batch: not the plain "
                              "version's bytes")
     k1_err = max(max_abs_diff(torch, g, p) for g, p in zip(got1, plain1))
-    k1_ms = cuda_ms(torch, lambda: ops.expr_core(prog, ins, n), 200)
+    k1_ms = io["mapped"]["events_ms"]
     k1_plain = cuda_ms(torch, lambda: ec.expr_core_ref(prog, ins, n), 20)
     k1_bound, k1_by = expr_bound_ms(prog, ins, n)
     (inv, groups_n, vals, dts, combs), _ = seen["segment_reduce"]
@@ -1719,26 +1821,41 @@ def phase_q1(torch, smi: str) -> dict:
                                  "max": "amax"}[c])
     k2_lib = cuda_ms(torch, scatter_reduce, 3, warmup=1)
     k2_bound, k2_by = segment_bound_ms(inv, groups_n, vals, dts, combs)
+    sizes = torch.bincount(inv[(inv >= 0) & (inv < groups_n)],
+                           minlength=groups_n).tolist()
+    chain_bound = max(sizes) * probes["dadd_ns"] * 1e-6
+    device_breakdown(
+        torch, lambda: ops.segment_reduce(inv, groups_n, vals, dts, combs),
+        k2_ms / 1e3, "q1: K2 at the first partition", top=10)
     k1_dev = sum(t for k, t in by_name.items() if "expr_core" in k)
     k2_dev = sum(t for k, t in by_name.items()
-                 if any(f in k for f in ("count_chunks", "scan_counts",
-                                         "scatter_rows", "reduce_groups")))
+                 if any(f"::{f}(" in k for f in K2_KERNELS))
     log(f"[q1] expr_core at Q1's batch ({n} rows, {len(ins)} inputs, "
-        f"{len(prog.instrs)} instructions, {len(prog.outputs)} outputs): "
-        f"{k1_ms:.4f} ms per launch by events, plain {k1_plain:.4f} ms, "
-        f"bound {k1_bound:.6f} ms by {k1_by}; {k1_dev * 1e3:.1f} ms of the "
+        f"{len(prog.instrs)} instructions, {len(prog.outputs)} outputs, "
+        f"{io['bytes']:,} bytes): reading pinned inputs through the card's "
+        f"mapping {k1_ms:.4f} ms per launch by events, "
+        f"{io['mapped']['device_ms']:.4f} ms on the device, "
+        f"{io['mapped']['per_batch_host_ms']:.4f} ms a batch on the host "
+        f"clock (pack, launch, wait, copy out); staged by one copy "
+        f"{io['staged']['events_ms']:.4f} / "
+        f"{io['staged']['device_ms']:.4f} / "
+        f"{io['staged']['per_batch_host_ms']:.4f} ms; plain "
+        f"{k1_plain:.4f} ms, bound {k1_bound:.6f} ms by {k1_by}, link "
+        f"bound {io['link_bound_ms']:.4f} ms; {k1_dev * 1e3:.1f} ms of the "
         f"query's device time")
     log(f"[q1] segment_reduce at Q1's first partition ({inv.shape[0]:,} "
-        f"rows, {groups_n} groups, {len(vals)} columns): {k2_ms:.2f} ms per "
-        f"launch by events, plain (on the host) {k2_plain:.1f} ms, "
-        f"scatter_reduce_ (library_ms, atomics: not numpy's bytes) "
-        f"{k2_lib:.3f} ms, bound {k2_bound:.4f} ms by {k2_by} "
-        f"({k2_bound / k2_ms:.2%} of it); {k2_dev * 1e3:.1f} ms of the "
-        f"query's device time")
+        f"rows, {groups_n} groups of {sizes} rows, {len(vals)} columns): "
+        f"{k2_ms:.2f} ms per launch by events, plain (on the host) "
+        f"{k2_plain:.1f} ms, scatter_reduce_ (library_ms, atomics: not "
+        f"numpy's bytes) {k2_lib:.3f} ms, bound {k2_bound:.4f} ms by "
+        f"{k2_by} ({k2_bound / k2_ms:.2%} of it), chain bound "
+        f"{chain_bound:.3f} ms ({max(sizes):,} rows x "
+        f"{probes['dadd_ns']:.3f} ns; {chain_bound / k2_ms:.1%} of it); "
+        f"{k2_dev * 1e3:.1f} ms of the query's device time")
     log(f"[q1] largest |kernel - plain version| at Q1's inputs: "
         f"expr_core {k1_err}, segment_reduce {k2_err}")
     log(f"[q1] phase: {time.perf_counter() - t_phase:.1f} s")
-    del seen, ins, inv, vals, got1, plain1, got2, plain
+    del seen, ins, arrays, inv, vals, got1, plain1, got2, plain
     torch.cuda.empty_cache()
     return {"launches": launches,
             "expr_core": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
@@ -1746,7 +1863,9 @@ def phase_q1(torch, smi: str) -> dict:
                               library_ms=None),
             "segment_reduce": dict(max_abs_err=k2_err, ms=k2_ms,
                                    plain_ms=k2_plain, bound_ms=k2_bound,
-                                   bound_by=k2_by, library_ms=k2_lib)}
+                                   bound_by=k2_by, library_ms=k2_lib),
+            "k1_io": io, "k2_chain_bound_ms": chain_bound,
+            "k2_group_rows": sizes}
 
 
 def main() -> int:
@@ -1790,8 +1909,8 @@ def main() -> int:
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18: {json.dumps(launches)}")
     t0 = time.perf_counter()
-    phase_relational_kernels(torch)
-    q1 = phase_q1(torch, smi)
+    rel = phase_relational_kernels(torch)
+    q1 = phase_q1(torch, smi, rel)
     log(f"[timing] relational phase: {time.perf_counter() - t0:.1f} s (run "
         f"so far {time.perf_counter() - start:.1f} s)")
     flash, moe, ssm = kernel["prefill"], gather["prefill"], scan["prefill"]

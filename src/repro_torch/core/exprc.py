@@ -41,12 +41,13 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.lambdas import METHOD_REGISTRY, _APPLY_BINOP as _NP_BINOP
 from repro_torch.core.relops import hash_col
 from repro_torch.core.tcap import TCAPOp, TCAPProgram
 from repro_torch.kernels import expr_core, ops
-from repro_torch.kernels.transfer import device_buffer, to_device, to_host
+from repro_torch.kernels.transfer import staging, to_device
 from repro_torch.obs.metrics import METRICS
 from repro_torch.obs.trace import NULL, current
 from repro_torch.objectmodel.vectorlist import VectorList
@@ -539,11 +540,16 @@ def _compile_torch(ir: _RunIR, arrays: Tuple) -> Callable:
 
 def _run_core(program, arrays: List[np.ndarray], const: List[bool],
               n0: int, device, rec=NULL) -> List[np.ndarray]:
-    """One batch through the core on ``device``: the inputs over in one
-    copy (a constant as one value), the outputs back in one. Columns of
-    one batch share their trailing shape (a vector field): the core runs
-    over their elements. Under a recorder ``rec`` the copy in, the launch
-    and the copy out (which waits for the kernel) are spans."""
+    """One batch through the core on ``device``. Columns of one batch share
+    their trailing shape (a vector field): the core runs over their
+    elements. On a card the inputs (a constant as one value) are packed
+    into the device's pinned "k1 in" staging buffer, the kernel reads them
+    and writes its outputs into the pinned "k1 out" buffer through the
+    card's mapping, and the host waits for it and copies the outputs out:
+    one pack, one launch, one wait. One buffer pair serves every batch
+    because the host waits for a batch's outputs before it packs the next.
+    Under a recorder ``rec`` the pack, the launch with its wait and the
+    copy out are spans."""
     arrays = [np.asarray(a) for a in arrays]
     shapes = {a.shape[1:] for a in arrays}
     if len(shapes) > 1:
@@ -551,18 +557,21 @@ def _run_core(program, arrays: List[np.ndarray], const: List[bool],
                         f"{sorted(a.shape for a in arrays)}")
     trail = shapes.pop()
     n = n0 * int(np.prod(trail, dtype=np.int64))
-    with rec.span("stage:to_device", cat="stage"):
-        inputs = to_device([a[:1] if c else a
-                            for a, c in zip(arrays, const)], device)
-    specs = [(n, dt) for dt in program.out_dtypes]
+    cols = [a[:1] if c else a for a, c in zip(arrays, const)]
     if device.type == "cpu":
         with rec.span("stage:k1", cat="stage"):
             outs = [t.numpy().view(dt) for t, dt in zip(
-                ops.expr_core(program, inputs, n), program.out_dtypes)]
+                ops.expr_core(program, to_device(cols, device), n),
+                program.out_dtypes)]
     else:
+        with rec.span("stage:pinned_in", cat="stage"):
+            inputs, _ = staging(device, "k1 in").pack([[c] for c in cols])
         with rec.span("stage:k1", cat="stage"):
-            buf, views = device_buffer(device, specs)
-            ops.expr_core(program, inputs, n, outs=views)
-        with rec.span("stage:to_host", cat="stage"):
-            outs = to_host(buf, specs)
+            out_stage = staging(device, "k1 out")
+            views = out_stage.views([(n, dt) for dt in program.out_dtypes])
+            ops.expr_core(program, inputs, n, outs=views, device=device)
+            torch.cuda.synchronize(device)
+        with rec.span("stage:pinned_out", cat="stage"):
+            outs = [v.numpy().view(dt).copy()
+                    for v, dt in zip(views, program.out_dtypes)]
     return [o.reshape((n0,) + trail) for o in outs]

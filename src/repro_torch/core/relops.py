@@ -45,7 +45,7 @@ from repro_torch.core.lambdas import METHOD_REGISTRY
 from repro_torch.core.tcap import TCAPOp
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_reduce import acc_dtype
-from repro_torch.kernels.transfer import to_device
+from repro_torch.kernels.transfer import to_device, to_device_pinned
 from repro_torch.obs.trace import current
 from repro_torch.objectmodel.vectorlist import VectorList
 
@@ -446,9 +446,16 @@ class AggMap:
         """Fold one batch in: group rows by key, scatter-combine every
         accumulator column. ``reducer`` (the torch segment-reduce kernel)
         replaces the numpy scatter for the per-batch reduction when set;
-        it receives ``(inv, n_groups, val_arrays)`` and must return one
-        ``(n_groups, ...)`` array per accumulator — or ``None`` to decline
-        (non-numeric dtypes), falling back to numpy."""
+        it receives ``(inv, n_groups, val_parts)``, each accumulator
+        column as an array or as the list of arrays whose concatenation it
+        is, and must return one ``(n_groups, ...)`` array per accumulator
+        — or ``None`` to decline (non-numeric dtypes), falling back to
+        numpy."""
+        self._absorb(key_cols, [[np.asarray(v)] for v in val_cols], reducer)
+
+    def _absorb(self, key_cols: Sequence[np.ndarray],
+                val_parts: Sequence[Sequence[np.ndarray]],
+                reducer: Optional[Callable]) -> None:
         if len(np.asarray(key_cols[0])) == 0:
             return
         if self.key_dtypes is None:
@@ -459,9 +466,11 @@ class AggMap:
         with rec.span("agg:keys", cat="agg"):
             keys, inv = _unique_keys(key_cols)
         n = len(keys)
-        vals = [np.asarray(v) for v in val_cols]
-        accs = reducer(inv, n, vals) if reducer is not None else None
+        accs = reducer(inv, n, val_parts) if reducer is not None else None
         if accs is None:
+            with rec.span("agg:concat", cat="agg"):
+                vals = [p[0] if len(p) == 1 else np.concatenate(p)
+                        for p in val_parts]
             with rec.span("agg:scatter", cat="agg"):
                 accs = [_COMBINE[comb](None, inv, v, n)
                         for comb, v in zip(self.spec.combiners, vals)]
@@ -483,15 +492,18 @@ class AggMap:
         group discovery + one (fused, possibly on-device) scatter per
         partition. Both executors pre-aggregate through exactly this
         method, so the float association order (row order within the
-        partition) is identical on every backend by construction."""
+        partition) is identical on every backend by construction. The
+        key columns are concatenated here; the value columns go to the
+        reducer as the batches' parts (the device reducer packs them
+        straight into pinned staging), and are concatenated only for the
+        numpy scatter."""
         if not batches:
             return
         with current().span("agg:concat", cat="agg"):
             keys = [np.concatenate([np.asarray(vl[c]) for vl in batches])
                     for c in key_cols]
-            vals = [np.concatenate([np.asarray(vl[c]) for vl in batches])
-                    for c in acc_cols]
-        self.absorb(keys, vals, reducer=reducer)
+        parts = [[np.asarray(vl[c]) for vl in batches] for c in acc_cols]
+        self._absorb(keys, parts, reducer)
 
     def merge(self, other: "AggMap") -> None:
         if self.key_dtypes is None:
@@ -558,7 +570,10 @@ def device_segment_reducer(combiners: Tuple[str, ...], device) -> Callable:
     partition, accumulator dtypes matching the host scatters. Group
     discovery (``np.unique``) stays on host — it is what fixes the
     deterministic key order — only the reduction itself runs on device.
-    The group ids and values go over in one copy.
+    On a card the group ids and the value columns' parts (the partition's
+    batches) are packed straight into the device's pinned "agg" staging
+    buffer, reused and grown to the largest partition, and go over in one
+    asynchronous copy (``transfer.to_device_pinned``).
 
     Bit-identity with the host scatters holds by construction: the kernel
     adds each group's rows in row order, as ``np.add.at`` does, where the
@@ -570,25 +585,35 @@ def device_segment_reducer(combiners: Tuple[str, ...], device) -> Callable:
     dtypes (the caller reduces those with the numpy scatter): a scope of
     dtypes fixed before any launch.
 
-    Under a recorder, the copy in, the kernel and the copy out are spans
-    of their own ("agg" category), each ended by a device synchronize."""
+    Under a recorder, the pack and copy in, the kernel and the copy out
+    are spans of their own ("agg" category), each ended by a device
+    synchronize."""
 
-    def reducer(inv: np.ndarray, n: int, vals: List[np.ndarray]):
-        if any(v.dtype.kind not in "biuf" or v.dtype.names is not None
-               for v in vals):
+    def reducer(inv: np.ndarray, n: int, vals: Sequence):
+        # a column is an array, or the list of its parts
+        parts = [[v] if isinstance(v, np.ndarray) else list(v) for v in vals]
+        dts = [p[0].dtype for p in parts]
+        if any(dt.kind not in "biuf" or dt.names is not None for dt in dts):
             return None
+        shapes = [(sum(len(a) for a in p),) + p[0].shape[1:] for p in parts]
         rec = current()
-        with rec.span("agg:to_device", cat="agg"):
-            flat = to_device([np.asarray(inv, np.int64)] + vals, device)
-            _sync(rec, flat[0])
+        inv = np.asarray(inv, np.int64)
+        if device.type == "cpu":
+            flat = to_device([inv] + [p[0] if len(p) == 1
+                                      else np.concatenate(p) for p in parts],
+                             device)
+        else:
+            with rec.span("agg:pinned_in", cat="agg"):
+                flat = to_device_pinned([[inv]] + list(parts), device,
+                                        "agg")
+                _sync(rec, flat[0])
         with rec.span("agg:reduce", cat="agg"):
-            cols = [t.reshape(v.shape) for t, v in zip(flat[1:], vals)]
-            accs = ops.segment_reduce(flat[0], n, cols,
-                                      [v.dtype for v in vals], combiners)
+            cols = [t.reshape(shape) for t, shape in zip(flat[1:], shapes)]
+            accs = ops.segment_reduce(flat[0], n, cols, dts, combiners)
             _sync(rec, flat[0])
         with rec.span("agg:to_host", cat="agg"):
-            return [a.cpu().numpy().view(acc_dtype(v.dtype, c))
-                    for a, v, c in zip(accs, vals, combiners)]
+            return [a.cpu().numpy().view(acc_dtype(dt, c))
+                    for a, dt, c in zip(accs, dts, combiners)]
 
     return reducer
 

@@ -19,10 +19,12 @@ rounded once). The kernel interprets the program, a thread per element;
 (``numpy_ops.py``).
 
 What bounds it on an H100: at the executor's 8,192-row batches a call
-moves a few hundred KB (a fraction of a microsecond at 3.35 TB/s); the
-copies to and from the card and the launch are its time. The source is
-compiled with nvcc for sm_90a at first use and bound through ctypes
-(``kernels/nvcc.py``).
+moves a few hundred KB (a fraction of a microsecond at 3.35 TB/s). On the
+engine's path the kernel reads its inputs from pinned host memory through
+their device-mapped address and writes its outputs there too, so a batch
+is one pack, one launch and one wait: the bytes over the host link and
+the launch are its time. The source is compiled with nvcc for sm_90a at
+first use and bound through ctypes (``kernels/nvcc.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.kernels import numpy_ops as npo
 from repro_torch.kernels import nvcc
-from repro_torch.kernels.transfer import torch_dtype
+from repro_torch.kernels.transfer import card, torch_dtype
 
 __all__ = ["ExprProgram", "encode", "expr_core", "expr_core_ref", "build",
            "LAUNCHES", "SOURCE"]
@@ -163,34 +165,42 @@ def check_inputs(program: ExprProgram, inputs: Sequence[torch.Tensor],
 
 
 def expr_core(program: ExprProgram, inputs: Sequence[torch.Tensor], n: int,
-              outs: Optional[Sequence[torch.Tensor]] = None
-              ) -> List[torch.Tensor]:
-    """Launch the CUDA kernel: ``inputs`` on one CUDA device as
-    ``check_inputs`` says, contiguous; returns one (n,) tensor per program
-    output (written into ``outs`` when given: contiguous tensors of the
-    outputs' holders on that device), on the current stream."""
+              outs: Optional[Sequence[torch.Tensor]] = None,
+              device: Optional[torch.device] = None) -> List[torch.Tensor]:
+    """Launch the CUDA kernel on ``device`` (the inputs' CUDA device when
+    None): ``inputs`` as ``check_inputs`` says, contiguous, each in that
+    device's memory or in pinned host memory (read through its
+    device-mapped address; the C entry refuses pageable memory with CUDA
+    error 16, cudaErrorInvalidHostPointer). Returns one (n,) tensor per
+    program output, on the device unless written into ``outs``
+    (contiguous tensors of the outputs' holders, device or pinned host
+    memory), on the current stream: the caller waits for it before
+    reading pinned outputs."""
     check_inputs(program, inputs, n)
-    dev = inputs[0].device
-    if dev.type != "cuda" or any(x.device != dev for x in inputs):
-        raise ValueError("the expression core's inputs must lie on one "
-                         "CUDA device")
+    dev = card(device) if device is not None else inputs[0].device
+    if dev.type != "cuda" or any(x.device.type == "cuda" and x.device != dev
+                                 for x in inputs):
+        raise ValueError("the expression core's inputs must lie on its CUDA "
+                         "device or in pinned host memory")
     if not all(x.is_contiguous() for x in inputs):
         raise ValueError("the expression core's inputs must be contiguous")
     if outs is None:
         outs = [torch.empty(n, dtype=torch_dtype(dt), device=dev)
                 for dt in program.out_dtypes]
     elif len(outs) != len(program.out_dtypes) or any(
-            o.device != dev or o.shape != (n,) or not o.is_contiguous()
+            (o.device.type == "cuda" and o.device != dev)
+            or o.shape != (n,) or not o.is_contiguous()
             or o.dtype != torch_dtype(dt)
             for o, dt in zip(outs, program.out_dtypes)):
         raise ValueError("outs: want a contiguous (n,) tensor of each "
-                         "output's holder on the inputs' device")
+                         "output's holder on the device or in pinned host "
+                         "memory")
     if n == 0:
         return list(outs)
     words = program.device_words(dev)
     steps = [0 if x.shape[0] == 1 and n > 1 else 1 for x in inputs]
     nvcc.launch(build(), "expr_core", dev.index, words.data_ptr(),
-                words.numel(), n, len(inputs), len(outs),
+                words.numel(), program.n_regs, n, len(inputs), len(outs),
                 *(x.data_ptr() for x in inputs), *steps,
                 *(o.data_ptr() for o in outs))
     LAUNCHES.count += 1

@@ -66,13 +66,17 @@ def ssm_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
 
 def expr_core(program: _ec.ExprProgram, inputs: Sequence[torch.Tensor],
-              n: int, outs: Optional[Sequence[torch.Tensor]] = None
-              ) -> List[torch.Tensor]:
+              n: int, outs: Optional[Sequence[torch.Tensor]] = None,
+              device: Optional[torch.device] = None) -> List[torch.Tensor]:
     """One fused run's numeric core (an ``expr_core.ExprProgram``) over n
     elements: inputs are flat tensors of n elements or one (a constant),
     holding numpy columns (``transfer.torch_dtype``) -> one (n,) tensor per
-    program output, numpy's bytes. ``outs`` (a card's only) receives
-    them."""
+    program output, numpy's bytes. On a card (the inputs', or ``device``
+    when given) the kernel runs; inputs and ``outs`` may then lie in
+    pinned host memory, which it reads and writes through the card's
+    mapping. Otherwise, for inputs on the CPU, the plain version."""
+    if device is not None and torch.device(device).type == "cuda":
+        return _ec.expr_core(program, inputs, n, outs, device)  # checks
     if inputs[0].device.type == "cpu":
         return _ec.expr_core_ref(program, inputs, n)
     return _ec.expr_core(program, inputs, n, outs)  # checks

@@ -78,7 +78,7 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     if ctx.ep_shard_map:
         raise NotImplementedError(
             "Ctx(ep_shard_map=True), explicit expert parallelism, waits for "
-            "the parallelism layer (ROADMAP.md, 'Modules to port', item 7)")
+            "the parallelism layer (ROADMAP.md, 'Modules to port', item 9)")
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k

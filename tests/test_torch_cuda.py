@@ -647,50 +647,126 @@ def test_expr_core_kernel_constants_and_refusals(torch):
         ops.expr_core(prog, [a, k.to(torch.int32)], 4)
 
 
-@pytest.mark.parametrize("groups", [3, 10_000])
-def test_segment_reduce_kernel_gives_numpy_bytes(torch, groups):
-    """sum / min / max of float64 (NaN, +-0.0), int32 (wrapping sums), bool
-    (int64 sums), a (rows, 3) float32 column and uint64, one call each:
-    the kernel, its plain version and numpy's indexed loops, bit for bit."""
+def _numpy_scatter(inv, n, v, comb, acc):
+    shape = (n,) + v.shape[1:]
+    if comb == "sum":
+        want = np.zeros(shape, acc)
+        np.add.at(want, inv, v)
+    else:
+        want = np.full(shape, np.inf if comb == "min" else -np.inf)
+        with np.errstate(invalid="ignore"):
+            (np.minimum if comb == "min" else np.maximum).at(want, inv, v)
+    return want
+
+
+def _check_segment_kernel(torch, inv, n, vals):
+    """One kernel call per combiner over vals: the kernel, its plain
+    version and numpy's indexed loops, bit for bit; one launch each."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_reduce as sr
     from repro_torch.kernels.transfer import to_device
-    rng = np.random.default_rng(groups)
-    rows = 200_000
-    inv = rng.integers(0, groups, rows).astype(np.int64)
-    inv[:groups] = rng.permutation(groups)
-    f64 = rng.standard_normal(rows) * 10.0 ** rng.integers(-3, 4, rows)
-    f64[rng.random(rows) < 0.01] = np.nan
-    f64[rng.random(rows) < 0.02] = 0.0
-    f64[rng.random(rows) < 0.02] = -0.0
-    vals = [f64, rng.integers(-2**31, 2**31 - 1, rows, dtype=np.int32),
-            rng.random(rows) < 0.5,
-            rng.standard_normal((rows, 3)).astype(np.float32),
-            rng.integers(0, 2**64 - 1, rows, dtype=np.uint64)]
+    kept = (inv >= 0) & (inv < n)
     for comb in ("sum", "min", "max"):
         flat = to_device([inv] + vals, torch.device("cuda"))
         cols = [t.reshape(v.shape) for t, v in zip(flat[1:], vals)]
         dts = [v.dtype for v in vals]
         before = sr.LAUNCHES.count
-        got = ops.segment_reduce(flat[0], groups, cols, dts,
-                                 [comb] * len(vals))
+        got = ops.segment_reduce(flat[0], n, cols, dts, [comb] * len(vals))
         assert sr.LAUNCHES.count == before + 1
-        plain = sr.segment_reduce_ref(flat[0], groups, cols, dts,
+        plain = sr.segment_reduce_ref(flat[0], n, cols, dts,
                                       [comb] * len(vals))
         for g, p, v in zip(got, plain, vals):
             acc = sr.acc_dtype(v.dtype, comb)
-            shape = (groups,) + v.shape[1:]
-            if comb == "sum":
-                want = np.zeros(shape, acc)
-                np.add.at(want, inv, v)
-            else:
-                want = np.full(shape, np.inf if comb == "min" else -np.inf)
-                with np.errstate(invalid="ignore"):
-                    (np.minimum if comb == "min" else np.maximum).at(
-                        want, inv, v)
+            want = _numpy_scatter(inv[kept], n, v[kept], comb, acc)
             g_np = g.cpu().numpy().view(acc)
-            assert g_np.tobytes() == want.tobytes(), (comb, v.dtype)
+            assert g_np.tobytes() == want.tobytes(), (comb, v.dtype, v.shape)
             assert g_np.tobytes() == p.cpu().numpy().view(acc).tobytes()
+
+
+def _nan_payloads(inv, v):
+    """v's NaNs given a payload by group (7 kinds), so that NaNs of one
+    group share their bits (numpy keeps either of two different NaNs by
+    its code path)."""
+    bits = v.view(np.uint64)
+    nan = np.isnan(v)
+    bits[nan] = np.uint64(0x7ff8000000000000) | (
+        (inv[nan] % 7).astype(np.uint64) + np.uint64(1))
+    return v
+
+
+@pytest.mark.parametrize("groups", [3, 10_000, 2**20 + 1])
+def test_segment_reduce_kernel_gives_numpy_bytes(torch, groups):
+    """sum / min / max of float64 (NaN with payloads, +-0.0 ties), int32
+    (wrapping sums), bool (int64 sums), a (rows, 3) float32 column and
+    uint64, one call each, with rows outside [0, n) dropped: at 3 groups
+    (long chains through the ring, min / max in pieces), 10,000 and
+    2^20 + 1 (two radix passes); then a linalg-shaped call, (rows, 16,384)
+    float64 blocks summed into at most 64 groups: the kernel, its plain
+    version and numpy's indexed loops, bit for bit."""
+    rng = np.random.default_rng(groups)
+    rows = max(200_000, groups + groups // 2)
+    inv = rng.integers(0, groups, rows).astype(np.int64)
+    inv[:groups] = rng.permutation(groups)
+    inv[rng.random(rows) < 0.001] = -1
+    f64 = rng.standard_normal(rows) * 10.0 ** rng.integers(-3, 4, rows)
+    f64[rng.random(rows) < 0.01] = np.nan
+    f64[rng.random(rows) < 0.02] = 0.0
+    f64[rng.random(rows) < 0.02] = -0.0
+    _nan_payloads(inv, f64)
+    _check_segment_kernel(torch, inv, groups, [
+        f64, rng.integers(-2**31, 2**31 - 1, rows, dtype=np.int32),
+        rng.random(rows) < 0.5,
+        rng.standard_normal((rows, 3)).astype(np.float32),
+        rng.integers(0, 2**64 - 1, rows, dtype=np.uint64)])
+    wide_groups = min(groups, 64)
+    wide_rows = 4 * wide_groups + 3
+    wide_inv = rng.integers(0, wide_groups, wide_rows).astype(np.int64)
+    wide = rng.standard_normal((wide_rows, 16_384))
+    wide[rng.random(wide.shape) < 0.001] = np.nan
+    wide[rng.random(wide.shape) < 0.01] = -0.0
+    _nan_payloads(np.broadcast_to(wide_inv[:, None], wide.shape).copy(),
+                  wide)
+    _check_segment_kernel(torch, wide_inv, wide_groups, [wide])
+
+
+def test_expr_core_kernel_reads_pinned_staging_and_refuses_pageable(torch):
+    """K1 as the engine runs it: inputs packed into a pinned staging
+    buffer and read through the card's mapping, outputs written into
+    pinned host memory, one wait; numpy's bytes. A pageable host tensor
+    is refused by the C entry (cudaErrorInvalidHostPointer, 16)."""
+    from repro_torch.kernels import expr_core as ec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.transfer import Staging
+    rng = np.random.default_rng(4)
+    n = 8192
+    a = rng.standard_normal(n)
+    b = rng.integers(-5, 5, n).astype(np.int32)
+    c = np.array([0.25])  # a constant, one value for every row
+    dts = {0: a.dtype, 1: b.dtype, 2: c.dtype, 3: np.dtype(np.float64),
+           4: np.dtype(np.float64), 5: np.dtype(bool)}
+    prog = ec.encode([("*", 3, (0, 1)), ("-", 4, (3, 2)), (">", 5, (4, 0))],
+                     dts, [0, 1, 2], [4, 5])
+    ins_stage, outs_stage = Staging(), Staging()
+    dev = torch.device("cuda", 0)
+    for _ in range(3):  # the buffers are reused
+        ins, _ = ins_stage.pack([[a], [b], [c]])
+        assert all(x.is_pinned() for x in ins)
+        outs = outs_stage.views([(n, np.float64), (n, np.dtype(bool))])
+        before = ec.LAUNCHES.count
+        ops.expr_core(prog, ins, n, outs=outs, device=dev)
+        assert ec.LAUNCHES.count == before + 1
+        torch.cuda.synchronize()
+        want = a * b - c[0]
+        assert outs[0].numpy().tobytes() == want.tobytes()
+        assert outs[1].numpy().tobytes() == (want > a).tobytes()
+    pageable = [torch.from_numpy(a), torch.from_numpy(b),
+                torch.from_numpy(c)]
+    with pytest.raises(RuntimeError, match="CUDA error 16"):
+        ops.expr_core(prog, pageable, n, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error 16"):
+        ops.expr_core(prog, ins, n, outs=[torch.empty(n, dtype=torch.float64),
+                                          torch.empty(n, dtype=torch.bool)],
+                      device=dev)
 
 
 def test_q1_on_the_card_is_byte_identical_to_the_numpy_backend(torch):

@@ -149,7 +149,8 @@ def test_moe_ep_shard_map_waits_for_the_parallelism_layer(torch, qwen):
     from repro_torch.models import Ctx
     from repro_torch.models import moe
     p, x = _moe_inputs(qwen)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="'Modules to port', "
+                       "item 9"):
         moe.moe_apply(port_cfg(qwen), _to(torch.from_numpy, p),
                       torch.from_numpy(x), Ctx(ep_shard_map=True))
 
