@@ -67,7 +67,8 @@ final line:
    the reference does); paged serving as in 3;
 8. hybrid serving through ``serve_batch`` with the same cut: 8 requests,
    batch 4, moe_gather 4 launches per decode step, no flash or scan;
-9-18. the other families, every published width and full depth, bf16
+9-18. the other families, every published width and full depth (but
+   xlstm's, cut below), bf16
    random weights drawn on the card, each a prefill phase as 3 and a
    serving phase as 4: gemma-7b (28 layers, 16/16 heads of 256, q_dim
    4096 against d_model 3072, tied embeddings), phi3-mini (32 layers,
@@ -79,7 +80,8 @@ final line:
    1,500 encoder frames, ``Model.encode`` timed; flash in the decoder's
    12 layers, the encoder on the plain path as the reference; dense
    decode from the encoder's output; the paged pool and the int8 cache
-   refused, as the reference has neither for it); xlstm-125m (12 blocks,
+   refused, as the reference has neither for it); xlstm-125m (cut to 4
+   of its 12 blocks, one sLSTM block,
    no attention and no kernel: the sLSTM's 4,096 sequential steps a
    layer, the profiler's breakdown over the first 512 tokens; decode over
    the recurrent state against prefill, held in float32; no paged pool). Then one summary line per model: prefill tokens/s, the dense
@@ -110,10 +112,36 @@ final line:
    latency) and ``scatter_reduce_``, with its kernels' device split, the
    device's busy share over one query and the peak device memory. Phase
    2 builds K1 and K2 with the other four kernels.
+20. the worker runtime: the same Q1 at SF 10 (phase 19's set and its
+   numpy answer as the oracle) through ``Session(backend="workers",
+   num_workers=4, worker_kind="thread")`` on ``expr_backend="torch"``,
+   the four ranks threads sharing the card: a warm run, then 3 timed
+   runs, each byte-identical with K1 once per batch of every rank and K2
+   once per rank holding rows; the pinned host memory; one query's busy
+   share;
+   then socket workers launched as threads (real TCP), traced (every
+   rank's spans), byte-identical with the thread workers' per-rank
+   shuffle bytes;
+21. the join and top-k entry points (``customers_per_supplier``,
+   ``topk_jaccard``) over ``denormalized_tpch`` at bench_oo's size on the
+   local torch backend, thread and socket-thread workers, each
+   byte-identical to the local numpy backend, the workers' per-rank
+   shuffle bytes equal to numpy workers';
+22. the query service: ``QueryService(launch="thread", num_workers=4,
+   expr_backend="torch")`` over phase 19's store, a cold Q1 (SETUP bytes,
+   launches as phase 20), then 4 ``Session.connect`` clients at once (2
+   admitted at a time, the rest queued by the service's admission
+   control), each a warm Q1 (0 SETUP bytes) and two lambda-DSL queries (the
+   service refuses native lambdas, so the entry points cannot go there),
+   every answer byte-identical; the cold and warm walls;
+23. the tools at the reference's benchmark sizes: lilLinAlg's Gram matrix
+   and multiply (n 4,096 x 32, blocks of 64) and k-means (20,000 x 32, k
+   10, 3 iterations), byte-identical to the numpy backend.
 
-Launch counts are set to 0 just before each main-path run of phases 3-19
+Launch counts are set to 0 just before each main-path run of phases 3-23
 (prefill, paged decode, paged serving, the long-context step, serving,
-the timed Q1 runs) and read just after it. The last two lines are a JSON object with one
+the timed Q1 runs, the workers', the entry points', the service's cold
+Q1, the tools') and read just after it. The last two lines are a JSON object with one
 entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -135,11 +163,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "qwen25_32b"
 MOE_ARCH = "qwen2_moe"
 HYBRID_ARCH = "jamba15_large"
-# the other model families, every published width and full depth, after
-# the three above: (registry name, label)
+# the other model families, every published width and full depth but
+# xlstm's, after the three above: (registry name, label)
 OTHER_ARCHS = [("gemma_7b", "gemma"), ("phi3_mini", "phi3"),
                ("internvl2_26b", "vlm"), ("whisper_small", "audio"),
                ("xlstm_125m", "ssm")]
+# xlstm-125m cut to 4 of its 12 blocks (one sLSTM block of its three):
+# the eager sLSTM steps of its prefill took 50-66 s of the run, and the
+# run's time goes to phases 20-23 within its 1,200 s
+OTHER_CUTS = {"xlstm_125m": {"n_layers": 4}}
 # jamba-1.5-large's cuts (its widths are all published values): 72 -> 8
 # layers (one group; the stack runs whole groups) and 16 -> 12 experts.
 # One group at 16 experts is 84.3 GiB of bf16 weights; at 12, 66.3 GiB.
@@ -244,6 +276,24 @@ DADD_STEPS = 1 << 23  # the DADD latency probe's chain
 K2_KERNELS = ("count_digits", "scan_tiles", "scan_tile_sums", "scan_apply",
               "scatter_digits", "group_starts", "gather_lanes",
               "piece_partials", "finish", "ring_sums")  # segment_reduce.cu
+# phases 20-23: the worker runtime, the query service and the tools on
+# the torch backend, the WORKERS ranks threads sharing the card; Q1 over
+# the workers is timed WORKERS_TIMED times; the entry
+# points over denormalized_tpch at benchmarks/bench_oo.py's largest size
+# (1,600 customers, seed 1, k 16); the tools at benchmarks/bench_linalg.py
+# :28 (n 4,096, blocks of 64; its wider dims, 32) and bench_ml.py:20
+WORKERS = 4
+WORKERS_TIMED = 3
+TPCH_CUSTOMERS = 1600
+TPCH_TOPK = 16
+SERVICE_CLIENTS = 4
+# the service admits SERVICE_ADMITTED of the clients' queries at once and
+# queues the rest: all four at once took 82-137 s, 5-9x one query, in
+# four runs (a new query thread pays the first-run cost that phase 20's
+# warm run shows, ~2x)
+SERVICE_ADMITTED = 2
+LINALG_ROWS, LINALG_DIM, LINALG_BLOCK = 4096, 32, 64
+KMEANS_POINTS, KMEANS_DIM, KMEANS_K, KMEANS_ITERS = 20_000, 32, 10, 3
 # the relational kernels' operations (float64, integer, compares) run on
 # CUDA cores, at most at the H100's float32 rate (NVIDIA's data sheet,
 # 67 TFLOP/s; float64 is slower), so their time is at least count / rate
@@ -863,6 +913,15 @@ def hybrid_config():
     return dataclasses.replace(get_arch(HYBRID_ARCH), **HYBRID_CUTS)
 
 
+def other_arch(name: str):
+    """A family of OTHER_ARCHS: its name (all layers), or its config with
+    the OTHER_CUTS applied."""
+    from repro_torch.configs import get_arch
+    if name not in OTHER_CUTS:
+        return name
+    return dataclasses.replace(get_arch(name), **OTHER_CUTS[name])
+
+
 def prefill_batch(torch, model) -> dict:
     """Prefill inputs drawn from SEED: B=1, S=PREFILL_SEQ tokens; for an
     audio model AUDIO_BATCH sequences of AUDIO_SEQ tokens and the
@@ -1382,15 +1441,15 @@ def max_abs_diff(torch, a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def span_split(trace) -> dict:
-    """{span name: ms} over one query's trace: the op spans, and the
-    "stage" (fused runs: host prologue, copy in, K1, copy out, host
-    epilogue) and "agg" (AGG: concatenation, key discovery, copy in, K2,
-    copy out or the host's scatter, the merge into the map) spans that
-    split them."""
+def span_split(trace, rank="any") -> dict:
+    """{span name: ms} over one query's trace (one worker rank's spans
+    with ``rank``): the op spans, and the "stage" (fused runs: host
+    prologue, copy in, K1, copy out, host epilogue) and "agg" (AGG:
+    concatenation, key discovery, copy in, K2, copy out or the host's
+    scatter, the merge into the map) spans that split them."""
     out: dict = {}
     for sp in trace.spans:
-        if sp.cat in ("op", "stage", "agg"):
+        if sp.cat in ("op", "stage", "agg") and rank in ("any", sp.rank):
             out[sp.name] = out.get(sp.name, 0.0) + sp.dur_ms
     return out
 
@@ -1857,7 +1916,9 @@ def phase_q1(torch, smi: str, probes: dict) -> dict:
     log(f"[q1] phase: {time.perf_counter() - t_phase:.1f} s")
     del seen, ins, arrays, inv, vals, got1, plain1, got2, plain
     torch.cuda.empty_cache()
-    return {"launches": launches,
+    return {"launches": launches, "oracle": want, "store": host.store,
+            "set": ds.set_name, "batches": batches, "parts": parts,
+            "numpy_s": host_s, "torch_s": wall,
             "expr_core": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
                               bound_ms=k1_bound, bound_by=k1_by,
                               library_ms=None),
@@ -1866,6 +1927,363 @@ def phase_q1(torch, smi: str, probes: dict) -> dict:
                                    bound_by=k2_by, library_ms=k2_lib),
             "k1_io": io, "k2_chain_bound_ms": chain_bound,
             "k2_group_rows": sizes}
+
+
+# ---------------------------------------------------------- phases 20-23
+def same_columns(got: dict, want: dict, label: str) -> None:
+    """Every column of ``want`` in ``got`` with its dtype, shape and bytes;
+    AssertionError naming the first that differs."""
+    import numpy as np
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: columns {sorted(got)}, want "
+                             f"{sorted(want)}")
+    for name, w in want.items():
+        g, w = np.asarray(got[name]), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape \
+                or g.tobytes() != w.tobytes():
+            raise AssertionError(f"{label}: column {name} differs from the "
+                                 f"numpy backend's bytes")
+
+
+def check_launches(ops, want: dict, label: str) -> dict:
+    """The launch counts since the last reset, which must be ``want`` for
+    the relational kernels and 0 for every other kernel."""
+    got = ops.launch_counts()
+    full = {**{k: 0 for k in got}, **want}
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, want {full}")
+    return got
+
+
+def rank_bytes(sess) -> list:
+    return [w.shuffle_bytes for w in sess.executor.worker_stats]
+
+
+def pinned_host_gib(torch) -> str:
+    """What the host holds in pinned (page-locked) memory through torch's
+    caching host allocator, GiB, now and at its peak."""
+    stats = torch.cuda.host_memory_stats()
+    return (f"{stats.get('allocated_bytes.current', 0) / 2**30:.2f} GiB "
+            f"(peak {stats.get('allocated_bytes.peak', 0) / 2**30:.2f} GiB) "
+            f"in {stats.get('allocations.current', 0)} blocks")
+
+
+def phase_workers_q1(torch, smi: str, q1: dict) -> dict:
+    """Phase 20: TPC-H Q1 at SF 10 (phase 19's lineitem set, no cut) over
+    WORKERS thread workers sharing the card, on ``expr_backend="torch"``:
+    one warm run, then WORKERS_TIMED runs; every column byte-identical to
+    phase 19's numpy-backend answer, K1 once per batch of every rank and
+    K2 once per rank holding rows, each run. Then one query's device busy share, and
+    the same query through socket workers launched as threads (real TCP),
+    traced (every rank's spans), whose per-rank shuffle bytes equal the
+    thread workers'."""
+    from repro_torch.apps.tpch import q1_pricing_summary
+    from repro_torch.core import Session
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    want, store, name = q1["oracle"], q1["store"], q1["set"]
+    expect = {"expr_core": q1["batches"], "segment_reduce": q1["parts"]}
+
+    def run(sess):
+        t = time.perf_counter()
+        out = q1_pricing_summary(sess.store, name, session=sess).collect()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    workers = Session(store=store, backend="workers", num_workers=WORKERS,
+                      worker_kind="thread", expr_backend="torch")
+    _, warm_s = run(workers)
+    log(f"[workers q1] pinned host memory after the warm run: "
+        f"{pinned_host_gib(torch)}")
+    walls = []
+    launches = {k: 0 for k in ops.launch_counts()}
+    for _ in range(WORKERS_TIMED):
+        ops.reset_launch_counts()
+        got, wall = run(workers)
+        counts = check_launches(ops, expect, "workers q1")
+        same_columns(got, want, "workers q1")
+        walls.append(wall)
+        launches = {k: launches[k] + v for k, v in counts.items()}
+    wall = sorted(walls)[len(walls) // 2]
+    sb = rank_bytes(workers)
+    log(f"[workers q1] {Q1_ROWS:,} lineitems over {WORKERS} thread workers "
+        f"on one card: warm run {warm_s:.2f} s, then {wall:.2f} s median "
+        f"of {len(walls)} ({', '.join(f'{w:.2f}' for w in walls)} s), "
+        f"{Q1_ROWS / wall:,.0f} rows/s; local torch "
+        f"backend (phase 19) {q1['torch_s']:.2f} s, numpy backend "
+        f"{q1['numpy_s']:.2f} s; every column byte-identical to the numpy "
+        f"backend's; per-rank shuffle_bytes {sb}; {smi}")
+    log(f"[workers q1] launches per query: expr_core "
+        f"{expect['expr_core']} (the ranks' batches), segment_reduce "
+        f"{expect['segment_reduce']} (ranks holding rows); pinned host "
+        f"memory {pinned_host_gib(torch)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy, _ = device_breakdown(torch, lambda: run(workers), wall,
+                               "workers q1: one query, 4 ranks on the card")
+    sock = Session(store=store, backend="workers", num_workers=WORKERS,
+                   worker_kind="socket", socket_launch="thread",
+                   expr_backend="torch", trace=True)
+    ops.reset_launch_counts()
+    got, sock_s = run(sock)
+    trace = sock.last_trace
+    for rank in trace.ranks():
+        split = span_split(trace, rank)
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+        total = sum(sp.dur_ms for sp in trace.find("worker", rank=rank))
+        log(f"[workers q1: rank {rank}] {total:.1f} ms in the worker span "
+            f"of the {sock_s:.2f} s traced socket query; ms by span: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in top))
+    counts = check_launches(ops, expect, "socket workers q1")
+    same_columns(got, want, "socket workers q1")
+    if rank_bytes(sock) != sb:
+        raise AssertionError(f"socket workers q1: per-rank shuffle_bytes "
+                             f"{rank_bytes(sock)}, thread workers' {sb}")
+    launches = {k: launches[k] + v for k, v in counts.items()}
+    log(f"[workers q1] socket workers launched as threads (real TCP), "
+        f"traced: {sock_s:.2f} s, every column byte-identical, per-rank "
+        f"shuffle_bytes equal to the thread workers'; {smi}")
+    log(f"[workers q1] phase: {time.perf_counter() - t_phase:.1f} s")
+    del workers, sock, got, trace
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall, "socket_s": sock_s,
+            "busy": busy / wall}
+
+
+def entry_points(sess, cust, lines, n_parts, query) -> tuple:
+    """``customers_per_supplier`` and ``topk_jaccard`` through ``sess`` as
+    one dict of columns, and each one's per-rank shuffle bytes (workers
+    sessions; [] otherwise)."""
+    import numpy as np
+
+    from repro_torch.apps.tpch import (customers_per_supplier, load_tpch,
+                                       topk_jaccard)
+    ranks = (rank_bytes if hasattr(sess.executor, "worker_stats")
+             else lambda s: [])
+    _, ln = load_tpch(sess.store, cust, lines, session=sess)
+    cps = customers_per_supplier(sess.store, ln, n_parts, session=sess)
+    cps_bytes = ranks(sess)
+    ids, scores = topk_jaccard(sess.store, ln, n_parts, query,
+                               k=TPCH_TOPK, session=sess)
+    cols = {f"cps {s}:{c}": v for s, per in cps.items()
+            for c, v in per.items()}
+    cols.update(ids=np.asarray(ids), scores=np.asarray(scores))
+    return cols, (cps_bytes, ranks(sess))
+
+
+def phase_entry_points(torch, smi: str) -> dict:
+    """Phase 21: the join and top-k entry points (``apps/tpch.py``
+    ``customers_per_supplier``, a two-key aggregation, and
+    ``topk_jaccard``, an aggregation written in place then a top-k) over
+    ``denormalized_tpch`` at bench_oo's largest size, on the local numpy
+    (the oracle) and torch backends and on WORKERS workers: numpy thread
+    workers, torch thread workers and torch socket workers launched as
+    threads. Every answer byte-identical to the oracle's; the torch
+    workers' per-rank shuffle bytes equal the numpy workers'."""
+    import numpy as np
+
+    from repro_torch.core import Session
+    from repro_torch.data.synthetic import denormalized_tpch
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    cust, lines, _n_supp, n_parts = denormalized_tpch(TPCH_CUSTOMERS,
+                                                      seed=1)
+    query = np.unique(lines["partkey"][:32])
+    want, _ = entry_points(Session(num_partitions=WORKERS,
+                                   expr_backend="numpy"),
+                           cust, lines, n_parts, query)
+    _, numpy_bytes = entry_points(
+        Session(backend="workers", num_workers=WORKERS,
+                expr_backend="numpy"), cust, lines, n_parts, query)
+    launches = {k: 0 for k in ops.launch_counts()}
+    walls = {}
+    for label, kw in (("local", {"num_partitions": WORKERS}),
+                      ("thread workers", {"backend": "workers",
+                                          "num_workers": WORKERS}),
+                      ("socket workers", {"backend": "workers",
+                                          "num_workers": WORKERS,
+                                          "worker_kind": "socket",
+                                          "socket_launch": "thread"})):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, got_bytes = entry_points(Session(expr_backend="torch", **kw),
+                                      cust, lines, n_parts, query)
+        walls[label] = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        same_columns(got, want, f"entry points on {label}")
+        if label != "local" and got_bytes != numpy_bytes:
+            raise AssertionError(
+                f"entry points on {label}: per-rank shuffle_bytes "
+                f"{got_bytes}, numpy workers' {numpy_bytes}")
+        if not counts["segment_reduce"]:  # native lambdas: no K1 core
+            raise AssertionError(f"entry points on {label}: launches "
+                                 f"{counts}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+    log(f"[entry points] {len(cust):,} customers, {len(lines):,} "
+        f"lineitems, {n_parts} parts: customers_per_supplier "
+        f"({len([c for c in want if c.startswith('cps')])} (supplier, "
+        f"customer) sets) and topk_jaccard (k={TPCH_TOPK}) byte-identical "
+        f"to the local numpy backend on "
+        + ", ".join(f"{k} ({v:.2f} s)" for k, v in walls.items())
+        + f"; per-rank shuffle_bytes equal to the numpy workers' "
+        f"{numpy_bytes}; launches {launches}; {smi}")
+    log(f"[entry points] phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "walls": walls}
+
+
+def dsl_queries(core, ds) -> dict:
+    """The lambda-DSL queries the service's clients send beside Q1 (the
+    service ships programs pickled, so native lambdas, and with them the
+    TPC-H entry points, are refused there): a group-by over the
+    denormalized lineitems and a top-k."""
+    agg = core.agg
+    by_supp = (ds.filter(lambda r: r.qty > 5)
+                 .group_by("suppkey")
+                 .agg(n=agg.count(), qty=agg.sum("qty"),
+                      hi=agg.max("price"), avg=agg.mean("price"))
+                 .collect())
+    top = ds.top_k(TPCH_TOPK, score="price", payload="orderkey").collect()
+    return {**{f"by_supp {k}": v for k, v in by_supp.items()},
+            **{f"top {k}": v for k, v in top.items()}}
+
+
+def phase_service(torch, smi: str, q1: dict) -> dict:
+    """Phase 22: the query service. A ``QueryService(launch="thread",
+    num_workers=WORKERS, expr_backend="torch")`` over phase 19's store: a
+    cold Q1 at SF 10 ships the shards (SETUP bytes), then SERVICE_CLIENTS
+    ``Session.connect`` clients submit Q1 (warm: zero SETUP bytes) and
+    the DSL queries at the same time, SERVICE_ADMITTED of them admitted
+    at once. Every answer byte-identical to the
+    numpy backend's; K1 and K2 counted on the cold query alone."""
+    import threading
+
+    import repro_torch.core as core
+    from repro_torch.apps.tpch import Lineitem, q1_pricing_summary
+    from repro_torch.core import Session
+    from repro_torch.data.synthetic import denormalized_tpch
+    from repro_torch.kernels import ops
+    from repro_torch.service import QueryService
+
+    t_phase = time.perf_counter()
+    want, store, name = q1["oracle"], q1["store"], q1["set"]
+    _cust, lines, _, _ = denormalized_tpch(TPCH_CUSTOMERS, seed=1)
+    local = Session(num_partitions=WORKERS, expr_backend="numpy")
+    want_dsl = dsl_queries(core, local.load("denorm", lines, Lineitem))
+    expect = {"expr_core": q1["batches"], "segment_reduce": q1["parts"]}
+    results, errors = {}, []
+    with QueryService(store=store, num_workers=WORKERS, launch="thread",
+                      expr_backend="torch",
+                      max_concurrent=SERVICE_ADMITTED) as svc:
+        svc.wait_ready(60)
+        first = Session.connect(svc)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = q1_pricing_summary(svc.store, name, session=first).collect()
+        cold_s = time.perf_counter() - t0
+        launches = check_launches(ops, expect, "service q1, cold")
+        same_columns(got, want, "service q1, cold")
+        cold_setup = first.executor.last_setup_bytes
+        if not cold_setup:
+            raise AssertionError("service q1, cold: no SETUP bytes shipped")
+        barrier = threading.Barrier(SERVICE_CLIENTS)
+
+        def client(k):
+            try:
+                sess = Session.connect(svc)
+                ds = sess.load(f"denorm{k}", lines, Lineitem)
+                barrier.wait(timeout=600)
+                t = time.perf_counter()
+                out = q1_pricing_summary(svc.store, name,
+                                         session=sess).collect()
+                q1_s = time.perf_counter() - t
+                setup = sess.executor.last_setup_bytes
+                dsl = dsl_queries(core, ds)
+                results[k] = (out, setup, q1_s, dsl,
+                              time.perf_counter() - t)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append((k, e))
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVICE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        warm_s = time.perf_counter() - t0
+        if errors or len(results) != SERVICE_CLIENTS:
+            raise AssertionError(f"service clients failed: {errors}")
+        for k, (out, setup, _, dsl, _) in sorted(results.items()):
+            same_columns(out, want, f"service client {k}: q1")
+            same_columns(dsl, want_dsl, f"service client {k}: DSL queries")
+            if setup:
+                raise AssertionError(f"service client {k}: the warm Q1 "
+                                     f"shipped {setup} SETUP bytes")
+        runs = svc.queries_run
+    log(f"[service] {WORKERS} resident thread workers on the card: Q1 at "
+        f"SF 10 cold {cold_s:.2f} s ({cold_setup:,} SETUP bytes); then "
+        f"{SERVICE_CLIENTS} clients at once ({SERVICE_ADMITTED} admitted at "
+        f"a time), each a warm Q1 (0 SETUP "
+        f"bytes) and the DSL queries, in {warm_s:.2f} s wall (Q1 "
+        + ", ".join(f"{r[2]:.2f}" for _, r in sorted(results.items()))
+        + f" s; a client's queries "
+        + ", ".join(f"{r[4]:.2f}" for _, r in sorted(results.items()))
+        + f" s); {runs} queries run; every answer byte-identical to the "
+        f"numpy backend's; pinned host memory {pinned_host_gib(torch)}; "
+        f"{smi}")
+    log(f"[service] phase: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cold_s": cold_s, "warm_s": warm_s}
+
+
+def phase_tools(torch, smi: str) -> dict:
+    """Phase 23: the tools at the reference's benchmark sizes on the torch
+    backend, each byte-identical to the numpy backend's: lilLinAlg's Gram
+    matrix and multiply (``benchmarks/bench_linalg.py:28``: n = 4,096 rows
+    of LINALG_DIM, blocks of 64), the block products' sums through K2; and
+    k-means (``benchmarks/bench_ml.py:20``: 20,000 points of 32 dims, k =
+    10, 3 iterations)."""
+    import numpy as np
+
+    from repro_torch.apps import KMeans, LinAlgSession
+    from repro_torch.data.synthetic import points
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    X = rng.normal(size=(LINALG_ROWS, LINALG_DIM))
+    x, _ = points(KMEANS_POINTS, KMEANS_DIM, n_clusters=KMEANS_K, seed=0)
+
+    def tools(kw):
+        la = LinAlgSession(block_size=LINALG_BLOCK, num_partitions=4, **kw)
+        la.load("X", X)
+        t0 = time.perf_counter()
+        out = la.run("G = X '* X\nM = X %*% G")
+        la_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cents = KMeans(KMEANS_K, iters=KMEANS_ITERS, **kw).fit(x)
+        km_s = time.perf_counter() - t0
+        return ({"G": la.fetch(out["G"]), "M": la.fetch(out["M"]),
+                 "centroids": cents}, la_s, km_s)
+
+    want, la_np, km_np = tools({"expr_backend": "numpy"})
+    ops.reset_launch_counts()
+    got, la_s, km_s = tools({"expr_backend": "torch"})
+    launches = ops.launch_counts()
+    same_columns(got, want, "tools")
+    if not launches["segment_reduce"]:
+        raise AssertionError(f"tools: launches {launches}")
+    err = float(np.abs(got["G"] - X.T @ X).max())
+    log(f"[tools] lilLinAlg G = X'X, M = X G (X {LINALG_ROWS}x{LINALG_DIM}, "
+        f"blocks of {LINALG_BLOCK}): torch {la_s:.2f} s, numpy "
+        f"{la_np:.2f} s; k-means ({KMEANS_POINTS:,} x {KMEANS_DIM}, k "
+        f"{KMEANS_K}, {KMEANS_ITERS} iterations): torch {km_s:.2f} s, numpy "
+        f"{km_np:.2f} s; every result byte-identical to the numpy "
+        f"backend's (G against X.T @ X: {err:.2e}); launches {launches}; "
+        f"{smi}")
+    log(f"[tools] phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -1886,7 +2304,8 @@ def main() -> int:
     runs, summaries = [], []
     models = [(ARCH, "", True), (MOE_ARCH, "moe ", False),
               (hybrid_config(), "hybrid ", False)] + [
-        (name, f"{label} ", False) for name, label in OTHER_ARCHS]
+        (other_arch(name), f"{label} ", False)
+        for name, label in OTHER_ARCHS]
     for arch, label, long_context in models:
         t0 = time.perf_counter()
         summary = {}
@@ -1913,6 +2332,18 @@ def main() -> int:
     q1 = phase_q1(torch, smi, rel)
     log(f"[timing] relational phase: {time.perf_counter() - t0:.1f} s (run "
         f"so far {time.perf_counter() - start:.1f} s)")
+    t0 = time.perf_counter()
+    relational = [q1, phase_workers_q1(torch, smi, q1),
+                  phase_entry_points(torch, smi),
+                  phase_service(torch, smi, q1), phase_tools(torch, smi)]
+    rel_launches = {name: sum(r["launches"][name] for r in relational)
+                    for name in ("expr_core", "segment_reduce")}
+    log(f"[main path] relational launches over phases 19-23 (local Q1 x"
+        f"{Q1_TIMED}, the workers' Q1 runs, the entry points, the "
+        f"service's cold Q1, the tools): {json.dumps(rel_launches)}")
+    log(f"[timing] workers, service and tools phases: "
+        f"{time.perf_counter() - t0:.1f} s (run so far "
+        f"{time.perf_counter() - start:.1f} s)")
     flash, moe, ssm = kernel["prefill"], gather["prefill"], scan["prefill"]
     decode = paged["decode"]
     line = {"kernels": [{
@@ -1951,7 +2382,7 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces,
-        "launches": q1["launches"][name] // Q1_TIMED, **q1[name]}
+        "launches": rel_launches[name], **q1[name]}
         for name, replaces in (
             ("expr_core", "src/repro/core/exprc.py:490"),
             ("segment_reduce", "src/repro/core/relops.py:562"))]}

@@ -1,8 +1,11 @@
-"""Library-style tools built on the platform (port of ``repro.apps``: so
-far the TPC-H object analytics; lilLinAlg and the ML kit are not ported
-yet)."""
+"""Library-style tools built ON the platform (port of ``repro.apps``; the
+paper's raison d'être): lilLinAlg (distributed linear algebra + DSL), the
+ML kit (k-means, GMM, LDA), and the TPC-H object analytics."""
+from repro_torch.apps.linalg import BlockMatrix, LinAlgSession
+from repro_torch.apps.ml import GMM, KMeans, LDAGibbs
 from repro_torch.apps.tpch import (customers_per_supplier, load_tpch,
                                    q1_pricing_summary, topk_jaccard)
 
-__all__ = ["customers_per_supplier", "load_tpch", "q1_pricing_summary",
+__all__ = ["BlockMatrix", "LinAlgSession", "GMM", "KMeans", "LDAGibbs",
+           "customers_per_supplier", "load_tpch", "q1_pricing_summary",
            "topk_jaccard"]

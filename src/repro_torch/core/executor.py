@@ -34,7 +34,8 @@ import numpy as np
 
 from repro_torch.core.compiler import compile_graph
 from repro_torch.core.computations import Computation
-from repro_torch.core.exprc import EXPR_BACKENDS, FusedStage, build_steps
+from repro_torch.core.exprc import (EXPR_BACKENDS, FusedStage, build_steps,
+                                    expr_device)
 from repro_torch.core.optimizer import OptimizerReport, optimize
 from repro_torch.core.physical import PhysicalPlan, plan_physical
 from repro_torch.core.relops import (AggMap, AggSpec, assemble_output,
@@ -97,10 +98,7 @@ class Executor:
             self.expr_backend = expr_backend
         # where the torch backend's kernels run: CUDA unless the caller
         # names another device, never the CPU on its own
-        self.device = None
-        if self.expr_backend == "torch":
-            from repro_torch.models.model_zoo import resolve_device
-            self.device = resolve_device(device)
+        self.device = expr_device(self.expr_backend, device)
         self.stats = ExecStats()
 
     # ------------------------------------------------------------ public

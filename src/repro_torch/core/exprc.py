@@ -52,7 +52,7 @@ from repro_torch.obs.metrics import METRICS
 from repro_torch.obs.trace import NULL, current
 from repro_torch.objectmodel.vectorlist import VectorList
 
-__all__ = ["FusedStage", "build_steps", "kernel_cache_info",
+__all__ = ["FusedStage", "build_steps", "expr_device", "kernel_cache_info",
            "reset_kernel_cache", "schedule_torch_run", "EXPR_BACKENDS"]
 
 EXPR_BACKENDS = ("interp", "numpy", "torch")
@@ -69,6 +69,18 @@ def _fusable(op: TCAPOp) -> bool:
         return (not op.new_cols
                 or op.info.get("type") in _FUSABLE_TYPES)
     return False
+
+
+def expr_device(backend: str, device=None) -> Optional[torch.device]:
+    """Where ``backend`` runs its kernels: for ``"torch"`` ``device`` with
+    its index, the CUDA card unless the caller names another device (with
+    no card it raises, never falling back to the CPU); None for the host
+    backends."""
+    if backend != "torch":
+        return None
+    from repro_torch.kernels.transfer import card
+    from repro_torch.models.model_zoo import resolve_device
+    return card(resolve_device(device))
 
 
 def build_steps(prog: TCAPProgram, backend: str, device=None):
@@ -545,9 +557,11 @@ def _run_core(program, arrays: List[np.ndarray], const: List[bool],
     elements. On a card the inputs (a constant as one value) are packed
     into the device's pinned "k1 in" staging buffer, the kernel reads them
     and writes its outputs into the pinned "k1 out" buffer through the
-    card's mapping, and the host waits for it and copies the outputs out:
-    one pack, one launch, one wait. One buffer pair serves every batch
-    because the host waits for a batch's outputs before it packs the next.
+    card's mapping, and the host waits for it (on the calling thread's
+    current stream, not the whole device, which other ranks may share) and
+    copies the outputs out: one pack, one launch, one wait. The process's
+    one buffer pair serves every batch of every thread: a thread holds
+    both buffers' locks from the pack to the copy out.
     Under a recorder ``rec`` the pack, the launch with its wait and the
     copy out are spans."""
     arrays = [np.asarray(a) for a in arrays]
@@ -564,14 +578,17 @@ def _run_core(program, arrays: List[np.ndarray], const: List[bool],
                 ops.expr_core(program, to_device(cols, device), n),
                 program.out_dtypes)]
     else:
-        with rec.span("stage:pinned_in", cat="stage"):
-            inputs, _ = staging(device, "k1 in").pack([[c] for c in cols])
-        with rec.span("stage:k1", cat="stage"):
-            out_stage = staging(device, "k1 out")
-            views = out_stage.views([(n, dt) for dt in program.out_dtypes])
-            ops.expr_core(program, inputs, n, outs=views, device=device)
-            torch.cuda.synchronize(device)
-        with rec.span("stage:pinned_out", cat="stage"):
-            outs = [v.numpy().view(dt).copy()
-                    for v, dt in zip(views, program.out_dtypes)]
+        in_stage = staging(device, "k1 in")
+        out_stage = staging(device, "k1 out")
+        with in_stage.lock, out_stage.lock:
+            with rec.span("stage:pinned_in", cat="stage"):
+                inputs, _ = in_stage.pack([[c] for c in cols])
+            with rec.span("stage:k1", cat="stage"):
+                views = out_stage.views([(n, dt)
+                                         for dt in program.out_dtypes])
+                ops.expr_core(program, inputs, n, outs=views, device=device)
+                torch.cuda.current_stream(device).synchronize()
+            with rec.span("stage:pinned_out", cat="stage"):
+                outs = [v.numpy().view(dt).copy()
+                        for v, dt in zip(views, program.out_dtypes)]
     return [o.reshape((n0,) + trail) for o in outs]

@@ -586,8 +586,8 @@ def device_segment_reducer(combiners: Tuple[str, ...], device) -> Callable:
     dtypes fixed before any launch.
 
     Under a recorder, the pack and copy in, the kernel and the copy out
-    are spans of their own ("agg" category), each ended by a device
-    synchronize."""
+    are spans of their own ("agg" category), each ended by a wait on the
+    calling thread's current stream."""
 
     def reducer(inv: np.ndarray, n: int, vals: Sequence):
         # a column is an array, or the list of its parts
@@ -619,10 +619,11 @@ def device_segment_reducer(combiners: Tuple[str, ...], device) -> Callable:
 
 
 def _sync(rec, t: torch.Tensor) -> None:
-    """End a traced span's device work: wait for t's device when a
-    recorder is on and t lies on a card (nothing otherwise)."""
+    """End a traced span's device work: wait for the calling thread's
+    current stream on t's card when a recorder is on (nothing otherwise),
+    not for the whole device, which other threads' ranks may share."""
     if rec.enabled and t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+        torch.cuda.current_stream(t.device).synchronize()
 
 
 # ------------------------------------------------------------------ top-k

@@ -21,9 +21,12 @@ A Session owns:
   reused by a different function.
 
 Backends: ``backend="local"`` (default) simulates P partitions in-process
-(:class:`~repro_torch.core.executor.Executor`). The reference's
-``"workers"`` and ``"service"`` backends are not ported yet (ROADMAP.md
-queue 1 item 7) and raise NotImplementedError. Expression backends:
+(:class:`~repro_torch.core.executor.Executor`); ``backend="workers"`` runs
+the real driver + N worker runtime (:class:`~repro_torch.dist.driver
+.DistributedExecutor`) with page-serialized exchanges — same kernels,
+identical results, real ``shuffle_bytes``; ``backend="service"`` submits
+to a resident :class:`~repro_torch.service.service.QueryService` pool.
+Expression backends:
 ``expr_backend="torch"`` (default) runs every fused stage's numeric core
 and every partition's pre-aggregation through the hand-written kernels
 on ``device`` (CUDA unless the caller names another device; with no
@@ -32,8 +35,8 @@ card it raises rather than fall back to the CPU); ``"numpy"`` and
 
 Usage::
 
-    sess = Session(num_partitions=4)            # or expr_backend="numpy"
-    emps = sess.load("employees", records,
+    sess = Session(num_partitions=4)            # or backend="workers",
+    emps = sess.load("employees", records,      #    num_workers=4
                      type_name="Employee")
     payroll = (emps.filter(lambda e: e.salary > 60_000)
                    .group_by("dept")
@@ -158,20 +161,31 @@ class Session:
         check_session_config(self._build_config)
         # the session drives optimization itself (through the plan cache),
         # so its executor always runs programs as given.
-        if backend in ("workers", "service"):
-            raise NotImplementedError(
-                f"backend={backend!r}: the port's worker runtime and query "
-                f"service are not ported yet (ROADMAP.md queue 1 item 7); "
-                f"use backend='local'")
         # expr_backend="torch" runs its kernels on `device`: CUDA unless
-        # the caller names another device (models.resolve_device)
-        self.executor = executor_cls(
-            self.store,
-            num_partitions=4 if num_partitions is None
-            else num_partitions,
-            vector_rows=vector_rows, do_optimize=False,
-            broadcast_threshold_bytes=broadcast_threshold_bytes,
-            write_outputs=False, expr_backend=expr_backend, device=device)
+        # the caller names another device (models.resolve_device); the
+        # workers hand it to every rank, the service's pool has its own
+        if backend == "service":
+            from repro_torch.service.service import ServiceExecutor
+            self.executor = ServiceExecutor(service)
+        elif backend == "workers":
+            from repro_torch.dist.driver import DistributedExecutor
+            self.executor = DistributedExecutor(
+                self.store,
+                num_workers=num_workers or num_partitions or 4,
+                vector_rows=vector_rows, do_optimize=False,
+                broadcast_threshold_bytes=broadcast_threshold_bytes,
+                write_outputs=False, worker_kind=worker_kind or "thread",
+                expr_backend=expr_backend, socket_launch=socket_launch,
+                socket_addr=socket_addr, device=device)
+        else:
+            self.executor = executor_cls(
+                self.store,
+                num_partitions=4 if num_partitions is None
+                else num_partitions,
+                vector_rows=vector_rows, do_optimize=False,
+                broadcast_threshold_bytes=broadcast_threshold_bytes,
+                write_outputs=False, expr_backend=expr_backend,
+                device=device)
         self.plan_cache_size = plan_cache_size
         self._plan_cache: "OrderedDict[Tuple, _CacheEntry]" = OrderedDict()
         self.cache_hits = 0

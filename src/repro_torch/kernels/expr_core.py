@@ -85,10 +85,14 @@ class ExprProgram:
         self._on_device: Dict[torch.device, torch.Tensor] = {}
 
     def device_words(self, device: torch.device) -> torch.Tensor:
-        """The program on ``device``, copied there once."""
+        """The program on ``device``, copied there once. The copy is waited
+        for before the words are shared: threads on other streams (the
+        worker runtime's ranks) launch the same program."""
         words = self._on_device.get(device)
         if words is None:
             words = torch.from_numpy(self.words).to(device)
+            if words.is_cuda:
+                torch.cuda.current_stream(device).synchronize()
             self._on_device[device] = words
         return words
 
@@ -203,7 +207,7 @@ def expr_core(program: ExprProgram, inputs: Sequence[torch.Tensor], n: int,
                 words.numel(), program.n_regs, n, len(inputs), len(outs),
                 *(x.data_ptr() for x in inputs), *steps,
                 *(o.data_ptr() for o in outs))
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return list(outs)
 
 

@@ -155,5 +155,5 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return out

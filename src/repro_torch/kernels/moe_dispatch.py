@@ -107,5 +107,5 @@ def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
     nvcc.launch(build(), "moe_gather", x.get_device(), x.data_ptr(),
                 token_ids.data_ptr(), keep.data_ptr(), out.data_ptr(), S, T,
                 d, x.stride(0), x.element_size())
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return out

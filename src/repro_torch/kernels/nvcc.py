@@ -17,15 +17,15 @@ must), the raw handle of the device's current stream.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import struct
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import Iterable, List
+from typing import Dict, Iterable, List
 
 import torch
 
@@ -38,9 +38,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class LaunchCounter:
-    """Launches of one kernel: its wrapper adds one per launch, nothing
-    else adds to it."""
-    count = 0
+    """Launches of one kernel: its wrapper adds one per launch (``add``),
+    nothing else adds to it. Counted under a lock, so threads launching at
+    once (the worker runtime's ranks sharing a card) lose no count;
+    ``count = 0`` resets it."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._count = 0
+
+    def add(self, k: int = 1) -> None:
+        with self._lock:
+            self._count += k
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        with self._lock:
+            self._count = value
 
 
 def nvcc_path() -> str:
@@ -107,11 +125,23 @@ def compile_all(sources: Iterable[Path]) -> List[Path]:
     return libs
 
 
-@functools.lru_cache(maxsize=None)
+_LOADED: Dict[Path, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+
+
 def load(source: Path) -> ctypes.CDLL:
-    """The library built from ``source`` (compiled first if missing)."""
-    lib, = compile_all([source])
-    return ctypes.CDLL(str(lib))
+    """The library built from ``source`` (compiled first if missing), loaded
+    once per process. Under a lock: threads reaching a kernel at once (the
+    worker runtime's ranks) start one build of it, not one each, and the
+    others wait for it. Across processes the build stays safe because
+    ``compile_all`` writes each library under a temporary name and renames
+    it into place."""
+    with _LOAD_LOCK:
+        lib = _LOADED.get(source)
+        if lib is None:
+            path, = compile_all([source])
+            lib = _LOADED[source] = ctypes.CDLL(str(path))
+        return lib
 
 
 def launch(fn: ctypes._CFuncPtr, name: str, index: int, *args: int) -> None:

@@ -199,5 +199,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return out

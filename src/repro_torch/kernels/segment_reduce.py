@@ -278,7 +278,7 @@ def segment_reduce(inv: torch.Tensor, n: int, vals: Sequence[torch.Tensor],
                 max(1, min(ring_cap, RING_BLOCKS)),
                 nan64 - (1 << 64) if nan64 >> 63 else nan64, len(live),
                 *cols)
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return outs
 
 

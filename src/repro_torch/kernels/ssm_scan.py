@@ -151,7 +151,7 @@ def _padded(shape: Tuple[int, int, int], like: torch.Tensor) -> torch.Tensor:
 def _tma_input(t: torch.Tensor) -> torch.Tensor:
     if tma_ready(t):
         return t
-    COPIES.count += 1
+    COPIES.add()
     return _padded(t.shape, t).copy_(t)
 
 
@@ -182,5 +182,5 @@ def _scan(dt, A, B, C, x, lanes: Optional[int]) -> torch.Tensor:
                 x.data_ptr(), y.data_ptr(), Bt, L, di, A.shape[1],
                 *dt.stride()[:2], *x.stride()[:2], A.stride(0),
                 *B.stride()[:2], *C.stride()[:2], *y.stride()[:2], *p)
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return y

@@ -7,20 +7,24 @@ kind and width, or, for unsigned integers of 16-64 bits (which torch
 barely computes on), in the signed type of the width.
 
 On a card the columns travel through pinned (page-locked) host memory
-that is reused: one ``Staging`` buffer per (device, use) and thread (so
-that two threads never fill one buffer), grown to the largest request and
-never shrunk. ``Staging.pack`` copies columns, each
-given as the parts (a partition's batches) whose concatenation it is,
-straight into the buffer, 16-byte aligned, and hands out tensor views of
-it. The card reads such a view through its device-mapped address (K1), or
-``to_device_pinned`` moves the whole buffer in one asynchronous copy
-(K2). A buffer is refilled only after the last copy or launch that read
-it has ended (its recorded event).
+that is reused: one ``Staging`` buffer per (device, use) in the process,
+grown to the largest request and never shrunk, shared by the threads
+that use it (the worker runtime's ranks, the service's queries): a
+thread holds the buffer's ``lock`` from filling it until the card's last
+read of it is done (K1) or queued behind a recorded event (K2), so the
+pinned memory a process holds does not grow with its threads.
+``Staging.pack`` copies columns, each given as the parts (a partition's
+batches) whose concatenation it is, straight into the buffer, 16-byte
+aligned, and hands out tensor views of it. The card reads such a view
+through its device-mapped address (K1), or ``to_device_pinned`` moves the
+whole buffer in one asynchronous copy (K2). A buffer is refilled only
+after the last copy or launch that read it has ended (its recorded
+event).
 """
 from __future__ import annotations
 
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +122,7 @@ class Staging:
         self.pinned = pinned  # False: pageable, for tests without a card
         self.buf: Optional[torch.Tensor] = None  # uint8
         self.event: Optional[torch.cuda.Event] = None
+        self.lock = threading.Lock()  # held by the thread using the buffer
 
     def reserve(self, nbytes: int) -> torch.Tensor:
         if self.event is not None:
@@ -162,17 +167,29 @@ class Staging:
                 for (count, dt), o in zip(specs, offs)]
 
 
+_BUFFERS: Dict[Tuple[torch.device, str], Staging] = {}
+_BUFFERS_LOCK = threading.Lock()
 _THREAD = threading.local()
 
 
 def staging(device: torch.device, use: str) -> Staging:
-    """This thread's staging buffer of ``use`` for ``device``, made at
-    first use."""
-    buffers = _THREAD.__dict__.setdefault("buffers", {})
-    key = (card(device), use)
-    buf = buffers.get(key)
-    if buf is None:
-        buf = buffers[key] = Staging()
+    """The process's staging buffer of ``use`` for ``device``, made at
+    first use; its user holds its ``lock`` (see the module's note). A
+    thread's first call for a card also binds the card's context to the
+    thread (a stream wait does): a new thread (a worker rank) finds the
+    buffers made, and may make no other CUDA call before a kernel's C
+    entry asks ``cudaPointerGetAttributes`` about a pinned pointer, which
+    refuses it (error 16) unless the context is current."""
+    dev = card(device)
+    if dev.type == "cuda":
+        bound = _THREAD.__dict__.setdefault("devices", set())
+        if dev not in bound:
+            torch.cuda.current_stream(dev).synchronize()
+            bound.add(dev)
+    with _BUFFERS_LOCK:
+        buf = _BUFFERS.get((dev, use))
+        if buf is None:
+            buf = _BUFFERS[(dev, use)] = Staging()
     return buf
 
 
@@ -184,10 +201,11 @@ def to_device_pinned(columns: Sequence[Sequence[np.ndarray]],
     asynchronous copy on the current stream into one device buffer whose
     views are returned."""
     stage = staging(device, use)
-    views, total = stage.pack(columns)
-    dev = torch.empty(total, dtype=torch.uint8, device=device)
-    dev.copy_(stage.buf[:total], non_blocking=True)
-    stage.record(device)
-    base = stage.buf.data_ptr()
+    with stage.lock:
+        views, total = stage.pack(columns)
+        dev = torch.empty(total, dtype=torch.uint8, device=device)
+        dev.copy_(stage.buf[:total], non_blocking=True)
+        stage.record(device)
+        base = stage.buf.data_ptr()
     return [dev[v.data_ptr() - base:v.data_ptr() - base + v.nbytes]
             .view(v.dtype) for v in views]

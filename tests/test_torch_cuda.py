@@ -786,3 +786,161 @@ def test_q1_on_the_card_is_byte_identical_to_the_numpy_backend(torch):
     assert counts["segment_reduce"] == 4 and counts["expr_core"] > 0
     for col in results[0]:
         assert results[0][col].tobytes() == results[1][col].tobytes(), col
+
+
+# ----------------------------------------- four ranks sharing one card
+def test_q1_over_four_thread_workers_on_the_card(torch):
+    """Q1 over 4 thread workers sharing the card and over socket workers
+    launched as threads: the local numpy backend's bytes; K1 once a batch
+    that reaches its core and K2 once a rank with rows."""
+    from repro_torch.apps.tpch import LineitemQ1, q1_pricing_summary
+    from repro_torch.core import Session
+    from repro_torch.data.synthetic import tpch_q1_lineitems
+    from repro_torch.kernels import ops
+    lines = tpch_q1_lineitems(200_000, seed=6)
+
+    def q1(**kw):
+        sess = Session(**kw)
+        ds = sess.load("lineitem", lines, LineitemQ1)
+        return q1_pricing_summary(sess.store, ds.set_name,
+                                  session=sess).collect()
+
+    want = q1(num_partitions=4, expr_backend="numpy")
+    for kw in ({"worker_kind": "thread"},
+               {"worker_kind": "socket", "socket_launch": "thread"}):
+        ops.reset_launch_counts()
+        got = q1(backend="workers", num_workers=4, **kw)
+        counts = ops.launch_counts()
+        for col in want:
+            assert want[col].tobytes() == got[col].tobytes(), (kw, col)
+        assert counts["segment_reduce"] == 4
+        assert counts["expr_core"] >= 4 * -(-200_000 // 4 // 8192)
+
+
+def test_k1_and_k2_from_four_threads_at_once(torch):
+    """Four threads, each on its own stream, calling K1 (through the
+    pinned staging as the engine does) and K2 over and over at once:
+    every result bit-equal to the kernel's plain version, and the launch
+    counts add up to every launch."""
+    import threading
+
+    from repro_torch.core.exprc import _run_core
+    from repro_torch.kernels import expr_core as ec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels.transfer import to_device, to_device_pinned
+    dev = torch.device("cuda", 0)
+    dts = {0: np.dtype(np.float64), 1: np.dtype(np.int64),
+           2: np.dtype(np.float64), 3: np.dtype(bool)}
+    prog = ec.encode([("*", 2, (0, 1)), (">", 3, (2, 0))], dts, [0, 1],
+                     [2, 3])
+    rounds, errors = 12, []
+    ops.reset_launch_counts()
+    barrier = threading.Barrier(4)
+
+    def rank(k):
+        try:
+            rng = np.random.default_rng(k)
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                barrier.wait(timeout=60)
+                for r in range(rounds):
+                    n = 8192 - 97 * r
+                    a = rng.standard_normal(n)
+                    b = rng.integers(-9, 9, n)
+                    got = _run_core(prog, [a, b], [False, False], n, dev)
+                    plain = ec.expr_core_ref(
+                        prog, to_device([a, b], torch.device("cpu")), n)
+                    for g, p, dt in zip(got, plain, prog.out_dtypes):
+                        assert g.tobytes() == p.numpy().view(dt).tobytes()
+                    inv = rng.integers(0, 50, 100_000)
+                    v = rng.standard_normal(100_000)
+                    flat = to_device_pinned([[inv], [v]], dev, "agg")
+                    acc, = ops.segment_reduce(flat[0], 50, [flat[1]],
+                                              [v.dtype], ["sum"])
+                    want, = sr.segment_reduce_ref(
+                        torch.from_numpy(inv), 50, [torch.from_numpy(v)],
+                        [v.dtype], ["sum"])
+                    assert acc.cpu().numpy().tobytes() \
+                        == want.numpy().tobytes()
+        except BaseException as e:  # noqa: BLE001 - surfaced below
+            errors.append((k, e))
+
+    threads = [threading.Thread(target=rank, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert ops.launch_counts()["expr_core"] == 4 * rounds
+    assert ops.launch_counts()["segment_reduce"] == 4 * rounds
+
+
+def test_launch_counter_totals_after_concurrent_launches(torch):
+    """Eight threads launching K2 at once on their own streams: the count
+    is every launch, none lost."""
+    import threading
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+    dev = torch.device("cuda", 0)
+    inv = torch.randint(0, 7, (4096,), device=dev)
+    v = torch.randn(4096, device=dev, dtype=torch.float64)
+    before = sr.LAUNCHES.count
+    per, errors = 200, []
+
+    def launch():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for _ in range(per):
+                    ops.segment_reduce(inv, 7, [v], [np.dtype(np.float64)],
+                                       ["max"])
+                torch.cuda.current_stream(dev).synchronize()
+        except BaseException as e:  # noqa: BLE001 - surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    torch.cuda.synchronize()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert sr.LAUNCHES.count == before + 8 * per
+
+
+def test_expr_core_from_new_threads_reading_cached_pinned_blocks(torch):
+    """Threads that start after torch's host allocator has cached pinned
+    blocks (the worker runtime's ranks, a new thread each query) get their
+    staging from the cache, with no CUDA call of their own before K1's C
+    entry checks the pinned pointers: each still launches, bit-equal to
+    the plain version."""
+    import threading
+
+    from repro_torch.core.exprc import _run_core
+    from repro_torch.kernels import expr_core as ec
+    from repro_torch.kernels.transfer import to_device
+    dev = torch.device("cuda", 0)
+    dts = {0: np.dtype(np.float64), 1: np.dtype(np.int64),
+           2: np.dtype(np.float64)}
+    prog = ec.encode([("*", 2, (0, 1))], dts, [0, 1], [2])
+    rng = np.random.default_rng(9)
+    a, b = rng.standard_normal(8192), rng.integers(-9, 9, 8192)
+    want = ec.expr_core_ref(prog, to_device([a, b], torch.device("cpu")),
+                            8192)[0].numpy().view(np.float64)
+    for _ in range(3):  # each round's threads end; their blocks are cached
+        errors, outs = [], []
+
+        def rank():
+            try:
+                outs.append(_run_core(prog, [a, b], [False, False], 8192,
+                                      dev)[0])
+            except BaseException as e:  # noqa: BLE001 - surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=rank) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errors, errors
+        assert all(o.tobytes() == want.tobytes() for o in outs)

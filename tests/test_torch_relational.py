@@ -109,16 +109,26 @@ def test_torch_session_without_a_device_raises_when_there_is_no_card(torch):
 
 
 def test_unported_backends_and_fork_rules_refuse():
+    """The reference's ``jax`` expression backend is not the port's (the
+    port's device backend is ``torch``), and the fork rules name torch and
+    CUDA; the workers and service backends are ported
+    (``tests/test_torch_{dist,service}.py``)."""
     from repro_torch.analysis.capability import worker_config_violation
     from repro_torch.core import Session
-    service = types.SimpleNamespace(store=None, expr_backend="numpy")
-    for backend in ("workers", "service"):
-        kw = {"num_workers": 2} if backend == "workers" else {
-            "service": service}
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            Session(backend=backend, **kw)
+    from repro_torch.dist.driver import DistributedExecutor
+    from repro_torch.service.service import ServiceExecutor
+    with pytest.raises(ValueError, match="unknown expr_backend"):
+        Session(expr_backend="jax")
     for kind, launch in (("fork", None), ("socket", "fork")):
         msg = worker_config_violation(2, "torch", kind, launch, None)
         assert "expr_backend='torch'" in msg and "CUDA" in msg
     assert worker_config_violation(2, "jax", "fork", None, None) \
         .startswith("unknown expr_backend")
+    service = types.SimpleNamespace(
+        store=None, expr_backend="numpy", device=None, P=2,
+        vector_rows=8192, broadcast_threshold=2 << 30, launch="thread")
+    assert isinstance(Session(backend="service", service=service).executor,
+                      ServiceExecutor)
+    assert isinstance(Session(backend="workers", num_workers=2,
+                              expr_backend="numpy").executor,
+                      DistributedExecutor)
