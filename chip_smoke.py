@@ -26,7 +26,13 @@ final line:
    prefill shape and a ragged shape; no PyTorch call computes a selective
    scan, so no yardstick; the inputs copied for TMA; the scan kernels'
    SASS instruction and MUFU.EX2 counts; a spill in the scan or the
-   gather fails the run) and paged_attention (the decode shapes of
+   gather, forward or backward, fails the run), moe_gather's backward bit
+   for bit (the training step's dispatch, float32 and bf16; the same bits
+   twice; ``index_add_`` as yardstick) and ssm_scan's backward within 1e-4
+   of each output's largest value against the plain version's autograd
+   (jamba's full Mamba shape and the reduced training shape, B and C
+   strided; the same bits twice; no yardstick) and paged_attention (the
+   decode shapes of
    qwen2.5-32b, jamba, qwen2-moe and internvl2-26b (48/8), head dims 96,
    192 and 256 at the heads of phi3-mini, nemotron-4-340b and gemma-7b
    (gemma's also as the last layer's view of a 28-layer pool), a ragged
@@ -87,6 +93,22 @@ final line:
    the recurrent state against prefill, held in float32; no paged pool). Then one summary line per model: prefill tokens/s, the dense
    decode step's ms and busy share, serving tokens/s, peak memory, beside
    the card's name and power limit.
+18a. training at full width: ``train_loop`` on qwen2-moe-a2.7b cut to 4
+   of its 24 layers (~2.90 B parameters; float32 weights and AdamW
+   moments, 16 bytes a parameter), B=4 x 1,025 tokens, 5 steps on one
+   repeated batch at lr 3e-5: per step its ms, tokens/s, loss and
+   gradient norm; the loss must fall and stay finite; moe_gather and its
+   backward once per layer a step, flash and paged attention never;
+   the peak memory (under 75 GiB); one more step alone, then under the
+   profiler: the device's busy share and its top kernels;
+18b. training at ``reduced_config`` on the card for qwen2-moe, jamba
+   (ssm_scan and its backward) and xlstm-125m (no kernel), 8 steps each,
+   against the same port run on the CPU from the same weights and
+   batches (losses within 1e-3 relative, step for step); then jamba with
+   a checkpoint every 4 steps and a failure injected before step 6: the
+   supervisor restores step 4 on the card and replays, the replayed
+   losses equal to the first pass's. Checkpointing at full width (~43 GiB
+   a save) is left out for time.
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -140,8 +162,8 @@ final line:
 
 Launch counts are set to 0 just before each main-path run of phases 3-23
 (prefill, paged decode, paged serving, the long-context step, serving,
-the timed Q1 runs, the workers', the entry points', the service's cold
-Q1, the tools') and read just after it. The last two lines are a JSON object with one
+the training runs, the timed Q1 runs, the workers', the entry points',
+the service's cold Q1, the tools') and read just after it. The last two lines are a JSON object with one
 entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -225,6 +247,46 @@ SCAN_CASES = [  # (name, Bt, L, di, N)
     ("ragged", 2, 1001, 3000, 16),
 ]
 SCAN_TOL = 1e-5  # as tests/test_kernels.py holds the Pallas scan
+# The training phase: qwen2-moe-a2.7b at every published width, cut to
+# TRAIN_LAYERS of its 24 layers: float32 weights and AdamW moments are 16
+# bytes a parameter, ~2.90 B parameters (43.3 GiB) at 4 layers beside
+# ~10 GiB of activations, where all 24 (14.3 B) would need ~213 GiB; B x
+# (S + 1) = TRAIN_BATCH x (TRAIN_SEQ + 1) tokens, TRAIN_STEPS steps on one
+# repeated batch. The reference's peak learning rate (3e-4) overshoots at
+# this width when 5 steps leave its warmup one step (max(1, 5 // 20)):
+# ``python -m repro_torch.launch.train --arch qwen2_moe --layers 4 --steps
+# 5 --batch 4 --seq 1024 --records 4`` gave losses 12.41, 12.41, 16.02,
+# 13.02, 12.93 on an H100 80GB HBM3 at 700 W; at TRAIN_LR the loss falls
+# every step after the first.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 1024, 5
+TRAIN_LR = 3e-5
+TRAIN_PEAK_GIB = 75
+TRAIN_TOKENS = TRAIN_BATCH * (TRAIN_SEQ + 1)
+# reduced_config training on the card against the same port run on the
+# CPU (same weights and batches): losses within TRAIN_LOSS_TOL relative,
+# step for step; then RESTART_ARCH with a checkpoint every RESTART_EVERY
+# steps and a failure injected before step RESTART_FAIL_AT
+REDUCED_TRAIN = ["qwen2_moe", "jamba15_large", "xlstm_125m"]
+REDUCED_STEPS, REDUCED_BATCH, REDUCED_SEQ = 8, 4, 64
+TRAIN_LOSS_TOL = 1e-3
+RESTART_ARCH = "jamba15_large"
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 4, 6
+# moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
+# tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
+GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
+    ("train", TRAIN_TOKENS, 2048, 60 * 344, 4 * TRAIN_TOKENS, "float32"),
+    ("train_bf16", TRAIN_TOKENS, 2048, 60 * 344, 4 * TRAIN_TOKENS,
+     "bfloat16"),
+]
+# ssm_scan's backward at jamba's full Mamba shape and at the reduced
+# training run's (B=4 rows of 65 steps, di 128, N 8)
+SCAN_BWD_CASES = [  # (name, Bt, L, di, N)
+    ("jamba", 1, PREFILL_SEQ, 16384, 16),
+    ("reduced", REDUCED_BATCH, REDUCED_SEQ + 1, 128, 8),
+]
+# float32; the kernel decays by ex2 and sums in another order than the
+# plain loop's autograd: max |err| per output within 1e-4 of its largest
+SCAN_BWD_TOL = 1e-4
 # paged_attention at the decode shapes: qwen2.5-32b (40/8 heads, 4,096
 # tokens of 64-token pages), jamba (64/8 heads, 128-token pages) and
 # qwen2-moe (16/16), lengths drawn in [1, max_pages * page], tables a
@@ -259,8 +321,10 @@ PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes,
 ]
 POOL_LAYERS = {"gemma_pool": 28}
 PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
-# the relational kernels launch nowhere on a model's path
+# the relational kernels launch nowhere on a model's path, the backward
+# kernels nowhere but in training
 NO_RELATIONAL = {"expr_core": 0, "segment_reduce": 0}
+NO_BACKWARD = {"moe_gather_bwd": 0, "ssm_scan_bwd": 0}
 # phase 19, the relational engine: TPC-H Q1 at scale factor 10 (the spec's
 # lineitem rows) over the executor's 4 partitions; K1's op x dtype matrix
 # at the executor's batch of 8,192 rows; K2's cases (name, rows, groups)
@@ -566,7 +630,8 @@ def phase_kernel(torch) -> dict:
     log(f"[kernel] SASS of {flash_lib.name}: {json.dumps(sass)}")
     if not (sass["HGMMA"] and sass["UTMALDG"]):
         raise AssertionError("the flash kernel issues no wgmma or TMA load")
-    for m, kernel in ((ss, "ssm_scan_kernel"), (mg, "moe_gather_rows")):
+    for m, kernel in ((ss, "ssm_scan_kernel"), (mg, "moe_gather_rows"),
+                      (ss, "ssm_scan_bwd"), (mg, "moe_gather_bwd_rows")):
         lib = libs[modules.index(m)]
         spills = [(fn, spill) for fn, _, spill, _ in ptxas_report(
             lib.with_suffix(".log")) if fn.startswith(kernel) and spill]
@@ -750,6 +815,141 @@ def phase_scan(torch) -> dict:
     return results
 
 
+def phase_gather_bwd(torch) -> dict:
+    """moe_gather's forward and backward against their plain versions, bit
+    for bit, at the training dispatch shape in float32 and bf16, the
+    backward twice for the same bits; ``index_add_`` over the kept rows
+    as yardstick."""
+    import numpy as np
+
+    from repro_torch.kernels import moe_dispatch as mg
+    from repro_torch.kernels.ref import moe_gather_bwd_ref, moe_gather_ref
+    from repro_torch.launch.bounds import gather_bwd_bound_ms
+
+    rng = np.random.default_rng(SEED)
+    results = {}
+    for name, T, d, S, n_kept, dtype in GATHER_BWD_CASES:
+        slots = rng.choice(S, n_kept, replace=False)
+        ids_np = np.full(S, -1, np.int32)
+        ids_np[slots] = rng.permutation(np.resize(np.arange(T), n_kept))
+        ids = torch.from_numpy(ids_np).to(DEVICE)
+        keep = ids >= 0
+        g = torch.from_numpy(rng.standard_normal(
+            (S, d), dtype=np.float32)).to(DEVICE, getattr(torch, dtype))
+        x = g[:T]  # the forward at the same dispatch
+        view = torch.int16 if g.element_size() == 2 else torch.int32
+        if not torch.equal(mg.moe_gather(x, ids, keep).view(view),
+                           moe_gather_ref(x, ids, keep).view(view)):
+            raise AssertionError(f"moe_gather at the training case {name}: "
+                                 f"not bit-equal to the plain version")
+        out = mg.moe_gather_bwd(g, ids, keep, T)
+        again = mg.moe_gather_bwd(g, ids, keep, T)
+        torch.cuda.synchronize()
+        want = moe_gather_bwd_ref(g, ids, keep, T)
+        if not torch.equal(out.view(view), want.view(view)):
+            raise AssertionError(f"moe_gather_bwd case {name}: not "
+                                 f"bit-equal to the plain version")
+        if not torch.equal(out.view(view), again.view(view)):
+            raise AssertionError(f"moe_gather_bwd case {name}: two runs "
+                                 f"differ")
+        err = float((out.float() - want.float()).abs().max())
+        ms = cuda_ms(torch, lambda: mg.moe_gather_bwd(g, ids, keep, T), 50)
+        dev_ms = device_ms(torch, lambda: mg.moe_gather_bwd(g, ids, keep, T),
+                           50, "moe_gather_bwd")
+        plain_ms = cuda_ms(torch, lambda: moe_gather_bwd_ref(g, ids, keep, T),
+                           5, warmup=1)
+        rows, g_kept = ids[keep].long(), g[keep]
+        acc = torch.zeros((T, d), dtype=g.dtype, device=DEVICE)
+        lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, rows, g_kept), 50)
+        bound, bound_by = gather_bwd_bound_ms(n_kept, T, d, S,
+                                              g.element_size())
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound,
+                             bound_by=bound_by)
+        log(f"[gather_bwd] {name}: T={T} d={d} S={S} kept {n_kept} {dtype}: "
+            f"the forward bit-equal; the backward bit-equal, the same bits "
+            f"twice, max|err| {err:.3g}; wrapper "
+            f"{ms:.4f} ms by events (the kernel {dev_ms:.4f} ms on the "
+            f"device; the rest builds the inverse map, a stable sort), "
+            f"plain {plain_ms:.4f} ms, index_add_ (library_ms) "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} (roofline "
+            f"share {bound / ms:.1%}; the kernel alone {bound / dev_ms:.1%})")
+        del g, x, ids, keep, out, again, want, rows, g_kept, acc
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_scan_bwd(torch) -> dict:
+    """ssm_scan's backward against the plain version's autograd (the
+    sequential loop, differentiated by torch) at jamba's full Mamba shape
+    and at the reduced training shape, within SCAN_BWD_TOL of each
+    output's largest value, twice for the same bits; the forward at the
+    same inputs within SCAN_TOL."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ref import ssm_scan_bwd_ref, ssm_scan_ref
+    from repro_torch.launch.bounds import scan_bwd_bound_ms
+
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    results = {}
+    for name, Bt, L, di, N in SCAN_BWD_CASES:
+        def mk(*shape):
+            return torch.randn(shape, device=DEVICE, generator=gen)
+
+        dt = F.softplus(mk(Bt, L, di)) * 0.1
+        A = -torch.exp(mk(di, N) * 0.3)
+        proj = mk(Bt, L, 2 * N + 8)  # B, C strided, as mamba_apply's
+        B, C = proj[..., 8:8 + N], proj[..., 8 + N:]
+        x, g = mk(Bt, L, di), mk(Bt, L, di)
+        out = ss.ssm_scan_bwd(dt, A, B, C, x, g)
+        again = ss.ssm_scan_bwd(dt, A, B, C, x, g)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"ssm_scan_bwd case {name}: two runs "
+                                 f"differ")
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (dt, A, B, C, x)]
+        y_ref = ssm_scan_ref(*leaves)
+        want = torch.autograd.grad(y_ref, leaves, g)
+        y_ref = y_ref.detach()
+        y = ss.ssm_scan(dt, A, B, C, x)
+        if bool(((y - y_ref).abs() > SCAN_TOL + SCAN_TOL * y_ref.abs())
+                .any()):
+            raise AssertionError(f"ssm_scan at the case {name}: outside "
+                                 f"atol=rtol={SCAN_TOL}")
+        del leaves, y, y_ref
+        errs, rels = {}, {}
+        for gname, got, w in zip(("ddt", "dA", "dB", "dC", "dx"), out, want):
+            errs[gname] = float((got - w).abs().max())
+            rels[gname] = errs[gname] / float(w.abs().max())
+            if not torch.isfinite(got).all() or rels[gname] > SCAN_BWD_TOL:
+                raise AssertionError(
+                    f"ssm_scan_bwd case {name}: {gname} max|err| "
+                    f"{errs[gname]:.3g} over {SCAN_BWD_TOL} of its largest "
+                    f"value ({rels[gname]:.3g})")
+        del want, again
+        ms = cuda_ms(torch, lambda: ss.ssm_scan_bwd(dt, A, B, C, x, g), 5)
+        fwd_ms = cuda_ms(torch, lambda: ss.ssm_scan(dt, A, B, C, x), 5)
+        plain_ms = cuda_ms(torch, lambda: ssm_scan_bwd_ref(dt, A, B, C, x, g),
+                           1, warmup=1)
+        bound, bound_by = scan_bwd_bound_ms(Bt, L, di, N)
+        results[name] = dict(max_abs_err=max(errs.values()), ms=ms,
+                             plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bound, bound_by=bound_by)
+        log(f"[scan_bwd] {name}: Bt={Bt} L={L} di={di} N={N} float32, B "
+            f"and C strided: max|err|/max|plain autograd| "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in rels.items()})} "
+            f"(tol {SCAN_BWD_TOL}), the same bits twice, the forward within "
+            f"{SCAN_TOL}; kernel {ms:.4f} ms "
+            f"(the forward {fwd_ms:.4f} ms), plain reverse scan "
+            f"{plain_ms:.3f} ms, no library call, bound {bound:.4f} ms by "
+            f"{bound_by} (roofline share {bound / ms:.1%})")
+        del dt, A, proj, B, C, x, g, out
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_paged(torch) -> dict:
     """paged_attention against its plain version (gather every table
     entry's page, full softmax) at the decode shapes and a ragged one."""
@@ -893,10 +1093,11 @@ def expected_launches(cfg) -> dict:
     if cfg.family == "hybrid":
         return {"flash_attention": n_attn, "paged_attention": 0,
                 "moe_gather": cfg.n_layers // cfg.moe_period,
-                "ssm_scan": cfg.n_layers - n_attn, **NO_RELATIONAL}
+                "ssm_scan": cfg.n_layers - n_attn, **NO_RELATIONAL,
+                **NO_BACKWARD}
     return {"flash_attention": n_attn, "paged_attention": 0,
             "moe_gather": cfg.n_layers if cfg.is_moe else 0, "ssm_scan": 0,
-            **NO_RELATIONAL}
+            **NO_RELATIONAL, **NO_BACKWARD}
 
 
 def decode_launches(cfg, steps: int) -> dict:
@@ -905,7 +1106,7 @@ def decode_launches(cfg, steps: int) -> dict:
     moe = expected_launches(cfg)["moe_gather"]
     return {"flash_attention": 0, "paged_attention":
             n_attention_layers(cfg) * steps, "moe_gather": moe * steps,
-            "ssm_scan": 0, **NO_RELATIONAL}
+            "ssm_scan": 0, **NO_RELATIONAL, **NO_BACKWARD}
 
 
 def hybrid_config():
@@ -1374,7 +1575,7 @@ def phase_serving(torch, arch, label: str, paged, summary: dict) -> dict:
                              f"{ {k: v for k, v in out.items() if k != 'outputs'} }")
     want = {"flash_attention": 0, "paged_attention": 0,
             "moe_gather": layers * out["iters"], "ssm_scan": 0,
-            **NO_RELATIONAL}
+            **NO_RELATIONAL, **NO_BACKWARD}
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     if paged is None:
@@ -2286,6 +2487,192 @@ def phase_tools(torch, smi: str) -> dict:
     return {"launches": launches}
 
 
+def train_launches(cfg, steps: int) -> dict:
+    """Launches of each kernel in ``steps`` training steps: moe_gather and
+    its backward per MoE layer, ssm_scan and its backward per Mamba layer,
+    flash and paged attention none (training runs attention on the plain
+    path)."""
+    per = expected_launches(cfg)
+    return {"moe_gather": per["moe_gather"] * steps,
+            "moe_gather_bwd": per["moe_gather"] * steps,
+            "ssm_scan": per["ssm_scan"] * steps,
+            "ssm_scan_bwd": per["ssm_scan"] * steps}
+
+
+def moe_train_flops(cfg, B: int, S: int) -> float:
+    """The matmul operations of one training step of a MoE decoder-only
+    stack (the forward's, x 3 for the backward's two products each): per
+    layer the q/k/v/o projections, the plain path's full (S, S) scores
+    and weighted sum, the router, the E x C slots' three expert products
+    (kept or not) and the shared experts'; then the LM head."""
+    from repro_torch.models.moe import expert_capacity
+    T, d, hd = B * S, cfg.d_model, cfg.head_dim or cfg.d_model // cfg.n_heads
+    qkvo = 2 * T * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    scores = 2 * 2 * B * cfg.n_heads * S * S * hd
+    slots = cfg.n_experts * expert_capacity(cfg, T)
+    experts = 2 * 3 * slots * d * cfg.d_ff
+    shared = 2 * 3 * T * d * cfg.n_shared_experts * cfg.d_ff
+    router = 2 * T * d * cfg.n_experts
+    head = 2 * T * d * cfg.vocab_size
+    return 3.0 * (cfg.n_layers * (qkvo + scores + experts + shared + router)
+                  + head)
+
+
+def phase_train(torch, smi: str) -> dict:
+    """The training stack at full width: ``train_loop`` on qwen2-moe-a2.7b
+    cut to TRAIN_LAYERS layers, float32 weights and AdamW moments, one
+    repeated batch; per step its ms, tokens/s, loss and gradient norm;
+    the peak memory; the launches (both gather kernels once per MoE layer
+    a step, no attention kernel); then one more step of the same state
+    under the profiler for the device's busy share."""
+    import numpy as np
+
+    from repro_torch.engine import TrainConfig, make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import AdamWConfig, constant
+
+    label = "train"
+    model = build_model(MOE_ARCH, TRAIN_LAYERS)  # meta: the config only
+    cfg = model.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_loop(MOE_ARCH, reduced=False, layers=TRAIN_LAYERS,
+                     steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     records=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+                     device=DEVICE, log_every=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches(ops, train_launches(cfg, TRAIN_STEPS), label)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_BATCH * (TRAIN_SEQ + 1)
+    log(f"[{label}] {cfg.name} at every published width, {cfg.n_layers} of "
+        f"24 layers ({model.param_count() / 1e9:.3f} B parameters), float32 "
+        f"weights and AdamW moments, B={TRAIN_BATCH} x {TRAIN_SEQ + 1} "
+        f"tokens, one repeated batch, lr {TRAIN_LR} (warmup-cosine over "
+        f"{TRAIN_STEPS} steps): {wall:.1f} s for train_loop (weights drawn, "
+        f"the first step's set-up); {smi}")
+    for h in out["history"]:
+        log(f"[{label}] step {h['step']}: {h['seconds'] * 1e3:.1f} ms, "
+            f"{tokens / h['seconds']:.0f} tokens/s, loss {h['loss']:.4f}, "
+            f"grad norm {h['grad_norm']:.4f}, lr {h['lr']:.3g}")
+    losses = out["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses} are not finite or "
+                             f"do not fall on one repeated batch")
+    log(f"[{label}] peak memory {peak:.2f} GiB (limit {TRAIN_PEAK_GIB}); "
+        f"launches over the {TRAIN_STEPS} steps: {json.dumps(launches)}")
+    if peak > TRAIN_PEAK_GIB:
+        raise AssertionError(f"{label}: peak memory {peak:.2f} GiB")
+
+    # one more step of the same state and batch shape, timed, then profiled
+    step = make_train_step(model, Ctx(), TrainConfig(
+        opt=AdamWConfig(moment_dtype="float32")), constant(TRAIN_LR))
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+        dtype=np.int32)).to(DEVICE)
+    batch = {"tokens": toks, "labels": toks}
+    state = [out["params"], out["opt"]]
+    del out
+
+    def one():
+        state[0], state[1], _, m = step(state[0], state[1], None, batch)
+        return float(m["total_loss"])
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    step_s = time.perf_counter() - t0
+    busy, kernels = device_breakdown(torch, one, step_s, label, top=8)
+    flops = moe_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ + 1)
+    log(f"[{label}] one more step timed alone: {step_s * 1e3:.1f} ms, "
+        f"{tokens / step_s:.0f} tokens/s, device busy {busy / step_s:.1%}; "
+        f"{flops / 1e12:.2f} TFLOP of matmuls a step, "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / PEAK_FLOPS['float32']:.1%} of the float32 peak "
+        f"(TF32 off); {smi}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "peak_gib": peak,
+            "busy": busy / step_s}
+
+
+def phase_train_reduced(torch, smi: str) -> list:
+    """``train_loop`` at ``reduced_config`` on the card for each of
+    REDUCED_TRAIN, against the same run on the CPU from the same weights
+    and batches (losses within TRAIN_LOSS_TOL, step for step; launches as
+    ``train_launches``); then one run with a checkpoint directory and an
+    injected failure: the supervisor restores the last checkpoint on the
+    card and replays, the replayed steps' losses equal to the first
+    pass's. Returns each card run's launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+
+    runs = []
+    for name in REDUCED_TRAIN:
+        label = f"train {name} reduced"
+        cfg = reduced_config(get_arch(name))
+        weights = build_model(cfg).init_params(
+            torch.Generator().manual_seed(SEED), "float32").state_dict()
+        kw = dict(reduced=False, steps=REDUCED_STEPS, batch=REDUCED_BATCH,
+                  seq=REDUCED_SEQ, seed=SEED, weights=weights,
+                  log_every=REDUCED_STEPS)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = train_loop(cfg, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(check_launches(ops, train_launches(cfg, REDUCED_STEPS),
+                                   label))
+        host = train_loop(cfg, device="cpu", **kw)
+        rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                   host["losses"])]
+        if not all(np.isfinite(card["losses"])) or max(rel) > TRAIN_LOSS_TOL:
+            raise AssertionError(f"{label}: card {card['losses']} against "
+                                 f"the CPU's {host['losses']}")
+        log(f"[{label}] {REDUCED_STEPS} steps of B={REDUCED_BATCH} x "
+            f"{REDUCED_SEQ + 1} tokens in {wall:.2f} s on the card; losses "
+            f"{[round(x, 5) for x in card['losses']]}, the CPU's within "
+            f"{max(rel):.2g} relative (tol {TRAIN_LOSS_TOL}); launches "
+            f"{json.dumps(runs[-1])}")
+    cfg = reduced_config(get_arch(RESTART_ARCH))
+    label = f"train {RESTART_ARCH} restart"
+    with tempfile.TemporaryDirectory() as ckpt:
+        out = train_loop(cfg, reduced=False, steps=RESTART_STEPS,
+                         batch=REDUCED_BATCH, seq=REDUCED_SEQ, seed=SEED,
+                         ckpt_dir=ckpt, save_every=RESTART_EVERY,
+                         fail_at=RESTART_FAIL_AT, device=DEVICE,
+                         log_every=RESTART_STEPS)
+    rep, losses = out["report"], out["losses"]
+    last = RESTART_FAIL_AT // RESTART_EVERY * RESTART_EVERY
+    first = losses[last:RESTART_FAIL_AT]
+    replay = losses[RESTART_FAIL_AT:RESTART_FAIL_AT + len(first)]
+    if rep.restarts != 1 or rep.restored_from != [last] or \
+            len(losses) != RESTART_STEPS + RESTART_FAIL_AT - last or \
+            not np.allclose(first, replay, rtol=TRAIN_LOSS_TOL, atol=0):
+        raise AssertionError(f"{label}: report {rep}, losses {losses}")
+    log(f"[{label}] failure injected before step {RESTART_FAIL_AT}: "
+        f"{rep.restarts} restart from the step-{last} checkpoint, steps "
+        f"{last}-{RESTART_FAIL_AT - 1} replayed with losses "
+        f"{[round(x, 6) for x in replay]} (first pass "
+        f"{[round(x, 6) for x in first]}), {rep.steps_run} steps run, final "
+        f"loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2299,6 +2686,8 @@ def main() -> int:
     kernel = phase_kernel(torch)
     gather = phase_gather(torch)
     scan = phase_scan(torch)
+    gather_bwd = phase_gather_bwd(torch)
+    scan_bwd = phase_scan_bwd(torch)
     paged = phase_paged(torch)
     log(f"[timing] phases 1-2: {time.perf_counter() - start:.1f} s")
     runs, summaries = [], []
@@ -2325,8 +2714,20 @@ def main() -> int:
             f"(device busy {m['decode_busy']:.1%}); serve_batch "
             f"{m['serve_tps']:.1f} tokens/s; peak memory "
             f"{m['peak_gib']:.2f} GiB; {smi}")
+    t0 = time.perf_counter()
+    train = phase_train(torch, smi)
+    runs.append(train["launches"])
+    runs += phase_train_reduced(torch, smi)
+    log(f"[summary] {MOE_ARCH} training at full width, {TRAIN_LAYERS} "
+        f"layers: {train['step_ms']:.1f} ms/step, {train['tokens_per_s']:.0f}"
+        f" tokens/s (B={TRAIN_BATCH} x {TRAIN_SEQ + 1}), peak memory "
+        f"{train['peak_gib']:.2f} GiB, device busy {train['busy']:.1%}; "
+        f"{smi}")
+    log(f"[timing] training phases: {time.perf_counter() - t0:.1f} s (run "
+        f"so far {time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
-    log(f"[main path] launches over phases 3-18: {json.dumps(launches)}")
+    log(f"[main path] launches over phases 3-18 and the training phases: "
+        f"{json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)
     q1 = phase_q1(torch, smi, rel)
@@ -2371,6 +2772,20 @@ def main() -> int:
         "ms": ssm["ms"], "plain_ms": ssm["plain_ms"],
         "bound_ms": ssm["bound_ms"], "bound_by": ssm["bound_by"],
         "library_ms": None}, {
+        "name": "moe_gather_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gather.cu",
+        "replaces": "src/repro/models/moe.py:116",
+        "launches": launches["moe_gather_bwd"],
+        "max_abs_err": max(c["max_abs_err"] for c in gather_bwd.values()),
+        **{k: gather_bwd["train"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/models/ssm.py:84",
+        "launches": launches["ssm_scan_bwd"],
+        "max_abs_err": max(c["max_abs_err"] for c in scan_bwd.values()),
+        **{k: scan_bwd["jamba"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:65",

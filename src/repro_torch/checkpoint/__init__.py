@@ -1,0 +1,4 @@
+"""Checkpointing (port of ``repro.checkpoint``)."""
+from repro_torch.checkpoint.checkpointer import Checkpointer
+
+__all__ = ["Checkpointer"]

@@ -1,0 +1,9 @@
+"""Fault tolerance and elastic scaling (port of ``repro.distributed``)."""
+from repro_torch.distributed.elastic import rebalance_shards, reshard_state
+from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
+                                                     StragglerPlan,
+                                                     Supervisor,
+                                                     SupervisorReport)
+
+__all__ = ["HeartbeatMonitor", "StragglerPlan", "Supervisor",
+           "SupervisorReport", "rebalance_shards", "reshard_state"]

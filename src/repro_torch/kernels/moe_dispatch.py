@@ -18,6 +18,17 @@ a microsecond and the host's launch path is the time. The design follows:
   ``nvcc.launch`` (no Python context manager; the C entry switches device
   only when it must).
 
+The backward (``moe_gather_bwd``, the C entry ``repro_moe_gather_bwd`` of
+the same source) is the gradient with respect to x that the reference
+takes by autodiff of its dispatch (``repro/models/moe.py:117``): dx[t] sums
+g over token t's kept slots. It takes no atomics: the wrapper builds the
+inverse map on the card (``ref.gather_inverse``, a stable sort of the ids)
+and one warp per token adds its slots' rows in increasing slot order in
+float32, rounding once, so every run gives the same bits, and the plain
+version's (``ref.moe_gather_bwd_ref``). At qwen2-moe's training shape (T =
+4,096, d = 2,048, 16,384 kept of S = 20,640 slots, float32) it reads 134 MB
+of g and writes 34 MB of dx: ~0.05 ms at 3.35 TB/s.
+
 The source is compiled with nvcc for sm_90a at first use and bound
 through ctypes (``kernels/nvcc.py``).
 """
@@ -30,13 +41,16 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import nvcc
+from repro_torch.kernels.ref import gather_inverse
 
-__all__ = ["moe_gather", "check_shapes", "build", "LAUNCHES", "SOURCE"]
+__all__ = ["moe_gather", "moe_gather_bwd", "check_shapes", "build",
+           "build_bwd", "LAUNCHES", "LAUNCHES_BWD", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gather.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES = nvcc.LaunchCounter()
+LAUNCHES_BWD = nvcc.LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,6 +58,12 @@ def build() -> ctypes._CFuncPtr:
     """Compile the kernel (once per source content), load it and bind its
     C entry."""
     return nvcc.bind(nvcc.load(SOURCE), "repro_moe_gather")
+
+
+@functools.lru_cache(maxsize=None)
+def build_bwd() -> ctypes._CFuncPtr:
+    """The backward's C entry, from the same library as ``build``."""
+    return nvcc.bind(nvcc.load(SOURCE), "repro_moe_gather_bwd")
 
 
 def check_shapes(x: torch.Tensor, token_ids: torch.Tensor,
@@ -109,3 +129,25 @@ def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
                 d, x.stride(0), x.element_size())
     LAUNCHES.add()
     return out
+
+
+def moe_gather_bwd(g: torch.Tensor, token_ids: torch.Tensor,
+                   keep: torch.Tensor, T: int) -> torch.Tensor:
+    """Launch the backward kernel: dx (T, d) in g's dtype from the (S, d)
+    gradient g of the dispatch buffer (float32 or bfloat16, made
+    contiguous), token_ids (S,) int32 and keep (S,) bool as the forward
+    took them. Written on the current stream of g's device."""
+    g = g.contiguous()
+    if not _inputs_ok(g, token_ids, keep) or T <= 0:
+        check_shapes(g, token_ids, keep)
+        _check_kernel_inputs(g, token_ids, keep)
+        raise ValueError(f"moe_gather_bwd: T={T} tokens")
+    dx = g.new_empty((T, g.shape[1]))
+    if dx.numel() == 0:
+        return dx
+    order, offsets = gather_inverse(token_ids, keep, T)
+    nvcc.launch(build_bwd(), "moe_gather_bwd", g.get_device(), g.data_ptr(),
+                order.data_ptr(), offsets.data_ptr(), dx.data_ptr(), T,
+                g.shape[1], g.element_size())
+    LAUNCHES_BWD.add()
+    return dx

@@ -3,7 +3,16 @@
 
 Dispatch is by the tensors' device: CPU tensors go to the plain version,
 CUDA tensors to the hand-written kernel, which counts its launches. There
-is no fallback from one to the other."""
+is no fallback from one to the other.
+
+Gradients: on the CPU the plain versions are torch ops, which autograd
+differentiates. On a card, ``moe_gather`` and ``ssm_scan`` run through a
+``torch.autograd.Function`` whose backward is a hand-written kernel too
+(when grad mode is on and an input requires grad; otherwise the forward
+kernel is called directly, the serving path's short host path).
+``flash_attention`` and ``paged_attention`` have no backward kernel: they
+raise ``NotImplementedError`` on either device when asked for a gradient,
+as the reference trains with ``Ctx(use_flash=False)``."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
@@ -22,12 +31,56 @@ __all__ = ["flash_attention", "paged_attention", "moe_gather", "ssm_scan",
            "expr_core", "segment_reduce", "launch_counts",
            "reset_launch_counts"]
 
+_NO_BACKWARD = ("{} has no backward kernel: training runs attention on the "
+                "plain path (Ctx(use_flash=False), as the reference trains); "
+                "a flash-attention backward waits in ROADMAP.md (queue 1, "
+                "item 10)")
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if _wants_grad(*tensors):
+        raise NotImplementedError(_NO_BACKWARD.format(name))
+
+
+class _MoeGather(torch.autograd.Function):
+    """The gather on a card: forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, token_ids, keep):
+        ctx.save_for_backward(token_ids, keep)
+        ctx.n_tokens = x.shape[0]
+        return _moe.moe_gather(x, token_ids, keep)
+
+    @staticmethod
+    def backward(ctx, g):
+        token_ids, keep = ctx.saved_tensors
+        return _moe.moe_gather_bwd(g, token_ids, keep, ctx.n_tokens), \
+            None, None
+
+
+class _SsmScan(torch.autograd.Function):
+    """The scan on a card: forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, dt, A, B, C, x):
+        ctx.save_for_backward(dt, A, B, C, x)
+        return _ssm.ssm_scan(dt, A, B, C, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ssm.ssm_scan_bwd(*ctx.saved_tensors, g)
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B,S,H,hd); k/v: (B,T,K,hd), H % K == 0 -> (B,S,H,hd) in q's
     dtype."""
     _fa.check_shapes(q, k, v)
+    _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
     return _fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -39,6 +92,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (B,H,hd); k/v_pages: (P,page,K,hd); tables: (B,max_pages) int32
     global page ids, -1 a hole; lengths: (B,) int32 -> (B,H,hd) in q's
     dtype."""
+    _refuse_grad("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         _pa.check_shapes(q, k_pages, v_pages, tables, lengths)
         return ref.paged_attention_ref(q, k_pages, v_pages, tables, lengths)
@@ -52,6 +106,8 @@ def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
     if x.is_cpu:
         _moe.check_shapes(x, token_ids, keep)
         return ref.moe_gather_ref(x, token_ids, keep)
+    if _wants_grad(x):
+        return _MoeGather.apply(x, token_ids, keep)
     return _moe.moe_gather(x, token_ids, keep)  # checks
 
 
@@ -62,6 +118,8 @@ def ssm_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if x.device.type == "cpu":
         _ssm.check_shapes(dt, A, B, C, x)
         return ref.ssm_scan_ref(dt, A, B, C, x)
+    if _wants_grad(dt, A, B, C, x):
+        return _SsmScan.apply(dt, A, B, C, x)
     return _ssm.ssm_scan(dt, A, B, C, x)  # checks
 
 
@@ -99,7 +157,9 @@ def launch_counts() -> dict:
     return {"flash_attention": _fa.LAUNCHES.count,
             "paged_attention": _pa.LAUNCHES.count,
             "moe_gather": _moe.LAUNCHES.count,
+            "moe_gather_bwd": _moe.LAUNCHES_BWD.count,
             "ssm_scan": _ssm.LAUNCHES.count,
+            "ssm_scan_bwd": _ssm.LAUNCHES_BWD.count,
             "expr_core": _ec.LAUNCHES.count,
             "segment_reduce": _sr.LAUNCHES.count}
 
@@ -108,6 +168,8 @@ def reset_launch_counts() -> None:
     _fa.LAUNCHES.count = 0
     _pa.LAUNCHES.count = 0
     _moe.LAUNCHES.count = 0
+    _moe.LAUNCHES_BWD.count = 0
     _ssm.LAUNCHES.count = 0
+    _ssm.LAUNCHES_BWD.count = 0
     _ec.LAUNCHES.count = 0
     _sr.LAUNCHES.count = 0

@@ -5,8 +5,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["attention_ref", "flash_attention_tiled_ref", "paged_attention_ref",
-           "paged_attention_split_ref", "moe_gather_ref", "ssm_scan_ref",
-           "ssm_scan_ex2_ref"]
+           "paged_attention_split_ref", "moe_gather_ref", "gather_inverse",
+           "moe_gather_bwd_ref", "ssm_scan_ref", "ssm_scan_ex2_ref",
+           "ssm_scan_bwd_ref"]
 
 LOG2E = 1.4426950408889634
 
@@ -173,6 +174,38 @@ def moe_gather_ref(x: torch.Tensor, token_ids: torch.Tensor,
     return torch.where(keep[:, None], rows, 0)
 
 
+def gather_inverse(token_ids: torch.Tensor, keep: torch.Tensor, T: int
+                   ) -> tuple:
+    """The gather's inverse map, built on the ids' device: (order, offsets)
+    int32, where ``order[offsets[t]:offsets[t + 1]]`` are the kept slots
+    whose (clamped) id is token t, in increasing slot order (a stable sort
+    by token); order's entries past ``offsets[T]`` are the unkept slots."""
+    key = torch.where(keep, token_ids.long().clamp(0, T - 1), T)
+    sorted_key, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        sorted_key, torch.arange(T + 1, device=key.device))
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+def moe_gather_bwd_ref(g: torch.Tensor, token_ids: torch.Tensor,
+                       keep: torch.Tensor, T: int) -> torch.Tensor:
+    """The gradient of ``moe_gather_ref`` with respect to x: dx (T, d) in
+    g's dtype, row t the sum of g[s] over the kept slots s whose id is t,
+    added in increasing slot order in float32 from 0 and rounded once (the
+    kernel's order, so the two agree bit for bit).
+
+    g: (S, d) the dispatch buffer's gradient; token_ids, keep as
+    ``moe_gather_ref``'s."""
+    order, offsets = gather_inverse(token_ids, keep, T)
+    order, offsets = order.long(), offsets.long()
+    counts = offsets[1:] - offsets[:-1]
+    acc = torch.zeros((T, g.shape[1]), dtype=torch.float32, device=g.device)
+    for r in range(int(counts.max()) if T else 0):
+        has = counts > r
+        acc[has] += g[order[offsets[:-1][has] + r]].float()
+    return acc.to(g.dtype)
+
+
 def ssm_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                  C: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Selective-SSM scan, sequential over time, all in float32:
@@ -234,3 +267,41 @@ def ssm_scan_ex2_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if not ys:
         return x.new_zeros((Bt, 0, di))
     return torch.stack(ys, dim=1)
+
+
+def ssm_scan_bwd_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                     C: torch.Tensor, x: torch.Tensor, g: torch.Tensor
+                     ) -> tuple:
+    """The gradient of ``ssm_scan_ref`` given g = dL/dy (Bt, L, di), as the
+    reverse-time scan the kernel runs, in plain PyTorch, all float32: the
+    states h_t are kept from a forward pass, then from t = L-1 down,
+    ``dh = g_t C_t + exp(dt_{t+1} A) dh_{t+1}``, ``w = dh h_{t-1}
+    exp(dt_t A)``, ``ddt_t = x_t (dh . B_t) + w . A``, ``dx_t = dt_t (dh .
+    B_t)``, ``dB_t = sum_c dh dt_t x_t``, ``dC_t = sum_c g_t h_t``, ``dA =
+    sum_{b,t} w dt_t``. Returns (ddt, dA, dB, dC, dx) in the inputs'
+    order, float32 and contiguous."""
+    dt, A, B, C, x, g = (t.float() for t in (dt, A, B, C, x, g))
+    Bt, L, di = x.shape
+    h = torch.zeros((Bt, di, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    hs, decays = [h], []
+    for t in range(L):
+        a = torch.exp(dt[:, t, :, None] * A)  # (Bt, di, N)
+        h = a * h + (dt[:, t, :, None] * x[:, t, :, None]) * B[:, t, None, :]
+        hs.append(h)
+        decays.append(a)
+    ddt, dx = torch.zeros_like(x), torch.zeros_like(x)
+    dB, dC = torch.zeros_like(B), torch.zeros_like(C)
+    dA = torch.zeros_like(A)
+    carry = torch.zeros_like(h)  # exp(dt_{t+1} A) dh_{t+1}
+    for t in reversed(range(L)):
+        dh = g[:, t, :, None] * C[:, t, None, :] + carry
+        w = dh * hs[t] * decays[t]
+        s1 = (dh * B[:, t, None, :]).sum(-1)
+        ddt[:, t] = x[:, t] * s1 + (w * A).sum(-1)
+        dx[:, t] = dt[:, t] * s1
+        dB[:, t] = (dh * (dt[:, t] * x[:, t])[..., None]).sum(1)
+        dC[:, t] = (g[:, t, :, None] * hs[t + 1]).sum(1)
+        dA += (w * dt[:, t, :, None]).sum(0)
+        carry = decays[t] * dh
+    return ddt, dA, dB, dC, dx

@@ -25,6 +25,16 @@ first copied, by itself, into a buffer whose rows are whole 16-byte words
 (``COPIES`` counts such inputs); y of a di that is not a multiple of 4 is
 a column view of such a buffer. The source is compiled with nvcc for
 sm_90a at first use and bound through ctypes (``kernels/nvcc.py``).
+
+The backward (``ssm_scan_bwd``, the C entry ``repro_ssm_scan_bwd`` of the
+same source) gives (ddt, dA, dB, dC, dx) from g = dL/dy: the gradient the
+reference takes by autodiff of its scan (``repro/models/ssm.py:84``), as a
+reverse-time scan (``ref.ssm_scan_bwd_ref`` is its arithmetic in plain
+PyTorch). It recomputes the states from checkpoints kept every 16 steps
+(no (L, di, N) tape) with the forward's ex2, and reduces dB, dC and dA in
+a fixed order through per-warp partials, without atomics. Its scratch
+(``bwd_scratch``) is allocated here; B and C may be strided views, their
+gradients come back contiguous.
 """
 from __future__ import annotations
 
@@ -37,8 +47,9 @@ import torch
 
 from repro_torch.kernels import nvcc
 
-__all__ = ["ssm_scan", "check_shapes", "plan", "ScanPlan", "tma_ready",
-           "build", "LAUNCHES", "COPIES", "SOURCE", "MAX_STATE"]
+__all__ = ["ssm_scan", "ssm_scan_bwd", "check_shapes", "plan", "ScanPlan",
+           "tma_ready", "build", "build_bwd", "bwd_scratch", "LAUNCHES",
+           "LAUNCHES_BWD", "COPIES", "SOURCE", "MAX_STATE", "BWD_CHUNK"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 MAX_STATE = 16  # N held in registers
@@ -52,16 +63,13 @@ MAX_STATE = 16  # N held in registers
 # where it gives fewer (188 blocks: 0.064 ms against 0.088 at 2).
 CHANNELS, CHUNK, STAGES = 32, 32, 3
 MANY_BLOCKS_PER_SM = 3
+# The backward's checkpoint spacing and channels per warp (kBT and a warp's
+# lanes in the source).
+BWD_CHUNK, BWD_CHANNELS = 16, 32
 
 LAUNCHES = nvcc.LaunchCounter()
-
-
-class CopyCounter:
-    """Inputs the wrapper copied into a TMA-ready layout."""
-    count = 0
-
-
-COPIES = CopyCounter()
+LAUNCHES_BWD = nvcc.LaunchCounter()
+COPIES = nvcc.LaunchCounter()  # inputs copied into a TMA-ready layout
 
 
 class ScanPlan(NamedTuple):
@@ -96,6 +104,12 @@ def build() -> ctypes._CFuncPtr:
     """Compile the kernel (once per source content), load it and bind its
     C entry."""
     return nvcc.bind(nvcc.load(SOURCE), "repro_ssm_scan")
+
+
+@functools.lru_cache(maxsize=None)
+def build_bwd() -> ctypes._CFuncPtr:
+    """The backward's C entry, from the same library as ``build``."""
+    return nvcc.bind(nvcc.load(SOURCE), "repro_ssm_scan_bwd")
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,3 +198,49 @@ def _scan(dt, A, B, C, x, lanes: Optional[int]) -> torch.Tensor:
                 *B.stride()[:2], *C.stride()[:2], *y.stride()[:2], *p)
     LAUNCHES.add()
     return y
+
+
+def bwd_scratch(Bt: int, L: int, di: int, N: int) -> dict:
+    """The backward's scratch shapes (float32): the states kept every
+    ``BWD_CHUNK`` steps, the per-warp partial sums of dB and dC (2 x 16 a
+    step), and dA's per-batch-row parts."""
+    return {"ck": (Bt, -(-L // BWD_CHUNK), N, di),
+            "part": (Bt, -(-di // BWD_CHANNELS), L, 2 * MAX_STATE),
+            "dA_part": (Bt, di, N)}
+
+
+def ssm_scan_bwd(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, x: torch.Tensor, g: torch.Tensor
+                 ) -> tuple:
+    """Launch the backward kernels: from the forward's inputs (as
+    ``ssm_scan`` takes them) and g = dL/dy (Bt, L, di) float32, last dim
+    contiguous, return (ddt, dA, dB, dC, dx), new contiguous float32
+    tensors, written on the current stream of x's device."""
+    check_shapes(dt, A, B, C, x)
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} is not y's shape "
+                         f"{tuple(x.shape)}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    _check_kernel_inputs(dt, A, B, C, x)
+    _check_kernel_inputs(g, A, B, C, x)
+    Bt, L, di = x.shape
+    N = A.shape[1]
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=x.device)
+    ddt, dx, dB, dC, dA = (new(Bt, L, di), new(Bt, L, di), new(Bt, L, N),
+                           new(Bt, L, N), new(di, N))
+    if x.numel() == 0:
+        return ddt, dA.zero_(), dB.zero_(), dC.zero_(), dx
+    scratch = {k: new(*shape) for k, shape in bwd_scratch(Bt, L, di, N)
+               .items()}
+    nvcc.launch(build_bwd(), "ssm_scan_bwd", x.get_device(),
+                dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                x.data_ptr(), g.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
+                dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+                scratch["ck"].data_ptr(), scratch["part"].data_ptr(),
+                scratch["dA_part"].data_ptr(), Bt, L, di, N,
+                *dt.stride()[:2], *x.stride()[:2], *g.stride()[:2],
+                A.stride(0), *B.stride()[:2], *C.stride()[:2])
+    LAUNCHES_BWD.add()
+    return ddt, dA, dB, dC, dx

@@ -6,10 +6,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch import tree as tr
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.params import flatten
+from repro_torch.optim.adamw import OptState
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "from_jax_opt_state"]
 
 
 def from_jax_params(tree: Mapping, model: Model) -> Dict[str, torch.Tensor]:
@@ -37,3 +39,28 @@ def from_jax_params(tree: Mapping, model: Model) -> Dict[str, torch.Tensor]:
         else:
             out[key] = torch.from_numpy(np.array(arr, copy=True))
     return out
+
+
+def _nested(flat: Dict[str, torch.Tensor]) -> Dict:
+    """``{"a.b.c": t}`` -> the nested dict ``{"a": {"b": {"c": t}}}``."""
+    out: Dict = {}
+    for key, t in flat.items():
+        *outer, leaf = key.split(".")
+        node = out
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return out
+
+
+def from_jax_opt_state(state, model: Model, device=None) -> OptState:
+    """The reference's ``OptState(m, v, step)``, its leaves numpy arrays
+    (or anything ``np.asarray`` takes), -> the port's, on ``device``
+    (default the CPU): m and v nested dicts of ``model.params()``'s paths
+    and shapes in the moments' dtype, step a 0-d int32 tensor. Raises as
+    ``from_jax_params`` on a missing, extra or reshaped leaf."""
+    m, v = (_nested(from_jax_params(t, model)) for t in (state.m, state.v))
+    to = lambda t: t.to(device or "cpu")  # noqa: E731
+    return OptState(m=tr.tree_map(to, m), v=tr.tree_map(to, v),
+                    step=to(torch.tensor(int(np.asarray(state.step)),
+                                         dtype=torch.int32)))

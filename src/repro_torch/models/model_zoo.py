@@ -7,8 +7,10 @@ architecture holding its parameters, with forward and decode.
 ``build_model`` makes the parameters on the meta device (no memory, the
 counterpart of ``abstract_params``); ``init_params`` or
 ``load_state_dict(..., assign=True)`` gives them storage. Parameters are
-inference-only (``requires_grad=False``); sharding specs wait for the
-parallelism slice.
+inference-only by default (``requires_grad=False``: serving builds no
+autograd graph); ``init_params(..., trainable=True)``, or
+``requires_grad_(True)`` on a loaded model, makes them trainable. Sharding
+specs wait for the parallelism slice.
 """
 from __future__ import annotations
 
@@ -64,13 +66,14 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ params
     def init_params(self, generator: torch.Generator,
-                    dtype=None) -> "Model":
+                    dtype=None, trainable: bool = False) -> "Model":
         """Draw every leaf on ``generator.device`` in ``dtype`` (default
-        the config's ``param_dtype``)."""
+        the config's ``param_dtype``); ``trainable`` makes every parameter
+        require grad."""
         dt = pp.torch_dtype(dtype or self.cfg.param_dtype)
         tree = pp.initialize(self.defs, generator, dt, generator.device)
         self.load_state_dict(pp.flatten(tree), assign=True)
-        return self
+        return self.requires_grad_(trainable)
 
     def params(self) -> Dict[str, Any]:
         """The parameters as the reference's nested dict."""

@@ -12,7 +12,12 @@ a copy held bit for bit; 1e-5 for ``ssm_scan``, as tests/test_kernels.py
 holds the Pallas scan (float32; the kernel fuses multiply-adds and sums
 the N states in another order than the plain version); 2e-5 in float32
 and 2e-2 in bfloat16 for ``paged_attention``, as tests/test_kernels.py
-holds the Pallas kernel (online softmax against the plain full softmax)."""
+holds the Pallas kernel (online softmax against the plain full softmax).
+The training kernels: ``moe_gather_bwd`` bit for bit against its plain
+version (both add a token's slots in slot order in float32); ``ssm_scan_bwd``
+within 1e-4 of each output's largest value against its plain reverse scan
+(the kernel decays by ex2 and sums over channels in another order); both
+give the same bits twice."""
 import numpy as np
 import pytest
 
@@ -944,3 +949,94 @@ def test_expr_core_from_new_threads_reading_cached_pinned_blocks(torch):
             t.join(timeout=120)
         assert not errors, errors
         assert all(o.tobytes() == want.tobytes() for o in outs)
+
+
+# ------------------------------------------------------ training kernels
+@pytest.mark.parametrize("T,d,S,kept", [
+    (4100, 2048, 60 * 344, 4 * 4100),  # qwen2-moe's training dispatch
+    (64, 2048, 1001, 128),             # ragged S, most slots dropped
+    (30, 7, 100, 60),                  # rows that are not 16-byte words
+    (5, 16, 3, 0),                     # nothing kept: zeros
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gather_bwd_kernel_matches_plain(torch, T, d, S, kept, dtype):
+    from repro_torch.kernels import moe_dispatch as mg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_gather_bwd_ref
+    rng = np.random.default_rng(T + S)
+    ids = np.full(S, -1, np.int32)
+    slots = rng.choice(S, kept, replace=False)
+    ids[slots] = rng.permutation(np.resize(np.arange(T), kept))
+    tids = torch.from_numpy(ids).cuda()
+    keep = tids >= 0
+    g = torch.from_numpy(rng.standard_normal((S, d), dtype=np.float32)).to(
+        "cuda", getattr(torch, dtype))
+    out = mg.moe_gather_bwd(g, tids, keep, T)
+    again = mg.moe_gather_bwd(g, tids, keep, T)
+    want = moe_gather_bwd_ref(g, tids, keep, T)
+    torch.cuda.synchronize()
+    bits = torch.int16 if g.element_size() == 2 else torch.int32
+    assert torch.equal(out.view(bits), want.view(bits))
+    assert torch.equal(out.view(bits), again.view(bits))
+    # through the port's entry with autograd: forward and backward kernels
+    x = torch.from_numpy(rng.standard_normal((T, d), dtype=np.float32)).to(
+        "cuda", g.dtype).requires_grad_(True)
+    ops.reset_launch_counts()
+    dx, = torch.autograd.grad(ops.moe_gather(x, tids, keep), x, g)
+    counts = ops.launch_counts()
+    assert counts["moe_gather"] == counts["moe_gather_bwd"] == 1
+    assert torch.equal(dx.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("Bt,L,di,N", [
+    (2, 33, 64, 8), (1, 100, 256, 16),
+    (1, 7, 200, 16),    # L under one 16-step chunk, di not a warp multiple
+    (4, 65, 128, 8),    # the reduced jamba's training shape
+    (3, 1001, 40, 5),   # ragged L, N padded
+])
+def test_ssm_scan_bwd_kernel_matches_plain(torch, Bt, L, di, N):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ref import ssm_scan_bwd_ref
+    dt, A, _, _, x = _scan_inputs(torch, Bt, L, di, N)
+    rng = np.random.default_rng(1)
+    proj = torch.from_numpy(rng.standard_normal(
+        (Bt, L, 2 * N + 3), dtype=np.float32)).cuda()
+    B, C = proj[..., 3:3 + N], proj[..., 3 + N:]  # strided, as the model's
+    g = torch.from_numpy(rng.standard_normal((Bt, L, di),
+                                             dtype=np.float32)).cuda()
+    out = ss.ssm_scan_bwd(dt, A, B, C, x, g)
+    again = ss.ssm_scan_bwd(dt, A, B, C, x, g)
+    want = ssm_scan_bwd_ref(dt, A, B, C, x, g)
+    torch.cuda.synchronize()
+    for name, got, w, a in zip(("ddt", "dA", "dB", "dC", "dx"), out, want,
+                               again):
+        assert got.shape == w.shape and torch.equal(got, a), name
+        err = float((got - w).abs().max() / w.abs().max())
+        assert err <= 1e-4, (name, err)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (dt, A, proj, x)]
+    lp = leaves[2]
+    y = ops.ssm_scan(leaves[0], leaves[1], lp[..., 3:3 + N],
+                     lp[..., 3 + N:], leaves[3])
+    ddt, dA, dproj, dx = torch.autograd.grad(y, leaves, g)
+    assert torch.equal(ddt, out[0]) and torch.equal(dA, out[1])
+    assert torch.equal(dproj[..., 3:3 + N], out[2])
+    assert torch.equal(dproj[..., 3 + N:], out[3]) and torch.equal(dx, out[4])
+
+
+def test_training_on_the_card_follows_the_cpu(torch):
+    """``train_loop`` at reduced_config (jamba: both training kernels) on
+    the card and on the CPU from the same weights and batches: losses
+    within 1e-3 relative, step for step."""
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    cfg = reduced_config(get_arch("jamba15_large"))
+    w = build_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                     "float32").state_dict()
+    kw = dict(reduced=False, steps=6, batch=4, seq=32, weights=w,
+              log_every=100)
+    card = train_loop(cfg, device="cuda", **kw)["losses"]
+    host = train_loop(cfg, device="cpu", **kw)["losses"]
+    np.testing.assert_allclose(card, host, rtol=1e-3)

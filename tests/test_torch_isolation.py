@@ -150,3 +150,48 @@ def test_remote_worker_with_no_card_reports_the_refusal(torch):
     assert not ok and tr.sent[0][0] == "error"
     assert "no CUDA device" in tr.sent[0][1]
     assert not any(isinstance(m, StatsFrame) for _, m in tr.sent)
+
+
+TRAINING_MODULES = ["repro_torch.optim", "repro_torch.optim.adamw",
+                    "repro_torch.optim.schedule", "repro_torch.tree",
+                    "repro_torch.engine.train_step",
+                    "repro_torch.engine.compression",
+                    "repro_torch.checkpoint",
+                    "repro_torch.checkpoint.checkpointer",
+                    "repro_torch.distributed",
+                    "repro_torch.distributed.fault_tolerance",
+                    "repro_torch.distributed.elastic",
+                    "repro_torch.data.pipeline", "repro_torch.data.tokenizer",
+                    "repro_torch.launch.train"]
+
+
+def test_training_stack_loads_no_jax_and_no_repro():
+    """The optimizer, the train step and its compression, the
+    checkpointer, the supervisor, the token pipeline and the train
+    launcher import nothing of JAX and nothing of the reference, and
+    their sources name neither."""
+    code = (f"import sys, importlib; "
+            f"sys.path.insert(0, {str(ROOT / 'src')!r}); "
+            f"[importlib.import_module(m) for m in {TRAINING_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+            "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|"
+                         r"import repro\.|from repro[. ])", re.M)
+    for name in TRAINING_MODULES:
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        if not path.exists():
+            path = path.with_suffix("") / "__init__.py"
+        assert not pattern.search(path.read_text()), path
+
+
+def test_train_loop_without_a_device_raises_when_there_is_no_card(torch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.launch.train import main, train_loop
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop("qwen2_moe", steps=1, batch=1, seq=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "qwen2_moe", "--reduced", "--steps", "1"])
