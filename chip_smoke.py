@@ -27,11 +27,20 @@ final line:
    scan, so no yardstick; the inputs copied for TMA; the scan kernels'
    SASS instruction and MUFU.EX2 counts; a spill in the scan or the
    gather, forward or backward, fails the run), moe_gather's backward bit
-   for bit (the training step's dispatch, float32 and bf16; the same bits
-   twice; ``index_add_`` as yardstick) and ssm_scan's backward within 1e-4
-   of each output's largest value against the plain version's autograd
-   (jamba's full Mamba shape and the reduced training shape, B and C
-   strided; the same bits twice; no yardstick) and paged_attention (the
+   for bit (the training step's dispatch, float32 and bf16, given the
+   (T, k) map of each token's slots, built outside the timed call; the
+   same bits twice and through ``ops.moe_gather(..., slots=)`` with
+   autograd; ``index_add_`` as yardstick; maps of 10 and ~38 slots a
+   token, past the kernel's fan of 8, untimed) and ssm_scan's backward within
+   1e-4 of each output's largest value against the plain version's
+   autograd (jamba's full Mamba shape and the reduced training shape, B
+   and C strided; both instances, 4 lanes a channel at 128 and 32
+   channels a block, given the checkpointing forward's checkpoints and
+   without them; the same bits twice; the checkpointing forward's y the
+   serving forward's bits, its checkpoints bit-equal through autograd;
+   the backward, the checkpointing forward and the pair timed beside their
+   bounds and the function's own minimum; no yardstick) and
+   paged_attention (the
    decode shapes of
    qwen2.5-32b, jamba, qwen2-moe and internvl2-26b (48/8), head dims 96,
    192 and 256 at the heads of phi3-mini, nemotron-4-340b and gemma-7b
@@ -179,6 +188,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -278,6 +288,12 @@ GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
     ("train_bf16", TRAIN_TOKENS, 2048, 60 * 344, 4 * TRAIN_TOKENS,
      "bfloat16"),
 ]
+# and, checked but not timed, maps past the kernel's fan of 8 slots a
+# token: 10 slots a token, and ~38 (a second word of the ballot's walk)
+GATHER_BWD_WIDE = [  # (T, d, S, n_kept, dtype)
+    (8, 7, 100, 80, "float32"), (4, 2048, 200, 150, "float32"),
+    (4, 2048, 200, 150, "bfloat16"),
+]
 # ssm_scan's backward at jamba's full Mamba shape and at the reduced
 # training run's (B=4 rows of 65 steps, di 128, N 8)
 SCAN_BWD_CASES = [  # (name, Bt, L, di, N)
@@ -287,6 +303,7 @@ SCAN_BWD_CASES = [  # (name, Bt, L, di, N)
 # float32; the kernel decays by ex2 and sums in another order than the
 # plain loop's autograd: max |err| per output within 1e-4 of its largest
 SCAN_BWD_TOL = 1e-4
+SCAN_BWD_REPS = 20  # calls a timing: the reduced shape's are host-bound
 # paged_attention at the decode shapes: qwen2.5-32b (40/8 heads, 4,096
 # tokens of 64-token pages), jamba (64/8 heads, 128-token pages) and
 # qwen2-moe (16/16), lengths drawn in [1, max_pages * page], tables a
@@ -463,16 +480,21 @@ def paged_bound_ms(lengths, tables, page, H, K, hd, dtype, elem):
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_fwd_bf16<128>`` from a kernel's mangled name (a
-    length-prefixed name in an anonymous namespace, an int template
-    argument); the mangled name where it is not of that form."""
+    """``flash_fwd_bf16<128>`` or ``ssm_scan_kernel<4, true>`` from a
+    kernel's mangled name (a length-prefixed name in an anonymous
+    namespace, int or bool template arguments); the mangled name where it
+    is not of that form."""
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)(.*)", mangled)
     if not m:
         return mangled
     n, rest = int(m.group(1)), m.group(2)
     name, rest = rest[:n], rest[n:]
-    arg = re.match(r"ILi(\d+)E", rest)
-    return f"{name}<{arg.group(1)}>" if arg else name
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if not args:
+        return name
+    shown = [v if t == "i" else ("true" if v == "1" else "false")
+             for t, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+    return f"{name}<{', '.join(shown)}>"
 
 
 def ptxas_report(log_path) -> list:
@@ -526,24 +548,52 @@ def rel_err(torch, got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def device_ms(torch, fn, reps: int, match: str) -> float:
+def device_ms(torch, fn, reps: int, match: str,
+              launches: Optional[int] = None) -> Optional[float]:
     """Device time per call of the kernels whose name holds ``match``,
     over reps calls of fn under torch.profiler: the card's share of what
-    ``cuda_ms`` times, without the host's launch path."""
+    ``cuda_ms`` times, without the host's launch path. One call runs
+    under the profiler's warmup step, whose events it drops, before the
+    reps recorded ones. The profiler can miss launches, and a trace that
+    lacks some reads too short a time, so the trace is taken again once,
+    and None comes back, if it holds fewer than reps launches of such
+    kernels, or not ``launches`` a call where that count is given."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0.0)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and match in e.key)
-    return total / 1e3 / reps
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and match in e.key]
+        seen = sum(e.count for e in events)
+        if seen >= reps if launches is None else seen == reps * launches:
+            return sum(getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0.0)
+                       for e in events) / 1e3 / reps
+        log(f"[profiler] a trace of {reps} calls holds "
+            f"{json.dumps({e.key[:60]: e.count for e in events})} launches "
+            f"of {match!r} kernels, want {launches or 'at least 1'} a "
+            f"call: not read")
+    return None
+
+
+def on_device(dev_ms: Optional[float], ms: float) -> str:
+    """``device_ms``'s reading beside the events' time as the logs print
+    it: the device time and its share, or that it was not measured."""
+    if dev_ms is None:
+        return "the device's share not measured"
+    return f"{dev_ms:.4f} ms of it on the device, {dev_ms / ms:.1%}"
 
 
 def device_breakdown(torch, fn, wall_s: float, label: str,
@@ -645,6 +695,17 @@ def phase_kernel(torch) -> dict:
             f"steps: one MUFU.EX2 a state step)")
     if not all(c["MUFU.EX2"] and c["UTMALDG"] for c in scan_sass.values()):
         raise AssertionError("the scan kernel has no ex2 or TMA load")
+    bwd_sass = sass_function_counts(libs[modules.index(ss)],
+                                    "ssm_scan_bwd_kernel",
+                                    ("MUFU.EX2", "UTMALDG", "UTMASTG",
+                                     "SHFL"))
+    for fn, counts in bwd_sass.items():
+        log(f"[kernel] SASS of {fn}: {json.dumps(counts)} (a chunk of 8 "
+            f"steps unrolled: one MUFU.EX2 a state step of a lane)")
+    if not all(c["MUFU.EX2"] and c["UTMALDG"] and c["UTMASTG"]
+               for c in bwd_sass.values()):
+        raise AssertionError("the scan's backward has no ex2, TMA load or "
+                             "TMA store")
 
     rng = np.random.default_rng(SEED)
     results = {}
@@ -683,8 +744,8 @@ def phase_kernel(torch) -> dict:
                              bound_by=bound_by)
         log(f"[kernel] {name}: B={B} S={S} T={T} H={H} K={K} hd={hd} "
             f"causal={causal} {dtype}: max|err| {err:.3g} (tol {tol}) "
-            f"kernel {ms:.4f} ms by events ({dev_ms:.4f} ms of it on the "
-            f"device, {dev_ms / ms:.1%}), plain {plain_ms:.3f} ms, "
+            f"kernel {ms:.4f} ms by events ({on_device(dev_ms, ms)}), "
+            f"plain {plain_ms:.3f} ms, "
             f"sdpa (library_ms) {lib_ms:.4f} ms, bound {bound:.4f} ms by "
             f"{bound_by} "
             f"(roofline share {bound / ms:.1%})")
@@ -753,8 +814,8 @@ def phase_gather(torch) -> dict:
                              bound_by=bound_by)
         log(f"[gather] {name}: T={T} d={d} S={S} kept {n_kept} ({rows} "
             f"distinct rows) {dtype}: bit-equal, max|err| {err:.3g}; "
-            f"copied in {words}: kernel {ms:.4f} ms by events ({dev_ms:.4f} "
-            f"ms of it on the device, {dev_ms / ms:.1%}), plain "
+            f"copied in {words}: kernel {ms:.4f} ms by events "
+            f"({on_device(dev_ms, ms)}), plain "
             f"{plain_ms:.4f} ms, index_select "
             f"(library_ms) {lib_ms:.4f} ms, bound {bound:.4f} ms by "
             f"{bound_by} (roofline share {bound / ms:.1%})")
@@ -817,21 +878,28 @@ def phase_scan(torch) -> dict:
 
 def phase_gather_bwd(torch) -> dict:
     """moe_gather's forward and backward against their plain versions, bit
-    for bit, at the training dispatch shape in float32 and bf16, the
-    backward twice for the same bits; ``index_add_`` over the kept rows
-    as yardstick."""
+    for bit, at the training dispatch shape in float32 and bf16: the
+    backward given the (T, k) map of each token's slots (built outside the
+    timed call by ``ref.gather_slots``, its time logged apart), twice for
+    the same bits, and through ``ops.moe_gather(..., slots=)`` with
+    autograd (one launch of each kernel, the same bits); ``index_add_``
+    over the kept rows as yardstick. Then, untimed, the backward bit for
+    bit at GATHER_BWD_WIDE, maps wider than the kernel's fan of 8 slots a
+    token."""
     import numpy as np
 
     from repro_torch.kernels import moe_dispatch as mg
-    from repro_torch.kernels.ref import moe_gather_bwd_ref, moe_gather_ref
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (gather_slots, moe_gather_bwd_ref,
+                                         moe_gather_ref)
     from repro_torch.launch.bounds import gather_bwd_bound_ms
 
     rng = np.random.default_rng(SEED)
     results = {}
     for name, T, d, S, n_kept, dtype in GATHER_BWD_CASES:
-        slots = rng.choice(S, n_kept, replace=False)
+        slots_np = rng.choice(S, n_kept, replace=False)
         ids_np = np.full(S, -1, np.int32)
-        ids_np[slots] = rng.permutation(np.resize(np.arange(T), n_kept))
+        ids_np[slots_np] = rng.permutation(np.resize(np.arange(T), n_kept))
         ids = torch.from_numpy(ids_np).to(DEVICE)
         keep = ids >= 0
         g = torch.from_numpy(rng.standard_normal(
@@ -842,39 +910,73 @@ def phase_gather_bwd(torch) -> dict:
                            moe_gather_ref(x, ids, keep).view(view)):
             raise AssertionError(f"moe_gather at the training case {name}: "
                                  f"not bit-equal to the plain version")
-        out = mg.moe_gather_bwd(g, ids, keep, T)
-        again = mg.moe_gather_bwd(g, ids, keep, T)
+        map_ms = cuda_ms(torch, lambda: gather_slots(ids, keep, T), 5)
+        slots = gather_slots(ids, keep, T)
+        out = mg.moe_gather_bwd(g, slots)
+        again = mg.moe_gather_bwd(g, slots)
         torch.cuda.synchronize()
-        want = moe_gather_bwd_ref(g, ids, keep, T)
+        want = moe_gather_bwd_ref(g, slots)
         if not torch.equal(out.view(view), want.view(view)):
             raise AssertionError(f"moe_gather_bwd case {name}: not "
                                  f"bit-equal to the plain version")
         if not torch.equal(out.view(view), again.view(view)):
             raise AssertionError(f"moe_gather_bwd case {name}: two runs "
                                  f"differ")
+        xg = x.detach().clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        dx, = torch.autograd.grad(ops.moe_gather(xg, ids, keep, slots=slots),
+                                  xg, g)
+        counts = ops.launch_counts()
+        if counts["moe_gather"] != 1 or counts["moe_gather_bwd"] != 1 \
+                or not torch.equal(dx.view(view), out.view(view)):
+            raise AssertionError(f"moe_gather_bwd case {name}: the autograd "
+                                 f"path's launches {counts} or bits differ "
+                                 f"from the direct call's")
         err = float((out.float() - want.float()).abs().max())
-        ms = cuda_ms(torch, lambda: mg.moe_gather_bwd(g, ids, keep, T), 50)
-        dev_ms = device_ms(torch, lambda: mg.moe_gather_bwd(g, ids, keep, T),
-                           50, "moe_gather_bwd")
-        plain_ms = cuda_ms(torch, lambda: moe_gather_bwd_ref(g, ids, keep, T),
-                           5, warmup=1)
+        ms = cuda_ms(torch, lambda: mg.moe_gather_bwd(g, slots), 50)
+        dev_ms = device_ms(torch, lambda: mg.moe_gather_bwd(g, slots), 50,
+                           "moe_gather_bwd", launches=1)
+        plain_ms = cuda_ms(torch, lambda: moe_gather_bwd_ref(g, slots), 5,
+                           warmup=1)
         rows, g_kept = ids[keep].long(), g[keep]
         acc = torch.zeros((T, d), dtype=g.dtype, device=DEVICE)
         lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, rows, g_kept), 50)
-        bound, bound_by = gather_bwd_bound_ms(n_kept, T, d, S,
+        bound, bound_by = gather_bwd_bound_ms(n_kept, T, d, slots.shape[1],
                                               g.element_size())
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound,
-                             bound_by=bound_by)
-        log(f"[gather_bwd] {name}: T={T} d={d} S={S} kept {n_kept} {dtype}: "
-            f"the forward bit-equal; the backward bit-equal, the same bits "
-            f"twice, max|err| {err:.3g}; wrapper "
-            f"{ms:.4f} ms by events (the kernel {dev_ms:.4f} ms on the "
-            f"device; the rest builds the inverse map, a stable sort), "
-            f"plain {plain_ms:.4f} ms, index_add_ (library_ms) "
-            f"{lib_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} (roofline "
-            f"share {bound / ms:.1%}; the kernel alone {bound / dev_ms:.1%})")
-        del g, x, ids, keep, out, again, want, rows, g_kept, acc
+                             bound_by=bound_by, dev_ms=dev_ms)
+        alone = ("the kernel's device time not measured" if dev_ms is None
+                 else f"the kernel {dev_ms:.4f} ms on the device, "
+                 f"{bound / dev_ms:.1%} of the bound")
+        log(f"[gather_bwd] {name}: T={T} d={d} S={S} kept {n_kept} {dtype}, "
+            f"map ({T}, {slots.shape[1]}): the forward bit-equal; the "
+            f"backward bit-equal, the same bits twice and through autograd "
+            f"(one launch each), max|err| {err:.3g}; wrapper {ms:.4f} ms by "
+            f"events ({alone}), plain "
+            f"{plain_ms:.4f} ms, index_add_ (library_ms) {lib_ms:.4f} ms, "
+            f"bound {bound:.4f} ms by {bound_by} (roofline share "
+            f"{bound / ms:.1%}); the "
+            f"map from ids and keep flags (ref.gather_slots, outside the "
+            f"timed call; moe_apply hands over its own) {map_ms:.4f} ms")
+        del g, x, ids, keep, out, again, want, rows, g_kept, acc, slots, dx
+    for T, d, S, n_kept, dtype in GATHER_BWD_WIDE:
+        ids_np = np.full(S, -1, np.int32)
+        ids_np[rng.choice(S, n_kept, replace=False)] = rng.permutation(
+            np.resize(np.arange(T), n_kept))
+        ids = torch.from_numpy(ids_np).to(DEVICE)
+        g = torch.from_numpy(rng.standard_normal(
+            (S, d), dtype=np.float32)).to(DEVICE, getattr(torch, dtype))
+        slots = gather_slots(ids, ids >= 0, T)
+        view = torch.int16 if g.element_size() == 2 else torch.int32
+        out = mg.moe_gather_bwd(g, slots)
+        if slots.shape[1] != -(-n_kept // T) or not torch.equal(
+                out.view(view), moe_gather_bwd_ref(g, slots).view(view)):
+            raise AssertionError(f"moe_gather_bwd at T={T} d={d} S={S} kept "
+                                 f"{n_kept} {dtype}, map {tuple(slots.shape)}"
+                                 f": not bit-equal to the plain version")
+        log(f"[gather_bwd] wide map: T={T} d={d} S={S} kept {n_kept} "
+            f"{dtype}, map {tuple(slots.shape)}: bit-equal")
     torch.cuda.empty_cache()
     return results
 
@@ -883,13 +985,24 @@ def phase_scan_bwd(torch) -> dict:
     """ssm_scan's backward against the plain version's autograd (the
     sequential loop, differentiated by torch) at jamba's full Mamba shape
     and at the reduced training shape, within SCAN_BWD_TOL of each
-    output's largest value, twice for the same bits; the forward at the
-    same inputs within SCAN_TOL."""
+    output's largest value: each instance (``ss.BWD_CHANNELS``) given the
+    checkpointing forward's checkpoints, twice for the same bits, and
+    without them (the wrapper runs that forward first) for the same bits
+    again; the checkpointing forward's y equal to the serving forward's,
+    and within SCAN_TOL of the plain loop's; its checkpoints bit-equal
+    through autograd, whose gradients are the direct call's bits with one
+    launch of each kernel. Times the backward given the checkpoints, the
+    checkpointing forward and the pair, each beside its bound and the
+    function's own minimum (the bound without the checkpoints' traffic,
+    which the design's spacing sets)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as ss
-    from repro_torch.kernels.ref import ssm_scan_bwd_ref, ssm_scan_ref
-    from repro_torch.launch.bounds import scan_bwd_bound_ms
+    from repro_torch.kernels.ref import (ssm_scan_bwd_ref,
+                                         ssm_scan_checkpointed_ref,
+                                         ssm_scan_ref)
+    from repro_torch.launch.bounds import scan_bound_ms, scan_bwd_bound_ms
 
     gen = torch.Generator(DEVICE).manual_seed(SEED)
     results = {}
@@ -902,50 +1015,134 @@ def phase_scan_bwd(torch) -> dict:
         proj = mk(Bt, L, 2 * N + 8)  # B, C strided, as mamba_apply's
         B, C = proj[..., 8:8 + N], proj[..., 8 + N:]
         x, g = mk(Bt, L, di), mk(Bt, L, di)
-        out = ss.ssm_scan_bwd(dt, A, B, C, x, g)
-        again = ss.ssm_scan_bwd(dt, A, B, C, x, g)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out, again)):
-            raise AssertionError(f"ssm_scan_bwd case {name}: two runs "
-                                 f"differ")
+        y_ck, ck = ss.ssm_scan_checkpointed(dt, A, B, C, x)
+        y = ss.ssm_scan(dt, A, B, C, x)
+        if not torch.equal(y_ck, y):
+            raise AssertionError(f"ssm_scan case {name}: the checkpointing "
+                                 f"forward's y differs from the serving "
+                                 f"forward's")
         leaves = [t.detach().clone().requires_grad_(True)
                   for t in (dt, A, B, C, x)]
         y_ref = ssm_scan_ref(*leaves)
         want = torch.autograd.grad(y_ref, leaves, g)
         y_ref = y_ref.detach()
-        y = ss.ssm_scan(dt, A, B, C, x)
         if bool(((y - y_ref).abs() > SCAN_TOL + SCAN_TOL * y_ref.abs())
                 .any()):
             raise AssertionError(f"ssm_scan at the case {name}: outside "
                                  f"atol=rtol={SCAN_TOL}")
-        del leaves, y, y_ref
-        errs, rels = {}, {}
-        for gname, got, w in zip(("ddt", "dA", "dB", "dC", "dx"), out, want):
-            errs[gname] = float((got - w).abs().max())
-            rels[gname] = errs[gname] / float(w.abs().max())
-            if not torch.isfinite(got).all() or rels[gname] > SCAN_BWD_TOL:
-                raise AssertionError(
-                    f"ssm_scan_bwd case {name}: {gname} max|err| "
-                    f"{errs[gname]:.3g} over {SCAN_BWD_TOL} of its largest "
-                    f"value ({rels[gname]:.3g})")
-        del want, again
-        ms = cuda_ms(torch, lambda: ss.ssm_scan_bwd(dt, A, B, C, x, g), 5)
-        fwd_ms = cuda_ms(torch, lambda: ss.ssm_scan(dt, A, B, C, x), 5)
+        ck_ref = ssm_scan_checkpointed_ref(dt, A, B, C, x)[1]
+        ck_err = float((ck - ck_ref).abs().max() / ck_ref.abs().max())
+        if not ck_err <= SCAN_BWD_TOL:
+            raise AssertionError(f"ssm_scan case {name}: checkpoints off "
+                                 f"the plain loop's states by {ck_err:.3g} "
+                                 f"of their largest")
+        del leaves, y, y_ref, y_ck, ck_ref
+        per_plan, outs = {}, {}
+        for channels in ss.BWD_CHANNELS:
+            label = f"{ss.BWD_LANES}x{channels}"
+
+            def bwd(ck=ck, channels=channels):
+                return ss.ssm_scan_bwd(dt, A, B, C, x, g, ck=ck,
+                                       channels=channels)
+
+            out, again, direct = bwd(), bwd(), bwd(None)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(out, again, direct)):
+                raise AssertionError(f"ssm_scan_bwd case {name}, {label}: "
+                                     f"two runs, or the runs with and "
+                                     f"without the checkpoints, differ")
+            errs, rels = {}, {}
+            for gname, got, w in zip(("ddt", "dA", "dB", "dC", "dx"), out,
+                                     want):
+                errs[gname] = float((got - w).abs().max())
+                rels[gname] = errs[gname] / float(w.abs().max())
+                if not torch.isfinite(got).all() \
+                        or rels[gname] > SCAN_BWD_TOL:
+                    raise AssertionError(
+                        f"ssm_scan_bwd case {name}, {label}: {gname} "
+                        f"max|err| {errs[gname]:.3g} over {SCAN_BWD_TOL} of "
+                        f"its largest value ({rels[gname]:.3g})")
+            per_plan[label] = dict(ms=cuda_ms(torch, bwd, SCAN_BWD_REPS),
+                                   bwd=bwd, max_abs_err=max(errs.values()),
+                                   rels=rels)
+            outs[label] = out
+            del again, direct
+        # the autograd path: the checkpointing forward, then the backward
+        # reading its checkpoints, at the plan's instance
+        default = ss.bwd_plan(Bt, di)
+        label = f"{default.lanes}x{default.channels}"
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (dt, A, proj, x)]
+        lp = leaves[2]
+        ops.reset_launch_counts()
+        y = ops.ssm_scan(leaves[0], leaves[1], lp[..., 8:8 + N],
+                         lp[..., 8 + N:], leaves[3])
+        ck_fwd = y.grad_fn.saved_tensors[5]
+        grads = torch.autograd.grad(y, leaves, g)
+        counts = ops.launch_counts()
+        auto = (grads[0], grads[1], grads[2][..., 8:8 + N],
+                grads[2][..., 8 + N:], grads[3])
+        if not torch.equal(ck_fwd, ck) \
+                or not all(torch.equal(a, b)
+                           for a, b in zip(auto, outs[label])) \
+                or counts["ssm_scan"] != 1 or counts["ssm_scan_bwd"] != 1:
+            raise AssertionError(f"ssm_scan_bwd case {name}: the autograd "
+                                 f"path's checkpoints, gradients or "
+                                 f"launches {counts} differ from the direct "
+                                 f"call's")
+        del leaves, lp, y, ck_fwd, grads, auto, outs
+        bwd_ms = per_plan[label]["ms"]
+        fwd_ms = cuda_ms(torch, lambda: ss.ssm_scan(dt, A, B, C, x),
+                         SCAN_BWD_REPS)
+        fwd_ck_ms = cuda_ms(
+            torch, lambda: ss.ssm_scan_checkpointed(dt, A, B, C, x),
+            SCAN_BWD_REPS)
+
+
+        def pair():
+            _, c = ss.ssm_scan_checkpointed(dt, A, B, C, x)
+            return ss.ssm_scan_bwd(dt, A, B, C, x, g, ck=c)
+
+        pair_ms = cuda_ms(torch, pair, SCAN_BWD_REPS)
+        for v in per_plan.values():  # the kernel and its finish, a call
+            v["dev_ms"] = device_ms(torch, v.pop("bwd"), SCAN_BWD_REPS,
+                                    "ssm_scan_bwd", 2)
         plain_ms = cuda_ms(torch, lambda: ssm_scan_bwd_ref(dt, A, B, C, x, g),
                            1, warmup=1)
         bound, bound_by = scan_bwd_bound_ms(Bt, L, di, N)
-        results[name] = dict(max_abs_err=max(errs.values()), ms=ms,
-                             plain_ms=plain_ms, library_ms=None,
-                             bound_ms=bound, bound_by=bound_by)
+        own, own_by = scan_bwd_bound_ms(Bt, L, di, N, checkpoints=False)
+        fwd_bound, _ = scan_bound_ms(Bt, L, di, N)
+        ck_bound, ck_by = scan_bound_ms(Bt, L, di, N, checkpoints=True)
+        results[name] = dict(max_abs_err=per_plan[label]["max_abs_err"],
+                             ms=bwd_ms, plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bound, bound_by=bound_by,
+                             fwd_ck_ms=fwd_ck_ms, pair_ms=pair_ms)
+        plans = "; ".join(
+            f"{k} {v['ms']:.4f} ms ({on_device(v['dev_ms'], v['ms'])}), "
+            f"max|err|/max|plain autograd| "
+            f"{json.dumps({n: float(f'{e:.3g}') for n, e in v['rels'].items()})}"
+            for k, v in per_plan.items())
         log(f"[scan_bwd] {name}: Bt={Bt} L={L} di={di} N={N} float32, B "
-            f"and C strided: max|err|/max|plain autograd| "
-            f"{json.dumps({k: float(f'{v:.3g}') for k, v in rels.items()})} "
-            f"(tol {SCAN_BWD_TOL}), the same bits twice, the forward within "
-            f"{SCAN_TOL}; kernel {ms:.4f} ms "
-            f"(the forward {fwd_ms:.4f} ms), plain reverse scan "
-            f"{plain_ms:.3f} ms, no library call, bound {bound:.4f} ms by "
-            f"{bound_by} (roofline share {bound / ms:.1%})")
-        del dt, A, proj, B, C, x, g, out
+            f"and C strided: instances (lanes x channels) {plans} (tol "
+            f"{SCAN_BWD_TOL}; each the same bits twice and without the "
+            f"checkpoints); the checkpointing forward's y the serving "
+            f"forward's bits, its checkpoints within {ck_err:.3g} of the "
+            f"plain loop's states and bit-equal through autograd, whose "
+            f"gradients are the {label} call's bits (one launch each)")
+        log(f"[scan_bwd] {name}: the backward given the checkpoints "
+            f"({label}) {bwd_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+            f"(roofline share {bound / bwd_ms:.1%}; the function's own "
+            f"minimum, without the checkpoints' reads, {own:.4f} ms by "
+            f"{own_by}: {own / bwd_ms:.1%}); the checkpointing forward "
+            f"{fwd_ck_ms:.4f} ms, bound {ck_bound:.4f} ms by {ck_by} (the "
+            f"serving forward {fwd_ms:.4f} ms, bound {fwd_bound:.4f}); the "
+            f"pair a training step pays {pair_ms:.4f} ms, bound "
+            f"{bound + ck_bound:.4f} ms ({(bound + ck_bound) / pair_ms:.1%});"
+            f" without checkpoint traffic {own + fwd_bound:.4f} ms "
+            f"({(own + fwd_bound) / pair_ms:.1%}); plain reverse scan "
+            f"{plain_ms:.3f} ms, no library call")
+        del dt, A, proj, B, C, x, g, ck
         torch.cuda.empty_cache()
     return results
 
@@ -1041,7 +1238,7 @@ def phase_paged(torch) -> dict:
             f"{int(lengths_np.min())}..{int(lengths_np.max())} (mean "
             f"{lengths_np.mean():.0f}){', holes' if holes else ''}: "
             f"max|err| {err:.3g} (tol {tol}){row_note}; kernel {ms:.4f} ms "
-            f"by events ({dev_ms:.4f} ms of it on the device), plain "
+            f"by events ({on_device(dev_ms, ms)}), plain "
             f"{plain_ms:.3f} ms, sdpa over the pre-gathered dense copy "
             f"(library_ms; gather not timed) {lib_ms:.4f} ms, bound "
             f"{bound:.4f} ms by {bound_by} (roofline share "
@@ -1059,9 +1256,9 @@ def kept_slots(ops, record: list):
     scalar each (no host sync), summed after the run."""
     real = ops.moe_gather
 
-    def recording(x, token_ids, keep):
+    def recording(x, token_ids, keep, slots=None):
         record.append(keep.sum())
-        return real(x, token_ids, keep)
+        return real(x, token_ids, keep, slots=slots)
 
     ops.moe_gather = recording
     try:
@@ -1853,11 +2050,11 @@ def phase_relational_kernels(torch) -> dict:
                     return ops.segment_reduce(flat[0], groups, tv, dts,
                                               combs)
                 k2_ms[name] = cuda_ms(torch, call, 3, warmup=1)
-                on_device = device_ms(torch, call, 3, "")
+                dev_ms = device_ms(torch, call, 3, "")
                 log(f"[relational] segment_reduce {name} ({rows:,} rows, "
                     f"{groups:,} groups, {len(vals)} columns, sums): "
-                    f"{k2_ms[name]:.3f} ms by events, {on_device:.3f} ms "
-                    f"on the device; {probes['smi']}")
+                    f"{k2_ms[name]:.3f} ms by events "
+                    f"({on_device(dev_ms, k2_ms[name])}); {probes['smi']}")
             segs += 1
             del flat, tv, got, plain
     log(f"[relational] segment_reduce: {segs} calls (float64 with NaN "

@@ -29,15 +29,20 @@
 // The backward (repro_moe_gather_bwd) is the gradient the reference takes
 // by autodiff of its dispatch, models/moe.py:117 (``.at[pos].set(xt[st])``)
 // with respect to xt: dx[t] = the sum of g[s] over the kept slots s of
-// token t. The TPU has no kernel for it. Here it is a sum without atomics:
-// the wrapper hands over the kept slots sorted by token (stable, so each
-// token's slots stay in increasing order) and each token's range in that
-// list; one warp owns one token row and adds its slots' rows of g in that
-// order, in float32, and rounds once. So the result is the same bits on
-// every run and equals the plain version (ref.moe_gather_bwd_ref), which
-// adds in the same order, bit for bit. Bound by bytes: each kept slot's
-// row of g read once, dx written once.
+// token t. The TPU has no kernel for it. Here it is a fixed-fan-in
+// gather-sum without atomics and without an inverse map: the caller hands
+// over each token's slots, a (T, k) int64 map in increasing slot order with
+// dropped slots at S or beyond (moe_apply's ``pos_tok``, which the forward
+// already holds). One warp owns one token row: it reads the token's k slot
+// ids once, skips those outside [0, S), and adds the kept slots' rows of g
+// in map order, in float32, rounding once. So the result is the same bits
+// on every run and equals the plain version (ref.moe_gather_bwd_ref), which
+// adds in the same order, bit for bit; the wrapper makes one launch. Bound
+// by bytes: each kept slot's row of g read once, the map read once, dx
+// written once.
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -133,50 +138,106 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// One warp per token row t: dx[t] = sum over k in [offsets[t],
-// offsets[t + 1]) of g[order[k]], in that order, in float32. Lanes walk
-// the row in groups of V elements (one 16-byte word, or one element).
+// One warp per token row t: dx[t] = the sum of g[slots[t, i]] over i < k
+// whose slot lies in [0, S), in increasing i, in float32. Lanes walk the
+// row in groups of V elements (one 16-byte word, or one element); the loop
+// over the row is warp-uniform, so the shuffles see every lane.
+//   - k <= kFan (every model's top-k): the warp reads the token's slot ids
+//     once, one a lane, each lane takes all k by shuffles, and for each
+//     group issues the k loads before it adds any, so they are in flight
+//     together;
+//   - a wider map: the ids 32 at a time, one a lane, the kept ones walked
+//     by their ballot, one load after another.
+constexpr int kFan = 8;
+
+// A group of V elements as one word: the element itself, or 16 bytes.
+template <typename E, int V>
+using Word = typename std::conditional<V == 1, E, uint4>::type;
+
+template <typename E, int V>
+__device__ __forceinline__ void add_bits(float (&acc)[V],
+                                         const Word<E, V>& w) {
+  const E* e = reinterpret_cast<const E*>(&w);
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] += to_f32(e[i]);
+}
+
+template <typename E, int V>
+__device__ __forceinline__ void add_word(float (&acc)[V], const E* src) {
+  add_bits<E, V>(acc, __ldg(reinterpret_cast<const Word<E, V>*>(src)));
+}
+
+template <typename E, int V>
+__device__ __forceinline__ void store_word(E* dst, const float (&acc)[V]) {
+  if constexpr (V == 1) {
+    dst[0] = from_f32<E>(acc[0]);
+  } else {
+    uint4 w;
+    E* e = reinterpret_cast<E*>(&w);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_f32<E>(acc[i]);
+    *reinterpret_cast<uint4*>(dst) = w;
+  }
+}
+
 template <typename E, int V>
 __global__ void __launch_bounds__(kWarps * 32)
     moe_gather_bwd_rows(const E* __restrict__ g,
-                        const int32_t* __restrict__ order,
-                        const int32_t* __restrict__ offsets,
+                        const int64_t* __restrict__ slots, int k, int64_t S,
                         E* __restrict__ dx, int64_t T, int64_t d) {
+  using W = Word<E, V>;
   const int64_t t =
       static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (t >= T) return;
+  if (t >= T) return;  // warp-uniform
   const int lane = threadIdx.x & 31;
-  const int k0 = offsets[t], k1 = offsets[t + 1];
+  const int64_t* row = slots + t * k;
   E* dst = dx + t * d;
-  for (int64_t j = static_cast<int64_t>(lane) * V; j < d; j += 32 * V) {
+  if (k <= kFan) {
+    const int64_t mine = lane < k ? __ldg(row + lane) : -1;
+    int64_t s[kFan];
+#pragma unroll
+    for (int i = 0; i < kFan; ++i) {
+      s[i] = __shfl_sync(0xffffffffu, mine, i);
+      if (!(s[i] >= 0 && s[i] < S)) s[i] = -1;  // lanes >= k hold -1
+    }
+    for (int64_t j = static_cast<int64_t>(lane) * V; j < d; j += 32 * V) {
+      W w[kFan];
+#pragma unroll
+      for (int i = 0; i < kFan; ++i)
+        if (s[i] >= 0)
+          w[i] = __ldg(reinterpret_cast<const W*>(g + s[i] * d + j));
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kFan; ++i)
+        if (s[i] >= 0) add_bits<E, V>(acc, w[i]);
+      store_word<E, V>(dst + j, acc);
+    }
+    return;
+  }
+  auto ids = [&](int i0, int64_t& mine) {  // slot ids i0 .. i0 + 31
+    mine = i0 + lane < k ? __ldg(row + i0 + lane) : -1;
+    return __ballot_sync(0xffffffffu, mine >= 0 && mine < S);
+  };
+  for (int64_t j0 = 0; j0 < d; j0 += 32 * V) {
+    const int64_t j = j0 + static_cast<int64_t>(lane) * V;
     float acc[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    for (int k = k0; k < k1; ++k) {
-      const E* src = g + static_cast<int64_t>(order[k]) * d + j;
-      if constexpr (V == 1) {
-        acc[0] += to_f32(src[0]);
-      } else {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(src));
-        const E* e = reinterpret_cast<const E*>(&w);
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] += to_f32(e[i]);
+    for (int i0 = 0; i0 < k; i0 += 32) {
+      int64_t mine;
+      for (unsigned kept = ids(i0, mine); kept; kept &= kept - 1) {
+        const int64_t s = __shfl_sync(0xffffffffu, mine, __ffs(kept) - 1);
+        if (j < d) add_word<E, V>(acc, g + s * d + j);
       }
     }
-    if constexpr (V == 1) {
-      dst[j] = from_f32<E>(acc[0]);
-    } else {
-      uint4 w;
-      E* e = reinterpret_cast<E*>(&w);
-#pragma unroll
-      for (int i = 0; i < V; ++i) e[i] = from_f32<E>(acc[i]);
-      *reinterpret_cast<uint4*>(dst + j) = w;
-    }
+    if (j < d) store_word<E, V>(dst + j, acc);
   }
 }
 
 template <typename E>
-void launch_bwd(const void* g, const int32_t* order, const int32_t* offsets,
+void launch_bwd(const void* g, const int64_t* slots, int k, int64_t S,
                 void* dx, int64_t T, int64_t d, bool vec,
                 cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((T + kWarps - 1) / kWarps);
@@ -184,48 +245,49 @@ void launch_bwd(const void* g, const int32_t* order, const int32_t* offsets,
   auto* out = static_cast<E*>(dx);
   constexpr int kV = 16 / static_cast<int>(sizeof(E));
   if (vec) {
-    moe_gather_bwd_rows<E, kV>
-        <<<blocks, kWarps * 32, 0, stream>>>(gp, order, offsets, out, T, d);
+    moe_gather_bwd_rows<E, kV><<<blocks, kWarps * 32, 0, stream>>>(
+        gp, slots, k, S, out, T, d);
   } else {
-    moe_gather_bwd_rows<E, 1>
-        <<<blocks, kWarps * 32, 0, stream>>>(gp, order, offsets, out, T, d);
+    moe_gather_bwd_rows<E, 1><<<blocks, kWarps * 32, 0, stream>>>(
+        gp, slots, k, S, out, T, d);
   }
 }
 
-// g: (S, d) contiguous; order: the kept slots' ids sorted by token, stable;
-// offsets: (T + 1,) int32, token t's slots at order[offsets[t] ..
-// offsets[t + 1]); dx: (T, d) contiguous, elements of elem_size bytes (2:
-// bf16, 4: float32). T > 0.
-int gather_bwd(int device, const void* g, const void* order,
-               const void* offsets, void* dx, int64_t T, int64_t d,
-               int elem_size, void* stream) {
+// g: (S, d) contiguous; slots: (T, k) int64 contiguous, token t's slots at
+// row t in the order they are added, entries outside [0, S) skipped; dx:
+// (T, d) contiguous, elements of elem_size bytes (2: bf16, 4: float32).
+// T > 0, d > 0, k >= 0.
+int gather_bwd(int device, const void* g, const void* slots, void* dx,
+               int64_t T, int64_t k, int64_t S, int64_t d, int elem_size,
+               void* stream) {
   DeviceGuard guard(device);
   if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
-  if (T <= 0 || d <= 0 || (elem_size != 2 && elem_size != 4))
+  if (T <= 0 || d <= 0 || k < 0 || k > INT32_MAX - 32 ||
+      (elem_size != 2 && elem_size != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
                    (d * elem_size) % 16 == 0;
-  const auto* ord = static_cast<const int32_t*>(order);
-  const auto* off = static_cast<const int32_t*>(offsets);
+  const auto* sl = static_cast<const int64_t*>(slots);
   auto st = static_cast<cudaStream_t>(stream);
+  const int kk = static_cast<int>(k);
   if (elem_size == 2) {
-    launch_bwd<__nv_bfloat16>(g, ord, off, dx, T, d, vec, st);
+    launch_bwd<__nv_bfloat16>(g, sl, kk, S, dx, T, d, vec, st);
   } else {
-    launch_bwd<float>(g, ord, off, dx, T, d, vec, st);
+    launch_bwd<float>(g, sl, kk, S, dx, T, d, vec, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The backward's arguments as one block of n = 9 int64: device, g, order,
-// offsets, dx, T, d, elem_size, stream.
+// The backward's arguments as one block of n = 10 int64: device, g,
+// slots, dx, T, k, S, d, elem_size, stream.
 extern "C" int repro_moe_gather_bwd(const int64_t* a, int n) {
-  if (n != 9) return static_cast<int>(cudaErrorInvalidValue);
+  if (n != 10) return static_cast<int>(cudaErrorInvalidValue);
   auto p = [&](int i) { return reinterpret_cast<void*>(a[i]); };
-  return gather_bwd(static_cast<int>(a[0]), p(1), p(2), p(3), p(4), a[5],
-                    a[6], static_cast<int>(a[7]), p(8));
+  return gather_bwd(static_cast<int>(a[0]), p(1), p(2), p(3), a[4], a[5],
+                    a[6], a[7], static_cast<int>(a[8]), p(9));
 }
 
 // The wrapper's arguments as one block of n = 11 int64 (kernels/nvcc.py

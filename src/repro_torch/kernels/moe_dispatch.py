@@ -21,13 +21,16 @@ a microsecond and the host's launch path is the time. The design follows:
 The backward (``moe_gather_bwd``, the C entry ``repro_moe_gather_bwd`` of
 the same source) is the gradient with respect to x that the reference
 takes by autodiff of its dispatch (``repro/models/moe.py:117``): dx[t] sums
-g over token t's kept slots. It takes no atomics: the wrapper builds the
-inverse map on the card (``ref.gather_inverse``, a stable sort of the ids)
-and one warp per token adds its slots' rows in increasing slot order in
-float32, rounding once, so every run gives the same bits, and the plain
-version's (``ref.moe_gather_bwd_ref``). At qwen2-moe's training shape (T =
-4,096, d = 2,048, 16,384 kept of S = 20,640 slots, float32) it reads 134 MB
-of g and writes 34 MB of dx: ~0.05 ms at 3.35 TB/s.
+g over token t's kept slots. It takes no atomics and builds no inverse
+map: it is given each token's slots, a (T, k) int64 map in increasing slot
+order with dropped slots at S (``moe_apply``'s ``pos_tok``, handed over as
+``ops.moe_gather(..., slots=)``; ``ref.gather_slots`` builds one from ids
+and keep flags for a caller without it). One warp per token adds its kept
+slots' rows in map order in float32, rounding once, so every run gives the
+same bits, and the plain version's (``ref.moe_gather_bwd_ref``), in one
+launch. At qwen2-moe's training shape (T = 4,100, d = 2,048, 16,400 kept of
+S = 20,640 slots, float32) it reads 134 MB of g and writes 34 MB of dx:
+~0.05 ms at 3.35 TB/s.
 
 The source is compiled with nvcc for sm_90a at first use and bound
 through ctypes (``kernels/nvcc.py``).
@@ -41,10 +44,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import nvcc
-from repro_torch.kernels.ref import gather_inverse
 
-__all__ = ["moe_gather", "moe_gather_bwd", "check_shapes", "build",
-           "build_bwd", "LAUNCHES", "LAUNCHES_BWD", "SOURCE"]
+__all__ = ["moe_gather", "moe_gather_bwd", "check_shapes", "check_slots",
+           "build", "build_bwd", "LAUNCHES", "LAUNCHES_BWD", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gather.cu"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -131,23 +133,38 @@ def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
     return out
 
 
-def moe_gather_bwd(g: torch.Tensor, token_ids: torch.Tensor,
-                   keep: torch.Tensor, T: int) -> torch.Tensor:
+def check_slots(slots: torch.Tensor, T: int) -> None:
+    """The backward's map: (T, k) int64, each token's slots in the order
+    they are added, dropped slots outside [0, S)."""
+    if slots.dim() != 2 or slots.shape[0] != T \
+            or slots.dtype != torch.int64:
+        raise ValueError(f"want slots ({T}, k) int64; got "
+                         f"{tuple(slots.shape)} {slots.dtype}")
+
+
+def moe_gather_bwd(g: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Launch the backward kernel: dx (T, d) in g's dtype from the (S, d)
-    gradient g of the dispatch buffer (float32 or bfloat16, made
-    contiguous), token_ids (S,) int32 and keep (S,) bool as the forward
-    took them. Written on the current stream of g's device."""
-    g = g.contiguous()
-    if not _inputs_ok(g, token_ids, keep) or T <= 0:
-        check_shapes(g, token_ids, keep)
-        _check_kernel_inputs(g, token_ids, keep)
-        raise ValueError(f"moe_gather_bwd: T={T} tokens")
-    dx = g.new_empty((T, g.shape[1]))
+    gradient g of the dispatch buffer (float32 or bfloat16) and the (T, k)
+    int64 map of each token's slots (``check_slots``), T > 0, both on one
+    card and made contiguous. Written on the current stream of g's
+    device."""
+    g, slots = g.contiguous(), slots.contiguous()
+    if not (g.dim() == 2 and slots.dim() == 2 and slots.shape[0] > 0
+            and slots.dtype is torch.int64
+            and (g.dtype is torch.bfloat16 or g.dtype is torch.float32)
+            and g.is_cuda and slots.is_cuda
+            and g.get_device() == slots.get_device()):
+        raise ValueError(f"moe_gather_bwd wants g (S, d) float32 or "
+                         f"bfloat16 and slots (T, k) int64, T > 0, on one "
+                         f"CUDA device; got g {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device}, slots {tuple(slots.shape)} "
+                         f"{slots.dtype} on {slots.device}")
+    (S, d), (T, k) = g.shape, slots.shape
+    dx = g.new_empty((T, d))
     if dx.numel() == 0:
         return dx
-    order, offsets = gather_inverse(token_ids, keep, T)
     nvcc.launch(build_bwd(), "moe_gather_bwd", g.get_device(), g.data_ptr(),
-                order.data_ptr(), offsets.data_ptr(), dx.data_ptr(), T,
-                g.shape[1], g.element_size())
+                slots.data_ptr(), dx.data_ptr(), T, k, S, d,
+                g.element_size())
     LAUNCHES_BWD.add()
     return dx

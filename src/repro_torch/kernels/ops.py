@@ -47,32 +47,34 @@ def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
 
 
 class _MoeGather(torch.autograd.Function):
-    """The gather on a card: forward and backward kernels."""
+    """The gather on a card: forward and backward kernels. The backward
+    reads each token's slots from the map the forward was given."""
 
     @staticmethod
-    def forward(ctx, x, token_ids, keep):
-        ctx.save_for_backward(token_ids, keep)
-        ctx.n_tokens = x.shape[0]
+    def forward(ctx, x, token_ids, keep, slots):
+        ctx.save_for_backward(slots)
         return _moe.moe_gather(x, token_ids, keep)
 
     @staticmethod
     def backward(ctx, g):
-        token_ids, keep = ctx.saved_tensors
-        return _moe.moe_gather_bwd(g, token_ids, keep, ctx.n_tokens), \
-            None, None
+        slots, = ctx.saved_tensors
+        return _moe.moe_gather_bwd(g, slots), None, None, None
 
 
 class _SsmScan(torch.autograd.Function):
-    """The scan on a card: forward and backward kernels."""
+    """The scan on a card: the checkpointing forward kernel, and the
+    backward kernel reading its checkpoints."""
 
     @staticmethod
     def forward(ctx, dt, A, B, C, x):
-        ctx.save_for_backward(dt, A, B, C, x)
-        return _ssm.ssm_scan(dt, A, B, C, x)
+        y, ck = _ssm.ssm_scan_checkpointed(dt, A, B, C, x)
+        ctx.save_for_backward(dt, A, B, C, x, ck)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        return _ssm.ssm_scan_bwd(*ctx.saved_tensors, g)
+        *inputs, ck = ctx.saved_tensors
+        return _ssm.ssm_scan_bwd(*inputs, g, ck=ck)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -100,14 +102,25 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
-               keep: torch.Tensor) -> torch.Tensor:
+               keep: torch.Tensor, slots: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """x: (T,d); token_ids: (S,) int32; keep: (S,) bool -> (S,d) dispatch
-    buffer in x's dtype (the caller reshapes to (E,C,d))."""
+    buffer in x's dtype (the caller reshapes to (E,C,d)). ``slots``: the
+    inverse map the backward kernel reads, (T, k) int64, each token's slots
+    in increasing order, dropped ones at S (``moe_apply``'s ``pos_tok``);
+    used only when a gradient is wanted on a card, where without it
+    ``ref.gather_slots`` builds one from the ids."""
     if x.is_cpu:
         _moe.check_shapes(x, token_ids, keep)
+        if slots is not None:
+            _moe.check_slots(slots, x.shape[0])
         return ref.moe_gather_ref(x, token_ids, keep)
     if _wants_grad(x):
-        return _MoeGather.apply(x, token_ids, keep)
+        if slots is None:
+            slots = ref.gather_slots(token_ids, keep, x.shape[0])
+        else:
+            _moe.check_slots(slots, x.shape[0])
+        return _MoeGather.apply(x, token_ids, keep, slots)
     return _moe.moe_gather(x, token_ids, keep)  # checks
 
 

@@ -4,9 +4,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ssm_scan import BWD_CHUNK
+
 __all__ = ["attention_ref", "flash_attention_tiled_ref", "paged_attention_ref",
            "paged_attention_split_ref", "moe_gather_ref", "gather_inverse",
-           "moe_gather_bwd_ref", "ssm_scan_ref", "ssm_scan_ex2_ref",
+           "gather_slots", "moe_gather_bwd_ref", "ssm_scan_ref",
+           "ssm_scan_checkpointed_ref", "ssm_scan_ex2_ref",
            "ssm_scan_bwd_ref"]
 
 LOG2E = 1.4426950408889634
@@ -187,22 +190,45 @@ def gather_inverse(token_ids: torch.Tensor, keep: torch.Tensor, T: int
     return order.to(torch.int32), offsets.to(torch.int32)
 
 
-def moe_gather_bwd_ref(g: torch.Tensor, token_ids: torch.Tensor,
-                       keep: torch.Tensor, T: int) -> torch.Tensor:
-    """The gradient of ``moe_gather_ref`` with respect to x: dx (T, d) in
-    g's dtype, row t the sum of g[s] over the kept slots s whose id is t,
-    added in increasing slot order in float32 from 0 and rounded once (the
-    kernel's order, so the two agree bit for bit).
-
-    g: (S, d) the dispatch buffer's gradient; token_ids, keep as
-    ``moe_gather_ref``'s."""
+def gather_slots(token_ids: torch.Tensor, keep: torch.Tensor, T: int
+                 ) -> torch.Tensor:
+    """The gather's backward map from its ids and keep flags, for a caller
+    that does not hold one (``moe_apply`` hands over its ``pos_tok``): a
+    (T, k) int64 tensor on the ids' device whose row t lists the kept slots
+    whose (clamped) id is token t in increasing slot order (as
+    ``gather_inverse`` groups them), then S, the buffer's size, which the
+    backward skips; k is the most slots a token has (read on the host)."""
+    S = token_ids.shape[0]
     order, offsets = gather_inverse(token_ids, keep, T)
-    order, offsets = order.long(), offsets.long()
+    offsets = offsets.long()
     counts = offsets[1:] - offsets[:-1]
-    acc = torch.zeros((T, g.shape[1]), dtype=torch.float32, device=g.device)
-    for r in range(int(counts.max()) if T else 0):
-        has = counts > r
-        acc[has] += g[order[offsets[:-1][has] + r]].float()
+    k = int(counts.max()) if T else 0
+    slots = torch.full((T, k), S, dtype=torch.int64, device=token_ids.device)
+    n = int(offsets[-1])
+    tok = torch.repeat_interleave(
+        torch.arange(T, device=token_ids.device), counts, output_size=n)
+    col = torch.arange(n, device=token_ids.device) - offsets[tok]
+    slots[tok, col] = order[:n].long()
+    return slots
+
+
+def moe_gather_bwd_ref(g: torch.Tensor, slots: torch.Tensor
+                       ) -> torch.Tensor:
+    """The gradient of ``moe_gather_ref`` with respect to x: dx (T, d) in
+    g's dtype, row t the sum of g[s] over the slots s of row t of
+    ``slots`` that lie in [0, S), added in the map's order in float32 from
+    0 and rounded once (the kernel's order, so the two agree bit for bit).
+
+    g: (S, d) the dispatch buffer's gradient; slots: (T, k) int64, each
+    token's slots in increasing slot order, dropped ones at S or beyond
+    (``moe_apply``'s ``pos_tok``, or ``gather_slots``)."""
+    S = g.shape[0]
+    acc = torch.zeros((slots.shape[0], g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    for i in range(slots.shape[1]):
+        s = slots[:, i]
+        has = (s >= 0) & (s < S)
+        acc[has] += g[s[has]].float()
     return acc.to(g.dtype)
 
 
@@ -213,19 +239,37 @@ def ssm_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
     dt, x: (Bt, L, di); A: (di, N); B, C: (Bt, L, N). Returns y:
     (Bt, L, di) float32. The reference's oracle over a batch dimension."""
+    return _scan_ref(dt, A, B, C, x)[0]
+
+
+def ssm_scan_checkpointed_ref(dt: torch.Tensor, A: torch.Tensor,
+                              B: torch.Tensor, C: torch.Tensor,
+                              x: torch.Tensor,
+                              every: int = BWD_CHUNK) -> tuple:
+    """``ssm_scan_ref`` that also keeps the states the backward starts its
+    chunks from: (y, ck), y the same bits, ck (Bt, ceil(L / every), di, N)
+    float32 with ck[b, k, c, n] the state h[n] of channel c before step
+    ``every`` k (the CUDA kernel's checkpoints)."""
+    return _scan_ref(dt, A, B, C, x, every)
+
+
+def _scan_ref(dt, A, B, C, x, every: int = 0) -> tuple:
     dt, A, B, C, x = (t.float() for t in (dt, A, B, C, x))
     Bt, L, di = x.shape
     h = torch.zeros((Bt, di, A.shape[1]), dtype=torch.float32,
                     device=x.device)
-    ys = []
+    ys, cks = [], []
     for t in range(L):
+        if every and t % every == 0:
+            cks.append(h)
         dt_t = dt[:, t, :, None]  # (Bt, di, 1)
         h = torch.exp(dt_t * A) * h + (dt_t * x[:, t, :, None]) \
             * B[:, t, None, :]
         ys.append((h * C[:, t, None, :]).sum(-1))
-    if not ys:
-        return x.new_zeros((Bt, 0, di))
-    return torch.stack(ys, dim=1)
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((Bt, 0, di))
+    ck = torch.stack(cks, dim=1) if cks else \
+        x.new_zeros((Bt, 0, di, A.shape[1]))
+    return y, (ck if every else None)
 
 
 def ssm_scan_ex2_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -270,38 +314,45 @@ def ssm_scan_ex2_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
 
 def ssm_scan_bwd_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                     C: torch.Tensor, x: torch.Tensor, g: torch.Tensor
-                     ) -> tuple:
+                     C: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
+                     ck: torch.Tensor = None,
+                     every: int = BWD_CHUNK) -> tuple:
     """The gradient of ``ssm_scan_ref`` given g = dL/dy (Bt, L, di), as the
-    reverse-time scan the kernel runs, in plain PyTorch, all float32: the
-    states h_t are kept from a forward pass, then from t = L-1 down,
-    ``dh = g_t C_t + exp(dt_{t+1} A) dh_{t+1}``, ``w = dh h_{t-1}
+    reverse-time scan the kernel runs, in plain PyTorch, all float32: from
+    the checkpoints ``ck`` kept every ``every`` steps
+    (``ssm_scan_checkpointed_ref``'s; None: they are computed first) the
+    chunks of ``every`` steps from the last, each chunk's
+    states and decays recomputed from its checkpoint, then from its last
+    step down ``dh = g_t C_t + exp(dt_{t+1} A) dh_{t+1}``, ``w = dh h_{t-1}
     exp(dt_t A)``, ``ddt_t = x_t (dh . B_t) + w . A``, ``dx_t = dt_t (dh .
     B_t)``, ``dB_t = sum_c dh dt_t x_t``, ``dC_t = sum_c g_t h_t``, ``dA =
     sum_{b,t} w dt_t``. Returns (ddt, dA, dB, dC, dx) in the inputs'
     order, float32 and contiguous."""
     dt, A, B, C, x, g = (t.float() for t in (dt, A, B, C, x, g))
+    if ck is None:
+        ck = ssm_scan_checkpointed_ref(dt, A, B, C, x, every)[1]
     Bt, L, di = x.shape
-    h = torch.zeros((Bt, di, A.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    hs, decays = [h], []
-    for t in range(L):
-        a = torch.exp(dt[:, t, :, None] * A)  # (Bt, di, N)
-        h = a * h + (dt[:, t, :, None] * x[:, t, :, None]) * B[:, t, None, :]
-        hs.append(h)
-        decays.append(a)
     ddt, dx = torch.zeros_like(x), torch.zeros_like(x)
     dB, dC = torch.zeros_like(B), torch.zeros_like(C)
     dA = torch.zeros_like(A)
-    carry = torch.zeros_like(h)  # exp(dt_{t+1} A) dh_{t+1}
-    for t in reversed(range(L)):
-        dh = g[:, t, :, None] * C[:, t, None, :] + carry
-        w = dh * hs[t] * decays[t]
-        s1 = (dh * B[:, t, None, :]).sum(-1)
-        ddt[:, t] = x[:, t] * s1 + (w * A).sum(-1)
-        dx[:, t] = dt[:, t] * s1
-        dB[:, t] = (dh * (dt[:, t] * x[:, t])[..., None]).sum(1)
-        dC[:, t] = (g[:, t, :, None] * hs[t + 1]).sum(1)
-        dA += (w * dt[:, t, :, None]).sum(0)
-        carry = decays[t] * dh
+    carry = x.new_zeros((Bt, di, A.shape[1]))  # exp(dt_{t+1} A) dh_{t+1}
+    for k in reversed(range(ck.shape[1])):
+        t0 = k * every
+        h = ck[:, k].float()
+        hs, decays = {t0: h}, {}
+        for t in range(t0, min(t0 + every, L)):
+            a = torch.exp(dt[:, t, :, None] * A)  # (Bt, di, N)
+            h = a * h + (dt[:, t, :, None] * x[:, t, :, None]) \
+                * B[:, t, None, :]
+            hs[t + 1], decays[t] = h, a
+        for t in reversed(decays):
+            dh = g[:, t, :, None] * C[:, t, None, :] + carry
+            w = dh * hs[t] * decays[t]
+            s1 = (dh * B[:, t, None, :]).sum(-1)
+            ddt[:, t] = x[:, t] * s1 + (w * A).sum(-1)
+            dx[:, t] = dt[:, t] * s1
+            dB[:, t] = (dh * (dt[:, t] * x[:, t])[..., None]).sum(1)
+            dC[:, t] = (g[:, t, :, None] * hs[t + 1]).sum(1)
+            dA += (w * dt[:, t, :, None]).sum(0)
+            carry = decays[t] * dh
     return ddt, dA, dB, dC, dx

@@ -29,12 +29,19 @@ sm_90a at first use and bound through ctypes (``kernels/nvcc.py``).
 The backward (``ssm_scan_bwd``, the C entry ``repro_ssm_scan_bwd`` of the
 same source) gives (ddt, dA, dB, dC, dx) from g = dL/dy: the gradient the
 reference takes by autodiff of its scan (``repro/models/ssm.py:84``), as a
-reverse-time scan (``ref.ssm_scan_bwd_ref`` is its arithmetic in plain
-PyTorch). It recomputes the states from checkpoints kept every 16 steps
-(no (L, di, N) tape) with the forward's ex2, and reduces dB, dC and dA in
-a fixed order through per-warp partials, without atomics. Its scratch
-(``bwd_scratch``) is allocated here; B and C may be strided views, their
-gradients come back contiguous.
+reverse-time scan (``ref.ssm_scan_bwd_ref`` is its function in plain
+PyTorch). When a gradient is wanted the forward runs as
+``ssm_scan_checkpointed``, the same kernel storing h before every 8 steps
+(the checkpoints, ``checkpoint_shape``); the backward reads them and
+recomputes each 8-step chunk with the forward's ex2, keeping the chunk's
+states and decays in registers (one exponential a state step), with 4
+lanes a channel, ``bwd_plan``'s channels a block and TMA loads in reverse
+chunk order, a few chunks ahead. It reduces dB, dC and dA in a fixed order through
+per-block partials, without atomics. Without the checkpoints
+``ssm_scan_bwd`` first runs the checkpointing forward itself, so a direct
+call gives the bits of the autograd path. Its scratch is allocated here; B
+and C may be strided views, their gradients come back contiguous; ddt and
+dx come back contiguous where di is a multiple of 4, as y does.
 """
 from __future__ import annotations
 
@@ -47,9 +54,11 @@ import torch
 
 from repro_torch.kernels import nvcc
 
-__all__ = ["ssm_scan", "ssm_scan_bwd", "check_shapes", "plan", "ScanPlan",
-           "tma_ready", "build", "build_bwd", "bwd_scratch", "LAUNCHES",
-           "LAUNCHES_BWD", "COPIES", "SOURCE", "MAX_STATE", "BWD_CHUNK"]
+__all__ = ["ssm_scan", "ssm_scan_checkpointed", "ssm_scan_bwd",
+           "check_shapes", "plan", "ScanPlan", "bwd_plan", "BwdPlan",
+           "tma_ready", "build", "build_bwd",
+           "checkpoint_shape", "LAUNCHES", "LAUNCHES_BWD", "COPIES",
+           "SOURCE", "MAX_STATE", "BWD_CHUNK"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 MAX_STATE = 16  # N held in registers
@@ -63,9 +72,16 @@ MAX_STATE = 16  # N held in registers
 # where it gives fewer (188 blocks: 0.064 ms against 0.088 at 2).
 CHANNELS, CHUNK, STAGES = 32, 32, 3
 MANY_BLOCKS_PER_SM = 3
-# The backward's checkpoint spacing and channels per warp (kBT and a warp's
-# lanes in the source).
-BWD_CHUNK, BWD_CHANNELS = 16, 32
+# Steps between the training forward's checkpoints, which is also the
+# backward's chunk (kBT in the source, which refuses another); the
+# backward's ring stages (kBStages), lanes a channel (4: a lane's chunk of
+# states and decays fits in registers) and its instances' channels a
+# block. Measured on an H100 (PERF.md): 128 channels a block (fewer
+# partials of dB and dC) where the grid gives at least half the SMs a
+# block, as jamba's 128 at Bt = 1 do; 32 (four times the blocks) where it
+# gives fewer, as the reduced model's 4 do.
+BWD_CHUNK, BWD_STAGES, BWD_LANES = 8, 3, 4
+BWD_CHANNELS = (128, 32)
 
 LAUNCHES = nvcc.LaunchCounter()
 LAUNCHES_BWD = nvcc.LaunchCounter()
@@ -97,6 +113,44 @@ def plan(Bt: int, di: int, n_sm: int = 132,
     # 128 bytes of alignment, the ring, two y tiles, two mbarriers a stage
     smem = 128 + STAGES * stage + 2 * 4 * CHUNK * CHANNELS + 16 * STAGES
     return ScanPlan(lanes, CHANNELS, CHUNK, STAGES, smem)
+
+
+class BwdPlan(NamedTuple):
+    """One backward instance: lanes per channel, channels per block, steps
+    per chunk, ring stages and dynamic shared-memory bytes."""
+    lanes: int
+    channels: int
+    chunk: int
+    stages: int
+    smem_bytes: int
+
+
+def bwd_smem_bytes(channels: int) -> int:
+    """The source's ``Bwd<channels>::kSmem``: 128 bytes of alignment, the
+    ring (dt, x and g tiles of 8 x channels, the checkpoint of channels x
+    16 states, the B and C rows), two ddt and two dx tiles, two buffers of
+    the warps' dB/dC sums, an mbarrier a stage."""
+    warps, chunk = channels * BWD_LANES // 32, BWD_CHUNK
+    tile = 4 * chunk * channels
+    stage = 3 * tile + 4 * MAX_STATE * channels + 2 * 4 * chunk * MAX_STATE
+    red = warps * chunk * 2 * MAX_STATE * 4
+    return 128 + BWD_STAGES * stage + 4 * tile + 2 * red + 8 * BWD_STAGES
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(Bt: int, di: int, n_sm: int = 132,
+             channels: Optional[int] = None) -> BwdPlan:
+    """The backward's launch for Bt batch rows of di channels on a card of
+    ``n_sm`` SMs: the instance of ``channels`` channels per block, by
+    default 128 where that gives at least half the SMs a block, else 32.
+    Raises ValueError for a count that is not an instance's."""
+    if channels is None:
+        channels = 128 if 2 * Bt * -(-di // 128) >= n_sm else 32
+    if channels not in BWD_CHANNELS:
+        raise ValueError(f"no backward instance of {channels} channels a "
+                         f"block; the instances: {BWD_CHANNELS}")
+    return BwdPlan(BWD_LANES, channels, BWD_CHUNK, BWD_STAGES,
+                   bwd_smem_bytes(channels))
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,8 +204,9 @@ def tma_ready(t: torch.Tensor) -> bool:
     """Whether TMA can read the (Bt, L, w) float32 tensor ``t`` in place: a
     16-byte aligned base and, for each outer dimension longer than 1, a
     stride of whole 16-byte words (the innermost stride is 1)."""
-    return t.data_ptr() % 16 == 0 and all(
-        s % 4 == 0 for s, n in zip(t.stride()[:2], t.shape[:2]) if n > 1)
+    (sb, st, _), (nb, nt, _) = t.stride(), t.shape
+    return t.data_ptr() % 16 == 0 and (sb % 4 == 0 or nb == 1) \
+        and (st % 4 == 0 or nt == 1)
 
 
 def _padded(shape: Tuple[int, int, int], like: torch.Tensor) -> torch.Tensor:
@@ -178,44 +233,84 @@ def ssm_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     return _scan(dt, A, B, C, x, None)
 
 
+def ssm_scan_checkpointed(dt: torch.Tensor, A: torch.Tensor,
+                          B: torch.Tensor, C: torch.Tensor, x: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssm_scan`` that also keeps the backward's checkpoints: returns (y,
+    ck), ck the (Bt, ceil(L / 8), di, N) float32 states before steps 0, 8,
+    16, .. (a view of a buffer that holds all 16 states of a channel, zeros
+    past N, in one 64-byte row), by the same kernel's instance that stores
+    them; y has ``ssm_scan``'s bits."""
+    return _launch(dt, A, B, C, x, None, checkpoints=True)
+
+
+def checkpoint_shape(Bt: int, L: int, di: int, N: int) -> tuple:
+    """The checkpoints' shape: the state before every ``BWD_CHUNK`` steps."""
+    return Bt, -(-L // BWD_CHUNK), di, N
+
+
 def _scan(dt, A, B, C, x, lanes: Optional[int]) -> torch.Tensor:
     """``ssm_scan`` at ``plan``'s instance for ``lanes`` (None: the plan's
     own choice); tests and ``launch/kernel_compare`` hold and time the 2-
     and 4-lane instances against each other through it."""
+    return _launch(dt, A, B, C, x, lanes)[0]
+
+
+def _launch(dt, A, B, C, x, lanes: Optional[int], checkpoints: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(y, ck) of ``plan``'s instance for ``lanes``, ck None unless
+    ``checkpoints``."""
     check_shapes(dt, A, B, C, x)
     _check_kernel_inputs(dt, A, B, C, x)
     Bt, L, di = x.shape
+    N = A.shape[1]
     index = x.get_device()
     p = plan(Bt, di, _sm_count(index), lanes)
     y = _padded((Bt, L, di), x)
+    ck = None
+    if checkpoints:
+        ck = torch.empty((Bt, -(-L // BWD_CHUNK), di, MAX_STATE),
+                         dtype=torch.float32, device=x.device)[..., :N]
     if y.numel() == 0:
-        return y
+        return y, ck
     dt, B, C, x = (_tma_input(t) for t in (dt, B, C, x))
     nvcc.launch(build(), "ssm_scan", index,
                 dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                x.data_ptr(), y.data_ptr(), Bt, L, di, A.shape[1],
+                x.data_ptr(), y.data_ptr(), Bt, L, di, N,
                 *dt.stride()[:2], *x.stride()[:2], A.stride(0),
-                *B.stride()[:2], *C.stride()[:2], *y.stride()[:2], *p)
+                *B.stride()[:2], *C.stride()[:2], *y.stride()[:2], *p,
+                0 if ck is None else ck.data_ptr())
     LAUNCHES.add()
-    return y
+    return y, ck
 
 
-def bwd_scratch(Bt: int, L: int, di: int, N: int) -> dict:
-    """The backward's scratch shapes (float32): the states kept every
-    ``BWD_CHUNK`` steps, the per-warp partial sums of dB and dC (2 x 16 a
-    step), and dA's per-batch-row parts."""
-    return {"ck": (Bt, -(-L // BWD_CHUNK), N, di),
-            "part": (Bt, -(-di // BWD_CHANNELS), L, 2 * MAX_STATE),
-            "dA_part": (Bt, di, N)}
+def _check_checkpoints(ck: torch.Tensor, x: torch.Tensor, N: int) -> None:
+    """ck as ``ssm_scan_checkpointed`` makes it: on x's device, float32,
+    ``checkpoint_shape``, a view of a contiguous 16-byte aligned buffer of
+    16 states a channel."""
+    Bt, L, di = x.shape
+    want = checkpoint_shape(Bt, L, di, N)
+    if tuple(ck.shape) != want or ck.dtype != torch.float32 \
+            or ck.device != x.device:
+        raise ValueError(f"checkpoints {tuple(ck.shape)} {ck.dtype} on "
+                         f"{ck.device}; want {want} float32 on {x.device}")
+    S = MAX_STATE
+    if ck.stride() != (want[1] * di * S, di * S, S, 1) or ck.data_ptr() % 16:
+        raise ValueError(f"checkpoints' strides {ck.stride()}: want a view "
+                         f"of a contiguous (Bt, n, di, {S}) buffer")
 
 
 def ssm_scan_bwd(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                 C: torch.Tensor, x: torch.Tensor, g: torch.Tensor
-                 ) -> tuple:
+                 C: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
+                 ck: Optional[torch.Tensor] = None,
+                 channels: Optional[int] = None) -> tuple:
     """Launch the backward kernels: from the forward's inputs (as
-    ``ssm_scan`` takes them) and g = dL/dy (Bt, L, di) float32, last dim
-    contiguous, return (ddt, dA, dB, dC, dx), new contiguous float32
-    tensors, written on the current stream of x's device."""
+    ``ssm_scan`` takes them), g = dL/dy (Bt, L, di) float32, last dim
+    contiguous, and the forward's checkpoints ``ck`` (from
+    ``ssm_scan_checkpointed``; None: that forward is run here first),
+    return (ddt, dA, dB, dC, dx), new float32 tensors written on the
+    current stream of x's device: dA, dB, dC contiguous, ddt and dx where
+    di is a multiple of 4. ``channels`` picks ``bwd_plan``'s instance."""
     check_shapes(dt, A, B, C, x)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} is not y's shape "
@@ -223,24 +318,40 @@ def ssm_scan_bwd(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if g.stride(-1) != 1:
         g = g.contiguous()
     _check_kernel_inputs(dt, A, B, C, x)
-    _check_kernel_inputs(g, A, B, C, x)
+    if not g.is_cuda or g.device != x.device or g.dtype != torch.float32:
+        raise ValueError(f"g is {g.dtype} on {g.device}; want float32 on "
+                         f"{x.device}")
     Bt, L, di = x.shape
     N = A.shape[1]
-    new = functools.partial(torch.empty, dtype=torch.float32,
-                            device=x.device)
-    ddt, dx, dB, dC, dA = (new(Bt, L, di), new(Bt, L, di), new(Bt, L, N),
-                           new(Bt, L, N), new(di, N))
+    index = x.get_device()
+    p = bwd_plan(Bt, di, _sm_count(index), channels)
+    # ddt and dx in one buffer of padded rows; dB, dC, dA in another; the
+    # scratch (per-block partials of dB and dC, dA's per-row parts) apart
+    dpad = -(-di // 4) * 4
+    both = torch.empty((2, Bt, L, dpad), dtype=torch.float32,
+                       device=x.device)[..., :di]
+    ddt, dx = both[0], both[1]
+    nb = Bt * L * N
+    small = torch.empty(2 * nb + di * N, dtype=torch.float32,
+                        device=x.device)
+    dB, dC = small[:2 * nb].view(2, Bt, L, N)
+    dA = small[2 * nb:].view(di, N)
     if x.numel() == 0:
         return ddt, dA.zero_(), dB.zero_(), dC.zero_(), dx
-    scratch = {k: new(*shape) for k, shape in bwd_scratch(Bt, L, di, N)
-               .items()}
-    nvcc.launch(build_bwd(), "ssm_scan_bwd", x.get_device(),
+    if ck is None:
+        ck = _launch(dt, A, B, C, x, None, checkpoints=True)[1]
+    _check_checkpoints(ck, x, N)
+    n_part = Bt * -(-di // p.channels) * L * 2 * MAX_STATE
+    scratch = torch.empty(n_part + Bt * di * N, dtype=torch.float32,
+                          device=x.device)
+    dt, B, C, x, g = (_tma_input(t) for t in (dt, B, C, x, g))
+    nvcc.launch(build_bwd(), "ssm_scan_bwd", index,
                 dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                x.data_ptr(), g.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
-                dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-                scratch["ck"].data_ptr(), scratch["part"].data_ptr(),
-                scratch["dA_part"].data_ptr(), Bt, L, di, N,
-                *dt.stride()[:2], *x.stride()[:2], *g.stride()[:2],
-                A.stride(0), *B.stride()[:2], *C.stride()[:2])
+                x.data_ptr(), g.data_ptr(), ck.data_ptr(), ddt.data_ptr(),
+                dx.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+                scratch.data_ptr(), scratch.data_ptr() + 4 * n_part,
+                Bt, L, di, N, *dt.stride()[:2], *x.stride()[:2],
+                *g.stride()[:2], A.stride(0), *B.stride()[:2],
+                *C.stride()[:2], *ddt.stride()[:2], *p)
     LAUNCHES_BWD.add()
     return ddt, dA, dB, dC, dx

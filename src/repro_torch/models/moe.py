@@ -109,11 +109,15 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     counts = (bounds[1:] - starts).float()
     aux = E * torch.sum(counts / (T * k) * probs.mean(dim=0))
 
-    # --- build per-expert buffers (the repartitioned pages)
+    # --- build per-expert buffers (the repartitioned pages). pos_tok: each
+    # token's k slots in increasing order (its experts are sorted), dropped
+    # ones at E*C, past the buffer: the map the gather's backward reads.
     token_ids = torch.full((E * C + 1,), -1, dtype=torch.int32, device=dev)
     token_ids.scatter_(0, pos, st.to(torch.int32))
     token_ids = token_ids[:E * C]
-    buf = kops.moe_gather(xt, token_ids, token_ids >= 0).reshape(E, C, d)
+    pos_tok = torch.empty_like(pos).scatter_(0, order, pos).reshape(T, k)
+    buf = kops.moe_gather(xt, token_ids, token_ids >= 0,
+                          slots=pos_tok).reshape(E, C, d)
     if ctx.quantize_dispatch:
         # int8 with a per-row absmax scale, dequantized expert-side (the
         # reference's all-to-all payload under expert parallelism)
@@ -127,7 +131,6 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     # increasing expert order in x's dtype. A dropped slot reads some row
     # with weight 0, as the reference reads its zero row. Each token adds
     # its own k rows: no atomics, the same sum on every run.
-    pos_tok = torch.empty_like(pos).scatter_(0, order, pos).reshape(T, k)
     w_tok = (weights * (pos_tok < E * C)).to(y_e.dtype)
     contrib = (y_e[pos_tok.clamp(max=E * C - 1)] * w_tok[..., None]
                ).to(x.dtype)  # (T, k, d)

@@ -14,10 +14,12 @@ the N states in another order than the plain version); 2e-5 in float32
 and 2e-2 in bfloat16 for ``paged_attention``, as tests/test_kernels.py
 holds the Pallas kernel (online softmax against the plain full softmax).
 The training kernels: ``moe_gather_bwd`` bit for bit against its plain
-version (both add a token's slots in slot order in float32); ``ssm_scan_bwd``
-within 1e-4 of each output's largest value against its plain reverse scan
-(the kernel decays by ex2 and sums over channels in another order); both
-give the same bits twice."""
+version (both add a token's slots, read from a (T, k) map, in slot order in
+float32); ``ssm_scan_bwd`` within 1e-4 of each output's largest value
+against its plain reverse scan (the kernel decays by ex2 and sums over
+channels in another order), at each instance, given the checkpointing
+forward's checkpoints or not; both give the same bits twice, and through
+autograd the direct call's bits with one launch of each kernel."""
 import numpy as np
 import pytest
 
@@ -957,12 +959,14 @@ def test_expr_core_from_new_threads_reading_cached_pinned_blocks(torch):
     (64, 2048, 1001, 128),             # ragged S, most slots dropped
     (30, 7, 100, 60),                  # rows that are not 16-byte words
     (5, 16, 3, 0),                     # nothing kept: zeros
+    (8, 7, 100, 80),                   # 10 slots a token: past the fan
+    (4, 2048, 200, 150),               # ~38 slots: the ballot's 2nd word
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_gather_bwd_kernel_matches_plain(torch, T, d, S, kept, dtype):
     from repro_torch.kernels import moe_dispatch as mg
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import moe_gather_bwd_ref
+    from repro_torch.kernels.ref import gather_slots, moe_gather_bwd_ref
     rng = np.random.default_rng(T + S)
     ids = np.full(S, -1, np.int32)
     slots = rng.choice(S, kept, replace=False)
@@ -971,21 +975,25 @@ def test_moe_gather_bwd_kernel_matches_plain(torch, T, d, S, kept, dtype):
     keep = tids >= 0
     g = torch.from_numpy(rng.standard_normal((S, d), dtype=np.float32)).to(
         "cuda", getattr(torch, dtype))
-    out = mg.moe_gather_bwd(g, tids, keep, T)
-    again = mg.moe_gather_bwd(g, tids, keep, T)
-    want = moe_gather_bwd_ref(g, tids, keep, T)
+    slots = gather_slots(tids, keep, T)
+    assert slots.shape[1] == -(-kept // T)
+    out = mg.moe_gather_bwd(g, slots)
+    again = mg.moe_gather_bwd(g, slots)
+    want = moe_gather_bwd_ref(g, slots)
     torch.cuda.synchronize()
     bits = torch.int16 if g.element_size() == 2 else torch.int32
     assert torch.equal(out.view(bits), want.view(bits))
     assert torch.equal(out.view(bits), again.view(bits))
-    # through the port's entry with autograd: forward and backward kernels
+    # through the port's entry with autograd: forward and backward kernels,
+    # given the map (as moe_apply gives it) or building it from the ids
     x = torch.from_numpy(rng.standard_normal((T, d), dtype=np.float32)).to(
         "cuda", g.dtype).requires_grad_(True)
-    ops.reset_launch_counts()
-    dx, = torch.autograd.grad(ops.moe_gather(x, tids, keep), x, g)
-    counts = ops.launch_counts()
-    assert counts["moe_gather"] == counts["moe_gather_bwd"] == 1
-    assert torch.equal(dx.view(bits), want.view(bits))
+    for kw in ({"slots": slots}, {}):
+        ops.reset_launch_counts()
+        dx, = torch.autograd.grad(ops.moe_gather(x, tids, keep, **kw), x, g)
+        counts = ops.launch_counts()
+        assert counts["moe_gather"] == counts["moe_gather_bwd"] == 1
+        assert torch.equal(dx.view(bits), want.view(bits))
 
 
 @pytest.mark.parametrize("Bt,L,di,N", [
@@ -997,7 +1005,8 @@ def test_moe_gather_bwd_kernel_matches_plain(torch, T, d, S, kept, dtype):
 def test_ssm_scan_bwd_kernel_matches_plain(torch, Bt, L, di, N):
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as ss
-    from repro_torch.kernels.ref import ssm_scan_bwd_ref
+    from repro_torch.kernels.ref import (ssm_scan_bwd_ref,
+                                         ssm_scan_checkpointed_ref)
     dt, A, _, _, x = _scan_inputs(torch, Bt, L, di, N)
     rng = np.random.default_rng(1)
     proj = torch.from_numpy(rng.standard_normal(
@@ -1005,21 +1014,35 @@ def test_ssm_scan_bwd_kernel_matches_plain(torch, Bt, L, di, N):
     B, C = proj[..., 3:3 + N], proj[..., 3 + N:]  # strided, as the model's
     g = torch.from_numpy(rng.standard_normal((Bt, L, di),
                                              dtype=np.float32)).cuda()
-    out = ss.ssm_scan_bwd(dt, A, B, C, x, g)
-    again = ss.ssm_scan_bwd(dt, A, B, C, x, g)
+    y, ck = ss.ssm_scan_checkpointed(dt, A, B, C, x)
+    assert torch.equal(y, ss.ssm_scan(dt, A, B, C, x))
+    ck_ref = ssm_scan_checkpointed_ref(dt, A, B, C, x)[1]
+    assert float((ck - ck_ref).abs().max()) <= \
+        1e-4 * max(1.0, float(ck_ref.abs().max()))
     want = ssm_scan_bwd_ref(dt, A, B, C, x, g)
-    torch.cuda.synchronize()
-    for name, got, w, a in zip(("ddt", "dA", "dB", "dC", "dx"), out, want,
-                               again):
-        assert got.shape == w.shape and torch.equal(got, a), name
-        err = float((got - w).abs().max() / w.abs().max())
-        assert err <= 1e-4, (name, err)
+    for channels in ss.BWD_CHANNELS:
+        kw = dict(channels=channels)
+        out = ss.ssm_scan_bwd(dt, A, B, C, x, g, ck=ck, **kw)
+        again = ss.ssm_scan_bwd(dt, A, B, C, x, g, ck=ck, **kw)
+        direct = ss.ssm_scan_bwd(dt, A, B, C, x, g, **kw)
+        torch.cuda.synchronize()
+        for name, got, w, a, b in zip(("ddt", "dA", "dB", "dC", "dx"), out,
+                                      want, again, direct):
+            assert got.shape == w.shape and torch.equal(got, a) \
+                and torch.equal(got, b), (kw, name)
+            err = float((got - w).abs().max() / w.abs().max())
+            assert err <= 1e-4, (kw, name, err)
+    out = ss.ssm_scan_bwd(dt, A, B, C, x, g)
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (dt, A, proj, x)]
     lp = leaves[2]
+    ops.reset_launch_counts()
     y = ops.ssm_scan(leaves[0], leaves[1], lp[..., 3:3 + N],
                      lp[..., 3 + N:], leaves[3])
+    assert torch.equal(y.grad_fn.saved_tensors[5], ck)
     ddt, dA, dproj, dx = torch.autograd.grad(y, leaves, g)
+    counts = ops.launch_counts()
+    assert counts["ssm_scan"] == counts["ssm_scan_bwd"] == 1
     assert torch.equal(ddt, out[0]) and torch.equal(dA, out[1])
     assert torch.equal(dproj[..., 3:3 + N], out[2])
     assert torch.equal(dproj[..., 3 + N:], out[3]) and torch.equal(dx, out[4])
