@@ -15,14 +15,18 @@ final line:
    (qwen2.5-32b and qwen2-moe prefill shapes, head dims 96, 192 and 256 at
    the prefill heads of phi3-mini, nemotron-4-340b and gemma-7b,
    internvl2-26b's 48/8 heads, whisper-small's decoder (B=8, S=448, hd
-   64), ragged causal, non-causal T != S, float32; SDPA as yardstick; the device's
+   64), ragged causal, non-causal T != S, float32 (also at qwen2-moe's
+   prefill, as the expert-parallel phase runs it); SDPA as yardstick; the device's
    share of the kernel's time by the profiler; ptxas registers and spill
    bytes of every flash instance, and the wgmma/TMA instructions in its
    SASS) and moe_gather, bit for bit
-   (qwen2-moe prefill and decode dispatch shapes, ragged float32, bf16
+   (qwen2-moe prefill and decode dispatch shapes, one expert-parallel
+   rank's (15 of 60 experts), ragged float32, bf16
    rows that are not whole 16-byte words; ``index_select`` as yardstick;
    whether rows move in 16-byte words or elements, the device's share of
-   the time by the profiler, one prefill call with x just written) and ssm_scan within 1e-5 (jamba's
+   the time by the profiler; at the prefill's and the rank's shapes one
+   call with x just written and one after the L2 is flushed, the latter
+   also on the device) and ssm_scan within 1e-5 (jamba's
    prefill shape and a ragged shape; no PyTorch call computes a selective
    scan, so no yardstick; the inputs copied for TMA; the scan kernels'
    SASS instruction and MUFU.EX2 counts; a spill in the scan or the
@@ -118,6 +122,29 @@ final line:
    supervisor restores step 4 on the card and replays, the replayed
    losses equal to the first pass's. Checkpointing at full width (~43 GiB
    a save) is left out for time.
+18c. explicit expert parallelism: qwen2-moe-a2.7b over a (data 1, model
+   4) mesh of four processes sharing the card (gloo on CUDA tensors, as
+   NCCL refuses two ranks on one device), each rank holding the dense layers whole and 15 of the
+   60 experts, drawn in turns from the seed so that one whole leaf at a
+   time is on the card. First the collective functions and the pipeline
+   at 4 stages on the ranks, against the single-process answer; then (a)
+   float32 at every published width, 4 of 24 layers: prefill B=1,
+   S=4096 under ``Ctx(use_flash=True)`` (flash and moe_gather once per
+   layer on every rank), every position's log_softmax within 2e-3 of the
+   single process's forward on rank 0, every rank's logits the same
+   bits; the smoke's 8 requests served through ``serve_model`` under the
+   EP context, token for token the single process's engine; (b) bf16 at
+   all 24 layers: prefill B=1, S=4096 timed (tokens/s against the
+   single-process bf16 prefill of the same run), peak memory a rank, the
+   card's busy share (the ranks' kernel time over the wall, and apart
+   from it their copies' and memsets') and the all-reduce's share (a run
+   with each all-reduce timed alone), the last position's logits against
+   the single process's, held at LOGITS_TOL, with the count of (token,
+   expert) routes that differ ((a) counts its routes too); beside it the
+   noise floor of that comparison: the single process against itself
+   with its experts in reverse order (``reverse_experts``: the same
+   function, each token's k expert outputs added in the opposite order
+   in bf16), its routes that differ and its logits' distance;
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -171,9 +198,10 @@ final line:
 
 Launch counts are set to 0 just before each main-path run of phases 3-23
 (prefill, paged decode, paged serving, the long-context step, serving,
-the training runs, the timed Q1 runs, the workers', the entry points',
-the service's cold Q1, the tools') and read just after it. The last two lines are a JSON object with one
-entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
+the training runs, each rank's EP prefill and serving, the timed Q1
+runs, the workers', the entry points', the service's cold Q1, the
+tools') and read just after it. The last two lines are a JSON object
+with one entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 """
@@ -239,12 +267,19 @@ KERNEL_CASES = [  # (name, B, S, T, H, K, hd, causal, dtype)
     ("ragged", 1, 1000, 1000, 40, 8, 128, True, "bfloat16"),
     ("cross", 2, 512, 1536, 40, 8, 128, False, "bfloat16"),
     ("f32", 1, 1024, 1024, 8, 2, 128, True, "float32"),
+    # the float32 instance at qwen2-moe's prefill, as the expert-parallel
+    # phase's float32 ranks run it
+    ("moe_prefill_f32", 1, PREFILL_SEQ, PREFILL_SEQ, 16, 16, 128, True,
+     "float32"),
 ]
 # moe_gather at qwen2-moe's dispatch shapes: T tokens of width d into
 # S = 60 experts x capacity slots, T*top_k = n_kept of them filled.
 GATHER_CASES = [  # (name, T, d, S, n_kept, dtype)
     ("prefill", PREFILL_SEQ, 2048, 60 * 344, 4 * PREFILL_SEQ, "bfloat16"),
     ("decode", 4, 2048, 60 * 8, 16, "bfloat16"),
+    # one rank's dispatch in the expert-parallel phase: its 15 of the 60
+    # experts, a quarter of the prefill's top-4 slots
+    ("ep_local", PREFILL_SEQ, 2048, 15 * 344, PREFILL_SEQ, "bfloat16"),
     ("ragged_f32", 100, 48, 333, 250, "float32"),
     # rows of 2,002 bytes, not whole 16-byte words: copied element by
     # element (the kernel's other instance)
@@ -281,6 +316,23 @@ REDUCED_STEPS, REDUCED_BATCH, REDUCED_SEQ = 8, 4, 64
 TRAIN_LOSS_TOL = 1e-3
 RESTART_ARCH = "jamba15_large"
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 4, 6
+# The expert-parallel phase: qwen2-moe-a2.7b over a (data 1, model 4) mesh
+# of EP_WORLD processes sharing the one card, each holding the dense layers
+# whole and 15 of the 60 experts (``Model.ep_param_specs``), drawn in turns
+# from SEED (``Model.init_shards``); (a) float32 at every published width
+# and EP_F32_LAYERS of 24 layers (the training phase's cut, ~1.35 B
+# parameters a rank), held within EP_TOL of the single process's
+# log_softmax at every position, and token for token when serving; (b)
+# bf16 at all 24 layers (~4.97 B parameters a rank), timed against the
+# single-process bf16 forward of the same run, its last logits held at
+# LOGITS_TOL of the single process's.
+EP_MESH = (1, 4)
+EP_WORLD = 4
+EP_F32_LAYERS = 4
+EP_TOL = 2e-3  # tests/test_multidevice.py's bound on log_softmax
+EP_AUX_RTOL = 1e-4  # one aux of (a)'s prefill against the single process's
+EP_WALL_S = 600  # the four ranks' run, and each collective's timeout
+EP_SERVE = {"n_requests": 8, "max_new": 32, "batch_size": 4}
 # moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
 # tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
 GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
@@ -792,22 +844,33 @@ def phase_gather(torch) -> dict:
         lib_ms = cuda_ms(torch, lambda: torch.index_select(x, 0, lib_ids), 50)
         rows = len(np.unique(ids_np[slots]))
         bound, bound_by = gather_bound_ms(rows, d, S, x.element_size())
-        if name == "prefill":  # one call, x just written, as in the model
+        if name in ("prefill", "ep_local"):  # one call at a time
             x_copy = x.clone()
             flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
 
-            def written():
+            def cold():  # 256 MiB written: nothing of x left in the L2
                 flush.zero_()
+
+            def written():  # x just written, as the layer before leaves it
+                cold()
                 x.copy_(x_copy)
 
-            one = single_call_ms(
-                torch, lambda: ops.moe_gather(x, ids, keep), written)
+            gather = lambda: ops.moe_gather(x, ids, keep)  # noqa: E731
+            one = single_call_ms(torch, gather, written)
             one_lib = single_call_ms(
                 torch, lambda: torch.index_select(x, 0, lib_ids), written)
+            one_cold = single_call_ms(torch, gather, cold)
+            dev_cold = device_ms(torch, lambda: (cold(), gather()), 30,
+                                 "moe_gather")
             log(f"[gather] {name}: one call with x just written (L2 "
                 f"flushed, then x copied in): kernel {one:.4f} ms "
                 f"({bound / one:.1%} of the bound), index_select "
-                f"{one_lib:.4f} ms")
+                f"{one_lib:.4f} ms; one call after the L2 is flushed: "
+                f"kernel {one_cold:.4f} ms ({bound / one_cold:.1%} of the "
+                f"bound), on the device "
+                + ("not measured" if dev_cold is None else
+                   f"{dev_cold:.4f} ms ({bound / dev_cold:.1%} of the "
+                   f"bound)"))
             del x_copy, flush
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound,
@@ -1251,13 +1314,14 @@ def phase_paged(torch) -> dict:
 
 # ------------------------------------------------------ phases 3, 5, 7
 @contextlib.contextmanager
-def kept_slots(ops, record: list):
-    """Record the kept-slot count of every moe_gather dispatch, a device
-    scalar each (no host sync), summed after the run."""
+def dispatch_ids(ops, record: list):
+    """Record the token ids of every moe_gather dispatch, one (slots,)
+    device tensor a MoE layer (no host sync); a slot is kept where its id
+    is not negative."""
     real = ops.moe_gather
 
     def recording(x, token_ids, keep, slots=None):
-        record.append(keep.sum())
+        record.append(token_ids)
         return real(x, token_ids, keep, slots=slots)
 
     ops.moe_gather = recording
@@ -1401,10 +1465,10 @@ def phase_prefill(torch, arch, label: str, summary: dict,
     tokens = batch["tokens"]
     B, S = tokens.shape
 
-    kept = []
+    ids = []
     copies = ss.COPIES.count
     ops.reset_launch_counts()
-    with kept_slots(ops, kept):
+    with dispatch_ids(ops, ids):
         flash, aux = model.forward(batch, Ctx(use_flash=True),
                                    last_only=True)
         torch.cuda.synchronize()
@@ -1424,7 +1488,8 @@ def phase_prefill(torch, arch, label: str, summary: dict,
                              f"aux {float(aux)}")
     if cfg.is_moe:
         from repro_torch.models.moe import expert_capacity
-        per_layer = PREFILL_SEQ * cfg.top_k - torch.stack(kept).cpu()
+        per_layer = PREFILL_SEQ * cfg.top_k - torch.stack(
+            [(t >= 0).sum() for t in ids]).cpu()
         slots = n_moe * PREFILL_SEQ * cfg.top_k
         dropped = int(per_layer.sum())
         log(f"[{label}] dispatch: capacity {expert_capacity(cfg, PREFILL_SEQ)}"
@@ -1792,6 +1857,501 @@ def phase_serving(torch, arch, label: str, paged, summary: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ phase 18c
+
+def log_softmax_err(torch, a, b, rows: int = 512) -> float:
+    """max |log_softmax(a) - log_softmax(b)| over (S, V) logits, a block
+    of rows at a time."""
+    worst = 0.0
+    for i in range(0, a.shape[0], rows):
+        diff = (torch.log_softmax(a[i:i + rows].float(), dim=-1)
+                - torch.log_softmax(b[i:i + rows].float(), dim=-1))
+        worst = max(worst, float(diff.abs().max()))
+    return worst
+
+
+def lost_routes(want, got) -> int:
+    """The (token, expert) routes kept in ``want`` and not in ``got``: two
+    sequences of one expert's slots' token ids (numpy, -1 where empty),
+    the same experts in the same order."""
+    import numpy as np
+    return sum(len(np.setdiff1d(a[a >= 0], b[b >= 0]))
+               for a, b in zip(want, got))
+
+
+def routes_differ(ids, whole, cfg, mesh) -> int:
+    """The (token, expert) routes that the single process's dispatch
+    keeps and this rank's does not, over the layers: ``ids`` this rank's
+    token ids a MoE layer (its E/tp experts' C slots each), ``whole`` the
+    single process's (all E experts', numpy)."""
+    E_local = cfg.n_experts // mesh.shape["model"]
+    my = mesh.index("model")
+    differ = 0
+    for got, want in zip(ids, whole):
+        C = got.numel() // E_local
+        mine = want.reshape(cfg.n_experts, C)[my * E_local:(my + 1) * E_local]
+        differ += lost_routes(mine, got.cpu().numpy().reshape(E_local, C))
+    return differ
+
+
+def reverse_experts(model) -> None:
+    """Reverse the order of the experts in ``model``'s weights, in place:
+    the router's columns and every expert leaf. The function is the same
+    in exact arithmetic; its rounding is not: the combine adds each
+    token's k expert outputs in increasing expert id, so now in the
+    opposite order (in the model's dtype), and the router's float32
+    softmax sums its 60 terms in the opposite order."""
+    from repro_torch.models import params as pp
+    for path, d in pp.tree_paths(model.defs).items():
+        if "experts" in d.axes:
+            dim = d.axes.index("experts")
+        elif path.endswith("moe.router"):
+            dim = len(d.shape) - 1
+        else:
+            continue
+        t = model.get_parameter(path).data
+        t.copy_(t.flip(dim))
+
+
+def ep_collectives(torch) -> dict:
+    """The collective functions and the pipeline on the four ranks, on
+    CUDA tensors at the CPU tests' sizes (tests/test_torch_mesh.py), each
+    against the single-process answer computed on the rank."""
+    import numpy as np
+
+    from repro_torch.engine.aggregation import (broadcast_join,
+                                                grad_reduce_two_stage,
+                                                hash_partition_join,
+                                                two_stage_aggregate)
+    from repro_torch.engine.pipeline_parallel import pipeline_forward
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((4,), ("data",), DEVICE)
+    g, r = mesh.group("data"), mesh.index("data")
+    cu = lambda t: t.to(DEVICE)  # noqa: E731
+    keys, vals = torch.arange(64) % 16, torch.arange(64.0)
+    got = two_stage_aggregate(cu(keys[16 * r:16 * r + 16]),
+                              cu(vals[16 * r:16 * r + 16]), 16, g)
+    want = torch.zeros(16).index_add_(0, keys, vals)[4 * r:4 * r + 4]
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"two_stage_aggregate: {got} != {want}")
+    probe = torch.arange(32) % 10
+    bk = torch.nn.functional.pad(torch.arange(10), (0, 2))
+    bv = torch.nn.functional.pad((torch.arange(10) * 10.0)[:, None],
+                                 (0, 0, 0, 2))
+    m, v = broadcast_join(cu(probe[8 * r:8 * r + 8]), cu(bk[3 * r:3 * r + 3]),
+                          cu(bv[3 * r:3 * r + 3]), g)
+    if not (m.all() and torch.equal(v[:, 0].cpu(),
+                                    probe[8 * r:8 * r + 8] * 10.0)):
+        raise AssertionError(f"broadcast_join: {m} {v}")
+    hk = torch.arange(64) % 4
+    hv = torch.stack([torch.arange(64.0), hk.float()], dim=1)
+    rk, rv = hash_partition_join(cu(hk[16 * r:16 * r + 16]),
+                                 cu(hv[16 * r:16 * r + 16]), 4, g)
+    rows = sorted(rv[rk >= 0][:, 0].tolist())
+    if not ((rk[rk >= 0] == r).all() and rows == list(range(r, 64, 4))):
+        raise AssertionError(f"hash_partition_join: rank {r} got {rk}")
+    grads = [{"a": torch.randn(8, 3, generator=torch.Generator().manual_seed(
+        100 + i)), "b": torch.arange(3.0) * (i + 1)} for i in range(4)]
+    red = grad_reduce_two_stage({k: cu(t) for k, t in grads[r].items()}, g)
+    total_a = sum(x["a"] for x in grads)[2 * r:2 * r + 2]
+    if not (torch.allclose(red["a"].cpu(), total_a, rtol=1e-6, atol=1e-6)
+            and torch.equal(red["b"].cpu(), torch.arange(3.0) * 10)):
+        raise AssertionError(f"grad_reduce_two_stage: {red}")
+    pipe = make_mesh((4,), ("pipe",), DEVICE)
+    rng = np.random.default_rng(0)
+    Ws = cu(torch.from_numpy((rng.standard_normal((4, 16, 16)) / 4.0
+                              ).astype(np.float32)))
+    x = cu(torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32)))
+    stage = lambda W, h: torch.tanh(h @ W)  # noqa: E731
+    out = pipeline_forward(stage, Ws, x, 4, pipe)
+    want = x
+    for W in Ws:
+        want = stage(W, want)
+    err = float((out - want).abs().max())
+    if err > 2e-5:
+        raise AssertionError(f"pipeline_forward: max |err| {err}")
+    return {"pipeline_err": err}
+
+
+def ep_float32(torch, mesh) -> dict:
+    """(a): float32 at EP_F32_LAYERS layers; the EP prefill at every
+    position and the EP engine's tokens against the single process's,
+    which rank 0 computes after its EP runs."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+
+    model = build_model(MOE_ARCH, EP_F32_LAYERS)
+    cfg = model.cfg
+    plan = make_plan(cfg, mesh.shape, get_shape("prefill_32k"),
+                     hbm_bytes=torch.cuda.get_device_properties(0)
+                     .total_memory)
+    if plan.moe_strategy != "ep":
+        raise AssertionError(f"plan {plan.decisions}: not expert-parallel")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.init_shards(torch.Generator(DEVICE).manual_seed(SEED), plan, mesh,
+                      torch.float32)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    held = sum(p.numel() for p in model.parameters())
+    batch = prefill_batch(torch, model)
+    ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True, use_flash=True)
+    ids = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), dispatch_ids(ops, ids):
+        logits, aux = model.forward(batch, ctx)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # four ranks' caches share the card
+    prefill = ops.launch_counts()
+    if prefill != expected_launches(cfg):
+        raise AssertionError(f"EP prefill launches {prefill}, want "
+                             f"{expected_launches(cfg)}")
+    ops.reset_launch_counts()
+    serve_ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True)
+    with torch.no_grad():
+        served = serve_model(model, ctx=serve_ctx, **EP_SERVE)
+    serve = ops.launch_counts()
+    want = {**{k: 0 for k in serve}, "moe_gather": cfg.n_layers *
+            served["iters"]}
+    if serve != want:
+        raise AssertionError(f"EP serve launches {serve}, want {want}")
+    sums = [0.0, 0.0]  # float64 sums, a block of rows at a time
+    for block in logits[0].split(512):
+        block = block.double()
+        sums = [sums[0] + float(block.sum()),
+                sums[1] + float(block.square().sum())]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if mesh.rank != 0:
+        del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()  # every rank's cache freed before rank 0's single model
+    ref = [None, None, None, None]
+    if mesh.rank == 0:  # the single process, on rank 0's share of the card
+        single = build_model(MOE_ARCH, EP_F32_LAYERS).init_params(
+            torch.Generator(DEVICE).manual_seed(SEED), torch.float32)
+        single_ids = []
+        with torch.no_grad():
+            with dispatch_ids(ops, single_ids):
+                want_logits, want_aux = single.forward(batch,
+                                                       Ctx(use_flash=True))
+            V = cfg.vocab_size  # the pad columns are -1e30 in both
+            ref[0] = log_softmax_err(torch, logits[0, :, :V],
+                                     want_logits[0, :, :V])
+            ref[2] = float(want_aux)
+            ref[3] = [t.cpu().numpy() for t in single_ids]
+            del want_logits
+            ref[1] = serve_model(single, **EP_SERVE)["outputs"]
+        del single, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(ref, src=0)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, sums)
+    if any(s != every[0] for s in every):
+        raise AssertionError(f"the ranks' logits differ: {every}")
+    err, want_served, want_aux, single_ids = ref
+    differ = routes_differ(ids, single_ids, cfg, mesh)
+    if not err < EP_TOL:
+        raise AssertionError(f"EP float32 log_softmax off by {err}")
+    if served["outputs"] != want_served:
+        raise AssertionError("EP engine's tokens differ from the single "
+                             "process's")
+    if abs(float(aux) - want_aux) > EP_AUX_RTOL * abs(want_aux):
+        raise AssertionError(f"EP aux {float(aux)}, single {want_aux}")
+    del model, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "held": held, "draw_s": draw_s,
+            "prefill_s": prefill_s, "err": err, "aux": float(aux),
+            "differ": differ, "routes": cfg.n_layers * batch[
+                "tokens"].numel() * cfg.top_k,
+            "want_aux": want_aux, "served": served["tokens"],
+            "finished": served["finished"], "serve_s": served["seconds"],
+            "iters": served["iters"], "peak_gib": peak,
+            "launches": [prefill, serve]}
+
+
+def ep_bf16(torch, mesh, ref: dict) -> dict:
+    """(b): bf16 at all 24 layers; a warm prefill (recording each layer's
+    dispatch), one timed (the main path's), one with every all-reduce
+    timed alone, one under the profiler; the last position's logits and
+    the routes against the single process's."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx, build_model
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model(MOE_ARCH)
+    cfg = model.cfg
+    plan = make_plan(cfg, mesh.shape, get_shape("prefill_32k"),
+                     hbm_bytes=torch.cuda.get_device_properties(0)
+                     .total_memory)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.init_shards(torch.Generator(DEVICE).manual_seed(SEED), plan, mesh)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    held = sum(p.numel() for p in model.parameters())
+    batch = prefill_batch(torch, model)
+    S = batch["tokens"].shape[1]
+    ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True, use_flash=True)
+    ids = []
+
+    def forward():
+        return model.forward(batch, ctx, last_only=True)[0]
+
+    with torch.no_grad():
+        with dispatch_ids(ops, ids):
+            first = forward()
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        if launches != expected_launches(cfg):
+            raise AssertionError(f"EP bf16 prefill launches {launches}")
+        spent, real = [], coll.all_reduce
+
+        def timed(t, group):  # gloo's all-reduce, its copies included
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = real(t, group)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t1)
+            return out
+
+        dist.barrier()
+        coll.all_reduce = timed
+        try:
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            timed_wall = time.perf_counter() - t0
+        finally:
+            coll.all_reduce = real
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if e not in copies]
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa
+                        or getattr(e, "self_cuda_time_total", 0.0))
+    busy_s = sum(dev_us(e) for e in kernels) / 1e6
+    copy_s = sum(dev_us(e) for e in copies) / 1e6
+    top = [(e.key[:60], dev_us(e) / 1e6) for e in
+           sorted(kernels, key=dev_us, reverse=True)[:4]]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same_bits = bool(torch.equal(first, logits))
+    V = cfg.vocab_size  # the pad columns are -1e30 in both
+    want = torch.from_numpy(ref["logits"]).to(DEVICE)
+    err = rel_err(torch, logits[..., :V], want[..., :V])
+    finite = bool(torch.isfinite(logits[..., :V]).all())
+    differ = routes_differ(ids, ref["ids"], cfg, mesh)
+    del model, logits, first, want, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "held": held, "draw_s": draw_s,
+            "wall_s": wall, "timed_wall_s": timed_wall,
+            "allreduce_s": sum(spent), "allreduces": len(spent),
+            "busy_s": busy_s, "copy_s": copy_s, "top": top,
+            "peak_gib": peak, "err": err,
+            "differ": differ, "routes": cfg.n_layers * S * cfg.top_k,
+            "same_bits": same_bits, "finite": finite, "experts": [
+                cfg.n_experts // mesh.shape["model"], cfg.n_experts],
+            "launches": launches}
+
+
+def ep_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of the expert-parallel phase, a process of its own: the
+    collectives, then (a) and (b) over the (data 1, model 4) mesh; its
+    results go to ``where``/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_ranks(rank, world, device=DEVICE, timeout_s=EP_WALL_S,
+               store=dist.FileStore(os.path.join(where, "store"), world))
+    out = {"collectives": ep_collectives(torch)}
+    mesh = make_mesh(EP_MESH, ("data", "model"), DEVICE)
+    out["mesh"] = repr(mesh)
+    out["f32"] = ep_float32(torch, mesh)
+    out["bf16"] = ep_bf16(torch, mesh, ref)
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_ep(torch, smi: str) -> dict:
+    """Explicit expert parallelism on the card: first the single-process
+    bf16 prefill at all 24 layers ((b)'s reference: its last position's
+    logits, each layer's dispatch, its time) and the same model with its
+    experts in reverse order (that comparison's noise floor,
+    ``reverse_experts``), then EP_WORLD processes over
+    the (data 1, model 4) mesh, started together and waited for at most
+    EP_WALL_S (a rank that fails fails the phase): the collectives, (a)
+    and (b) (``ep_rank``). Returns the ranks' main-path launches summed:
+    (a)'s prefill and serving and (b)'s timed prefill."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx, build_model
+
+    label = "ep"
+    torch.cuda.empty_cache()
+    model = build_model(MOE_ARCH)
+    model.init_params(torch.Generator(DEVICE).manual_seed(SEED))
+    batch = prefill_batch(torch, model)
+    S = batch["tokens"].shape[1]
+    ids = []
+    with torch.no_grad():
+        with dispatch_ids(ops, ids):
+            want = model.forward(batch, Ctx(use_flash=True), last_only=True)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.forward(batch, Ctx(use_flash=True), last_only=True)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+    ref = {"logits": want.float().cpu().numpy(),
+           "ids": [t.cpu().numpy() for t in ids]}
+    # The noise floor of (b)'s comparison: the single process again with
+    # its experts in reverse order, the same function with its sums
+    # rounded in another order (``reverse_experts``), held against itself
+    E, V = model.cfg.n_experts, model.cfg.vocab_size
+    reverse_experts(model)
+    rev_ids = []
+    with torch.no_grad(), dispatch_ids(ops, rev_ids):
+        rev = model.forward(batch, Ctx(use_flash=True), last_only=True)[0]
+    floor = {"err": rel_err(torch, rev[..., :V], want[..., :V]),
+             "differ": sum(lost_routes(
+                 w.reshape(E, -1), g.cpu().numpy().reshape(E, -1)[::-1])
+                 for w, g in zip(ref["ids"], rev_ids))}
+    del model, want, ids, batch, rev, rev_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    where = tempfile.mkdtemp(prefix="ep_ranks_")
+    t0 = time.perf_counter()
+    try:
+        procs = mp.start_processes(ep_rank, args=(EP_WORLD, where, ref),
+                                   nprocs=EP_WORLD, join=False,
+                                   start_method="spawn")
+        deadline = time.monotonic() + EP_WALL_S
+        while not procs.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in procs.processes:
+                    p.kill()
+                raise AssertionError(f"[{label}] the ranks did not finish "
+                                     f"in {EP_WALL_S} s")
+        ranks = []
+        for r in range(EP_WORLD):
+            with open(os.path.join(where, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    a0, b = ranks[0]["f32"], [r["bf16"] for r in ranks]
+    log(f"[{label}] {EP_WORLD} ranks, one process each, on one card as a "
+        f"(data {EP_MESH[0]}, model {EP_MESH[1]}) mesh: "
+        f"{ranks[0]['mesh']}; transport gloo (NCCL refuses two ranks on "
+        f"one device) on CUDA tensors, gloo staging them through the "
+        f"host itself; the ranks' run "
+        f"{ranks_s:.1f} s")
+    log(f"[{label}] collectives on the four ranks (CUDA tensors, the CPU "
+        f"tests' sizes): two_stage_aggregate, broadcast_join, "
+        f"hash_partition_join, grad_reduce_two_stage equal to the "
+        f"single-process answer; pipeline_forward at 4 stages max |err| "
+        f"{max(r['collectives']['pipeline_err'] for r in ranks):.3g} "
+        f"(bound 2e-5)")
+    log(f"[{label} a] {MOE_ARCH} float32, every published width, "
+        f"{a0['layers']} of 24 layers: {a0['held'] / 1e9:.3f} B parameters "
+        f"a rank ({b[0]['experts'][0]} of {b[0]['experts'][1]} experts), "
+        f"drawn in turns in "
+        f"{max(r['f32']['draw_s'] for r in ranks):.1f} s; prefill B=1 S={S} "
+        f"in {a0['prefill_s']:.2f} s: max |log_softmax - the single "
+        f"process's| {a0['err']:.3g} over every position (bound {EP_TOL}), "
+        f"aux {a0['aux']:.6f} (single {a0['want_aux']:.6f}), every rank's "
+        f"logits the same bits, (token, expert) routes the single process "
+        f"keeps and the ranks do not: "
+        f"{sum(r['f32']['differ'] for r in ranks)} of {a0['routes']}; "
+        f"serving {a0['finished']} requests, "
+        f"{a0['served']} tokens in {a0['serve_s']:.1f} s ({a0['iters']} "
+        f"steps), token for token the single process's engine; peak "
+        f"memory a rank {max(r['f32']['peak_gib'] for r in ranks):.2f} GiB")
+    busy = sum(r["busy_s"] for r in b)
+    copied = sum(r["copy_s"] for r in b)
+    wall = max(r["wall_s"] for r in b)
+    share = max(r["allreduce_s"] / r["timed_wall_s"] for r in b)
+    log(f"[{label} b] {MOE_ARCH} bf16, all {b[0]['layers']} layers: "
+        f"{b[0]['held'] / 1e9:.3f} B parameters a rank, drawn in turns in "
+        f"{max(r['draw_s'] for r in b):.1f} s; prefill B=1 S={S}: "
+        f"{wall * 1e3:.1f} ms, {S / wall:.0f} tokens/s (ranks "
+        f"{', '.join(f'{r['wall_s'] * 1e3:.1f}' for r in b)} ms), against "
+        f"the single process's {single_s * 1e3:.1f} ms, {S / single_s:.0f} "
+        f"tokens/s in this run; peak memory a rank "
+        f"{max(r['peak_gib'] for r in b):.2f} GiB; the card's kernels "
+        f"{busy / wall:.1%} of the wall (the ranks' kernels, copies not "
+        f"counted: {', '.join(f'{r['busy_s'] * 1e3:.1f}' for r in b)} ms), "
+        f"its copies and memsets {copied / wall:.1%} ("
+        f"{', '.join(f'{r['copy_s'] * 1e3:.1f}' for r in b)} ms); "
+        f"all-reduce {share:.1%} of the wall in a run with each of its "
+        f"{b[0]['allreduces']} all-reduces timed alone ("
+        f"{', '.join(f'{r['allreduce_s'] * 1e3:.1f}' for r in b)} ms of "
+        f"{', '.join(f'{r['timed_wall_s'] * 1e3:.1f}' for r in b)} ms); "
+        f"{smi}")
+    log(f"[{label} b] rank 0's top kernels: " + "; ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in b[0]["top"]))
+    differ = sum(r["differ"] for r in b)
+    log(f"[{label} b] last position's logits against the single process's: "
+        f"{b[0]['err']:.3g} of the largest (LOGITS_TOL {LOGITS_TOL}); "
+        f"(token, expert) routes kept by the single process and not by the "
+        f"ranks: {differ} of {b[0]['routes']}; the timed run's logits the "
+        f"warm run's bits: {all(r['same_bits'] for r in b)}")
+    log(f"[{label} b] noise floor, the single process against itself with "
+        f"its experts in reverse order (each token's k expert outputs added "
+        f"in the opposite order in bf16, the router's softmax summed in the "
+        f"opposite order): {floor['differ']} of {b[0]['routes']} routes "
+        f"differ, the last position's logits {floor['err']:.3g} of the "
+        f"largest apart")
+    if not all(r["finite"] for r in b) or not b[0]["err"] < LOGITS_TOL:
+        raise AssertionError(f"[{label} b] logits off by {b[0]['err']} of "
+                             f"the largest (LOGITS_TOL {LOGITS_TOL}), or not "
+                             f"finite")
+    runs = [run for r in ranks for run in r["f32"]["launches"]] + [
+        r["bf16"]["launches"] for r in ranks]
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    log(f"[{label}] launches over the ranks' main-path runs ((a)'s prefill "
+        f"and serving, (b)'s timed prefill): {json.dumps(launches)}")
+    return {"launches": launches, "tokens_per_s": S / wall,
+            "single_tokens_per_s": S / single_s, "floor": floor}
 
 
 # ------------------------------------------------------------- phase 19
@@ -2922,9 +3482,14 @@ def main() -> int:
         f"{smi}")
     log(f"[timing] training phases: {time.perf_counter() - t0:.1f} s (run "
         f"so far {time.perf_counter() - start:.1f} s)")
+    t0 = time.perf_counter()
+    ep = phase_ep(torch, smi)
+    runs.append(ep["launches"])
+    log(f"[timing] expert-parallel phase: {time.perf_counter() - t0:.1f} s "
+        f"(run so far {time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
-    log(f"[main path] launches over phases 3-18 and the training phases: "
-        f"{json.dumps(launches)}")
+    log(f"[main path] launches over phases 3-18, the training phases and "
+        f"the expert-parallel phase's ranks: {json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)
     q1 = phase_q1(torch, smi, rel)

@@ -15,8 +15,10 @@ the port restores a checkpoint the reference wrote.
   machine lacks), so a bf16 leaf is written as its uint16 bits with
   ``"dtype": "bfloat16"`` in the manifest and read back bit for bit. The
   reference's own bf16 files (``ml_dtypes`` arrays) are not read.
-* **Sharded restore** (``restore(..., specs=, mesh=)``) waits for the
-  parallelism layer (ROADMAP.md, queue 1, item 9) and raises.
+* **Sharded restore**: ``restore(..., specs=, mesh=)`` reads every leaf
+  to the host and keeps, through ``distributed.elastic.reshard_state``,
+  the slice this rank of ``mesh`` owns, on its device; restoring onto
+  another mesh than the one that saved is the elastic-scaling path.
 """
 from __future__ import annotations
 
@@ -147,11 +149,10 @@ class Checkpointer:
                 specs: Any = None, mesh=None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``template``: each tensor leaf
         comes back as a tensor on the template leaf's device, in the dtype
-        it was saved in."""
-        if specs is not None or mesh is not None:
-            raise NotImplementedError(
-                "sharded restore (specs, mesh) waits for the parallelism "
-                "layer (ROADMAP.md, queue 1, item 9)")
+        it was saved in. With ``specs`` and ``mesh`` each leaf comes back
+        as this rank's slice under its spec, on the mesh's device (one
+        of the two alone restores whole leaves, as the reference does)."""
+        sharded = specs is not None and mesh is not None
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -162,7 +163,13 @@ class Checkpointer:
         if len(like) != len(manifest["leaves"]):
             raise ValueError(f"checkpoint has {len(manifest['leaves'])} "
                              f"leaves, template has {len(like)}")
+        if sharded:  # whole leaves on the host, then each slice
+            like = [torch.empty(0)] * len(like)
         arrays = [_from_host(np.load(os.path.join(d, meta["file"])),
                              meta["dtype"], leaf)
                   for meta, leaf in zip(manifest["leaves"], like)]
+        if sharded:
+            from repro_torch.distributed.elastic import reshard_state
+            return (reshard_state(tr.unflatten(template, arrays), specs,
+                                  mesh), manifest["extra"])
         return tr.unflatten(template, arrays), manifest["extra"]

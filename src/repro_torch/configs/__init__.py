@@ -1,7 +1,8 @@
 """Architecture + shape configuration registry (the port's own copy).
 
 A plain copy of the reference registry: frozen :class:`ArchConfig`,
-:class:`ShapeConfig`, ``SHAPES``, ``get_arch`` and ``reduced_config``.
+:class:`ShapeConfig`, ``SHAPES``, ``get_arch``, ``list_archs``, ``cells``,
+``cell_is_runnable`` and ``reduced_config``.
 ``get_arch`` loads ``repro_torch.configs.<name>``, a plain copy of the
 reference's config module, for every architecture of ``ARCH_IDS``.
 """
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 __all__ = [
     "ArchConfig",
@@ -18,6 +19,9 @@ __all__ = [
     "SHAPES",
     "get_arch",
     "get_shape",
+    "list_archs",
+    "cells",
+    "cell_is_runnable",
     "reduced_config",
 ]
 
@@ -245,6 +249,27 @@ def get_shape(name: str) -> ShapeConfig:
     if name not in SHAPES:
         raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
     return SHAPES[name]
+
+
+def list_archs() -> List[ArchConfig]:
+    return [_load(a) for a in ARCH_IDS]
+
+
+def cell_is_runnable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) dry-run cell runs, per the assignment rules."""
+    if shape.name == "long_500k" and not arch.is_recurrent:
+        return False, "long_500k requires sub-quadratic attention (skip: pure full-attention arch)"
+    return True, ""
+
+
+def cells() -> List[Tuple[ArchConfig, ShapeConfig, bool, str]]:
+    """All 40 (arch x shape) cells with runnability annotations."""
+    out = []
+    for a in list_archs():
+        for s in SHAPES.values():
+            ok, why = cell_is_runnable(a, s)
+            out.append((a, s, ok, why))
+    return out
 
 
 def reduced_config(cfg: ArchConfig, seq_hint: int = 64) -> ArchConfig:

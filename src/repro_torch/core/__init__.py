@@ -5,10 +5,10 @@
 * the TCAP IR + rule-based optimizer (paper §5, §7),
 * the vectorized executor with PC's distributed join/aggregation plans
   (paper Appendix C/D), its ``torch`` expression backend on the
-  hand-written relational kernels.
-
-The reference's sharding planner (``repro.core.planner``) is not ported
-yet (ROADMAP.md queue 1 item 9).
+  hand-written relational kernels;
+* the sharding planner (``planner.make_plan``), "declarative in the
+  large" for the model side; ``make_plan`` and ``ShardingPlan`` load it
+  on first use, so that the relational engine never imports it.
 """
 from repro_torch.core.naming import NameScope, default_scope
 from repro_torch.core.lambdas import (LambdaArg, LambdaTerm, TypedLambdaArg,
@@ -48,4 +48,12 @@ __all__ = [
     "dead_column_elimination", "eliminate_redundant_applies", "optimize",
     "push_filters_past_joins", "PhysicalPlan", "estimate_bytes",
     "plan_physical", "ExecStats", "Executor", "NaiveExecutor",
+    "ShardingPlan", "make_plan",
 ]
+
+
+def __getattr__(name):
+    if name in ("ShardingPlan", "make_plan"):
+        from repro_torch.core import planner
+        return getattr(planner, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

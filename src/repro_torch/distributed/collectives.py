@@ -1,0 +1,93 @@
+"""The collectives that the explicit-SPMD code runs over a mesh axis's
+process group (``launch.mesh.Mesh.group``): the counterparts of the
+reference's ``psum``, ``psum_scatter``, ``all_gather``, ``all_to_all``,
+``ppermute`` and a broadcast.
+
+NCCL takes CUDA tensors, and so does gloo for every collective here but
+the point-to-point pair of ``ring_shift``: handed a CUDA tensor for
+``send`` / ``recv``, gloo writes the device pointer to its socket and the
+call raises ("writev ... Bad address", torch 2.11 on an H100;
+``python -m repro_torch.launch.gloo_probe`` shows which calls gloo takes
+on a card). So ``ring_shift`` copies a CUDA tensor to host memory on a
+gloo group, runs the pair on the copy and copies the result back; every
+other call hands its tensors over as they are, and gloo stages them
+itself. That is the transport of ranks sharing one card
+(``launch.mesh.backend_for``).
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["all_reduce", "reduce_scatter", "all_gather", "all_to_all",
+           "broadcast", "ring_shift"]
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the group, in place; returns ``t``."""
+    _dist().all_reduce(t, group=group)
+    return t
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the group; group rank i gets block i of its first
+    dim (``psum_scatter(..., tiled=True)``)."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    src = t.contiguous()
+    out = src.new_empty((t.shape[0] // n, *t.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's tensors concatenated along the first dim, group rank
+    order (``all_gather(..., tiled=True)``)."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    src = t.contiguous()
+    out = src.new_empty((n * t.shape[0], *t.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Block j of ``t``'s first dim to group rank j; block j of the result
+    from group rank j (``all_to_all(..., 0, 0, tiled=True)``)."""
+    src = t.contiguous()
+    out = torch.empty_like(src)
+    _dist().all_to_all_single(out, src, group=group)
+    return out
+
+
+def broadcast(t: torch.Tensor, src_rank: int, group) -> torch.Tensor:
+    """Group rank ``src_rank``'s ``t`` to every rank, in place."""
+    dist = _dist()
+    dist.broadcast(t, dist.get_global_rank(group, src_rank), group=group)
+    return t
+
+
+def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
+    """Each group rank's ``t`` to the next (the last's to the first);
+    returns what the previous rank sent (``ppermute`` over the ring). One
+    ``batch_isend_irecv`` pair, so no ring of blocking sends deadlocks; on
+    a gloo group through host memory."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    rank = dist.get_rank(group)
+    staged = t.is_cuda and dist.get_backend(group) == "gloo"
+    src = t.cpu() if staged else t.contiguous()
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src,
+                      dist.get_global_rank(group, (rank + 1) % n), group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (rank - 1) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(t.device)

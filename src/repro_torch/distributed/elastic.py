@@ -1,13 +1,25 @@
 """Elastic scaling (port of ``repro.distributed.elastic``): checkpoints
 are mesh-independent, so a job restarted on a different worker count
-re-balances its data shards. ``rebalance_shards`` is the reference's
-arithmetic; ``reshard_state`` places a state on a device mesh and waits
-for the parallelism layer (ROADMAP.md, queue 1, item 9)."""
+re-plans (planner), re-shards (``reshard_state``, which
+``Checkpointer.restore(..., specs=, mesh=)`` calls) and re-balances its
+data shards (``rebalance_shards``, the reference's arithmetic).
+
+``reshard_state`` is the counterpart of ``jax.device_put`` with a
+``NamedSharding``: one process a rank, each rank keeps the slice of every
+leaf that its mesh coordinates own, on its device. A spec entry naming one
+axis splits its dim into that axis's size of equal blocks; a tuple of
+axes splits it into their product, the first axis the major one (JAX's
+order); ``None``, or a dim past the spec's end, stays whole."""
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List
 
-__all__ = ["rebalance_shards", "reshard_state"]
+import torch
+
+from repro_torch import tree as tr
+
+__all__ = ["rebalance_shards", "reshard_state", "local_slice"]
 
 
 def rebalance_shards(n_pages: int, old_workers: int, new_workers: int,
@@ -21,8 +33,33 @@ def rebalance_shards(n_pages: int, old_workers: int, new_workers: int,
     return assignment
 
 
+def local_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The view of the whole ``x`` that ``mesh``'s rank owns under
+    ``spec``."""
+    if len(spec) > x.ndim:
+        raise ValueError(f"spec {spec} for a tensor of {x.ndim} dims")
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"into {n} blocks over {axes}")
+        block = 0
+        for a in axes:  # major first
+            block = block * mesh.shape[a] + mesh.index(a)
+        size = x.shape[dim] // n
+        x = x.narrow(dim, block * size, size)
+    return x
+
+
 def reshard_state(state: Any, specs: Any, mesh) -> Any:
-    """Place a host-resident state onto a (new) mesh: not ported yet."""
-    raise NotImplementedError(
-        "reshard_state needs a device mesh: it waits for the parallelism "
-        "layer (ROADMAP.md, queue 1, item 9)")
+    """Place a whole (host-resident) state tree onto ``mesh``: each leaf
+    (a tensor or an array) becomes this rank's slice under its spec, a
+    tensor of its own on ``mesh.device``."""
+    def place(leaf, spec):
+        part = local_slice(torch.as_tensor(leaf), spec, mesh)
+        return part.to(mesh.device, memory_format=torch.contiguous_format,
+                       copy=True)
+    return tr.tree_map(place, state, specs)

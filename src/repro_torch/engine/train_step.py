@@ -83,7 +83,14 @@ def make_train_step(model: Model, ctx: Ctx,
                     tcfg: TrainConfig = TrainConfig(),
                     lr_fn: Optional[Callable] = None):
     """Returns train_step(params, opt_state, err_state, batch) ->
-    (params, opt_state, err_state, metrics)."""
+    (params, opt_state, err_state, metrics). One device: a context with a
+    mesh raises, as no step reduces its gradients over one."""
+    if ctx.mesh is not None:
+        raise NotImplementedError(
+            "a train step over a mesh (data-parallel or FSDP, gradients "
+            "through grad_reduce_two_stage, sharded AdamW state, the EP "
+            "backward) waits for training over the mesh (ROADMAP.md, "
+            "queue 1, item 11)")
     loss_fn = make_loss_fn(model, ctx, tcfg)
     if lr_fn is None:
         lr_fn = constant(3e-4)

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs import ArchConfig, get_arch, reduced_config
 from repro_torch.engine.serve_step import ServingEngine
-from repro_torch.models import Model, build_model, resolve_device
+from repro_torch.models import Ctx, Model, build_model, resolve_device
 
 __all__ = ["serve_batch", "serve_model", "main"]
 
@@ -51,14 +51,16 @@ def serve_batch(arch: Union[str, ArchConfig], *, n_requests: int = 8, max_new: i
 
 def serve_model(model: Model, *, n_requests: int = 8, max_new: int = 32,
                 batch_size: int = 4, seed: int = 0, kv_layout: str = "dense",
-                page_size: int = 64):
+                page_size: int = 64, ctx: Optional[Ctx] = None):
     """Serve ``n_requests`` prompts drawn from ``seed`` (2-7 tokens each)
     greedily to completion through a ``ServingEngine`` over ``model``
     (max_seq ``max_new + 16``; ``kv_layout`` "dense" or "paged",
-    ``page_size`` tokens a page). Returns the counts, the wall time and
-    each request's generated tokens in submission order."""
+    ``page_size`` tokens a page; ``ctx`` the model context, e.g. a rank's
+    expert-parallel one, every rank of its mesh serving the same
+    requests). Returns the counts, the wall time and each request's
+    generated tokens in submission order."""
     eng = ServingEngine(model, batch_size=batch_size,
-                        max_seq=max_new + 16, eos_id=-1,
+                        max_seq=max_new + 16, ctx=ctx, eos_id=-1,
                         page_size=page_size, kv_layout=kv_layout)
     rng = np.random.default_rng(seed)
     for _ in range(n_requests):

@@ -9,8 +9,15 @@ counterpart of ``abstract_params``); ``init_params`` or
 ``load_state_dict(..., assign=True)`` gives them storage. Parameters are
 inference-only by default (``requires_grad=False``: serving builds no
 autograd graph); ``init_params(..., trainable=True)``, or
-``requires_grad_(True)`` on a loaded model, makes them trainable. Sharding
-specs wait for the parallelism slice.
+``requires_grad_(True)`` on a loaded model, makes them trainable.
+
+The sharding side is the reference's: ``param_specs(plan)`` and
+``decode_state_specs(plan, kv_dtype)`` give partition spec trees
+(``core.planner.P``) over the same paths, ``abstract_params`` meta tensors.
+A rank of a mesh holds what ``ep_param_specs`` gives it: the experts
+sliced over the model axis, every other leaf whole (GSPMD's tensor-parallel
+split of the dense layers is not ported: ROADMAP.md, queue 1, item 12);
+``load_shards`` puts those local slices in place of the parameters.
 """
 from __future__ import annotations
 
@@ -20,7 +27,9 @@ from typing import Any, Dict, Optional, Union
 import torch
 from torch import nn
 
+from repro_torch import tree as tr
 from repro_torch.configs import ArchConfig, get_arch
+from repro_torch.core.planner import P, ShardingPlan
 from repro_torch.models import params as pp
 from repro_torch.models import transformer as tf
 from repro_torch.models.context import Ctx
@@ -75,6 +84,67 @@ class Model(nn.Module):
         self.load_state_dict(pp.flatten(tree), assign=True)
         return self.requires_grad_(trainable)
 
+    def abstract_params(self, dtype=None) -> Dict[str, Any]:
+        return pp.abstract(self.defs, dtype or self.cfg.param_dtype)
+
+    def param_specs(self, plan: ShardingPlan) -> Dict[str, Any]:
+        return pp.specs(self.defs, plan)
+
+    def ep_param_specs(self, plan: ShardingPlan) -> Dict[str, Any]:
+        """What a rank holds under explicit expert parallelism: each
+        leaf's "experts" dim over the plan's model axis, as
+        ``param_specs`` would place it, every other dim whole."""
+        def spec(d: pp.ParamDef) -> P:
+            full = plan.spec(*d.axes)
+            return P(*(e if name == "experts" else None
+                       for name, e in zip(d.axes, full)))
+        return pp.map_defs(spec, self.defs)
+
+    def init_shards(self, generator: torch.Generator, plan: ShardingPlan,
+                    mesh, dtype=None) -> "Model":
+        """This rank's slices (``ep_param_specs``) of the very weights
+        ``init_params(generator, dtype)`` draws in one process: each leaf
+        is drawn whole on the generator's device, in that order, its slice
+        kept and the whole freed. The ranks take turns, a barrier each, so
+        that ranks sharing a card never hold more than one whole leaf on
+        it at once."""
+        import torch.distributed as dist
+        from repro_torch.distributed.elastic import local_slice
+        dt = pp.torch_dtype(dtype or self.cfg.param_dtype)
+        specs = pp.flatten(self.ep_param_specs(plan))
+        shards = {}
+        for turn in range(mesh.size):
+            if turn == mesh.rank:
+                for path, d in pp.tree_paths(self.defs).items():
+                    whole = pp.init_leaf(d, generator, dt, generator.device)
+                    shards[path] = local_slice(whole, specs[path], mesh).to(
+                        mesh.device, memory_format=torch.contiguous_format,
+                        copy=True)
+                    del whole
+            dist.barrier()
+        return self.load_shards(shards)
+
+    def load_shards(self, state: Dict[str, torch.Tensor]) -> "Model":
+        """``load_state_dict(state, assign=True)`` for a rank's local
+        slices (``distributed.elastic.reshard_state`` of the parameters
+        under ``ep_param_specs``), whose shapes are not the full ones.
+        Only the experts may be sliced: a dense leaf split over the mesh
+        (``param_specs``' tensor-parallel placement) raises."""
+        defs = pp.tree_paths(self.defs)
+        for key, t in state.items():
+            module, _, name = key.rpartition(".")
+            old = self.get_parameter(key)
+            if tuple(t.shape) != defs[key].shape and \
+                    "experts" not in defs[key].axes:
+                raise NotImplementedError(
+                    f"{key}: a slice {tuple(t.shape)} of a dense leaf "
+                    f"{defs[key].shape}; GSPMD's tensor-parallel split of "
+                    f"the dense layers is not ported, a rank holds them "
+                    f"whole (ROADMAP.md, queue 1, item 12)")
+            setattr(self.get_submodule(module), name,
+                    nn.Parameter(t, requires_grad=old.requires_grad))
+        return self
+
     def params(self) -> Dict[str, Any]:
         """The parameters as the reference's nested dict."""
         return _tree(self)
@@ -124,6 +194,72 @@ class Model(nn.Module):
             pp.torch_dtype(dtype or self.cfg.param_dtype),
             device or self.device, kv_dtype=kv_dtype, kv_layout=kv_layout,
             page_size=page_size, num_pages=num_pages)
+
+    def decode_state_specs(self, plan: ShardingPlan,
+                           kv_dtype: Optional[str] = None):
+        """The decode state's specs (dense layout): KV caches over the
+        batch axis and the kv strategy's, scales as their cache minus the
+        head dim, ``enc_out`` as an activation, ``length`` whole, recurrent
+        states over the batch with their inner dim over the model axis."""
+        # An audio config's int8 cache is refused by init_decode_state (the
+        # reference builds it and then fails to decode it); its tree is the
+        # float one's plus the two scales, whose specs come from the path.
+        audio_int8 = self.cfg.family == "audio" and kv_dtype == "int8"
+        st = self.init_decode_state(1, 1, device="meta",
+                                    kv_dtype=None if audio_int8 else kv_dtype)
+        if audio_int8:
+            st = st._replace(k_scale=st.length, v_scale=st.length)
+
+        def spec_for(path: str, leaf):
+            if "k_cache" in path or "v_cache" in path:
+                return _kv_spec(plan, heads=(plan.kv_strategy == "heads"))
+            if "k_scale" in path or "v_scale" in path:
+                # (L, B, S, K): co-sharded with the cache minus head dim
+                full = _kv_spec(plan, heads=(plan.kv_strategy == "heads"))
+                return P(*tuple(full)[:4])
+            if "enc_out" in path:
+                return plan.act_spec("batch", None, None)
+            if "length" in path:
+                return P()
+            return _state_spec(plan, leaf)
+
+        specs = [spec_for("/".join(map(str, path)), leaf)
+                 for path, leaf in tr.leaves_with_path(st)]
+        return tr.unflatten(st, specs)
+
+
+def _batch_axis(plan: ShardingPlan):
+    if not plan.shard_batch:
+        return None
+    dp = (*plan.dp_axes, *plan.batch_extra_axes)
+    return dp if len(dp) > 1 else (dp[0] if dp else None)
+
+
+def _kv_spec(plan: ShardingPlan, heads: bool) -> P:
+    b = _batch_axis(plan)
+    # (L, B, S, K, hd)
+    if heads and plan.tp_axis:
+        return P(None, b, None, plan.tp_axis, None)
+    if plan.tp_axis:  # sequence-sharded KV (paged/flash-decode layout)
+        # batch replicated (long_500k): spread the sequence over ALL axes
+        seq = (plan.tp_axis if plan.shard_batch
+               else (*plan.dp_axes, plan.tp_axis))
+        return P(None, b, seq, None, None)
+    return P(None, b, None, None, None)
+
+
+def _state_spec(plan: ShardingPlan, leaf) -> P:
+    b = _batch_axis(plan)
+    nd = leaf.ndim
+    if nd >= 3:
+        # (L, B, inner, ...): TP-shard the inner dim when divisible
+        inner = leaf.shape[2]
+        tp = plan.tp_axis if (plan.tp_axis and inner % plan.tp_size == 0
+                              and inner >= plan.tp_size) else None
+        return P(None, b, tp, *([None] * (nd - 3)))
+    if nd == 2:
+        return P(None, b)
+    return P()
 
 
 def build_model(arch: Union[str, ArchConfig],

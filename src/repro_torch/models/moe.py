@@ -1,5 +1,4 @@
-"""Mixture-of-Experts layer (port of ``repro.models.moe``), the path
-without expert parallelism.
+"""Mixture-of-Experts layer (port of ``repro.models.moe``).
 
 Dispatch is the reference's hash-partition build: the router gives each
 token its top-k experts, the token-slots are sorted by expert (stable, so
@@ -15,8 +14,12 @@ Routing runs on the device with tensor ops only: no boolean-mask indexing
 and no ``.item()``, so the host never waits on the card. Dropped slots go
 to a trash index E*C, which is where duplicate scatter writes land.
 
-``Ctx(ep_shard_map=True)`` (the reference's ``_moe_apply_ep_shard_map``)
-raises until the parallelism layer is ported.
+``Ctx(plan=, mesh=, ep_shard_map=True)`` with an "ep" plan takes the
+explicit expert-parallel path (the reference's
+``_moe_apply_ep_shard_map``, :func:`_moe_apply_ep`): each rank of the
+model axis routes its tokens, keeps the slots of its own E/tp experts,
+builds their buffer through the same ``moe_gather``, runs them, and one
+all-reduce over the model axis sums the ranks' partial outputs.
 """
 from __future__ import annotations
 
@@ -75,10 +78,9 @@ def _expert_ffn(cfg: ArchConfig, p: Dict, buf: torch.Tensor) -> torch.Tensor:
 def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss)."""
-    if ctx.ep_shard_map:
-        raise NotImplementedError(
-            "Ctx(ep_shard_map=True), explicit expert parallelism, waits for "
-            "the parallelism layer (ROADMAP.md, 'Modules to port', item 9)")
+    if (ctx.ep_shard_map and ctx.mesh is not None and ctx.plan is not None
+            and ctx.plan.moe_strategy == "ep"):
+        return _moe_apply_ep(cfg, p, x, ctx)
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -137,6 +139,86 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     y = contrib[:, 0]
     for i in range(1, k):
         y = y + contrib[:, i]
+
+    if cfg.n_shared_experts:
+        y = y + ffn_apply(_shared_cfg(cfg), p["shared"], xt)
+    return y.reshape(B, S, d), aux
+
+
+def _moe_apply_ep(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert parallelism: x (B, S, d) is this rank's data shard
+    of the batch, whole on every rank of the model axis, and ``p``'s
+    expert leaves hold this rank's E/tp experts (``Model.ep_param_specs``)
+    with the router and shared experts whole; each rank gathers only its
+    own experts' tokens (a shard-local hash-partition build: no dispatch
+    collective), runs them, and the combine is one all-reduce of the
+    partial outputs over the model axis a layer.
+
+    As in the reference: the capacity C is ``expert_capacity`` of the
+    global token count (B * S times the data shards), while each shard
+    routes only its own tokens, so under a tight capacity the drops are
+    not the single-device path's; the aux loss is this shard's own, not
+    reduced (the reference returns data shard 0's, its shard_map's
+    replicated output); ``quantize_dispatch`` is ignored; the shared
+    experts run outside the collective."""
+    from repro_torch.distributed import collectives as coll
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in p.values()
+            if isinstance(t, torch.Tensor))):
+        raise NotImplementedError(
+            "explicit expert parallelism serves only: its backward waits "
+            "for training over the mesh (ROADMAP.md, queue 1, item 11)")
+    plan, mesh = ctx.plan, ctx.mesh
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_local = E // plan.tp_size
+    my = mesh.index(plan.tp_axis)
+    shards = plan.dp_size if plan.shard_batch else 1
+    C = expert_capacity(cfg, B * shards * S)
+    T = B * S
+    xt = x.reshape(T, d)
+    dev = x.device
+
+    # --- routing (float32), this shard's tokens
+    logits = xt.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.topk(probs, k, dim=-1, sorted=True)
+    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    ids, perm = ids.sort(dim=-1)  # the reference's slot order (moe_apply)
+    weights = weights.gather(-1, perm)
+    counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+        0, ids.reshape(-1), torch.ones(T * k, device=dev))
+    aux = E * torch.sum(counts / (T * k) * probs.mean(dim=0))
+
+    # --- shard-local build: keep only the slots routed to MY experts
+    flat_e = ids.reshape(-1)
+    mine = torch.div(flat_e, E_local, rounding_mode="floor") == my
+    local_e = torch.where(mine, flat_e - my * E_local, E_local)
+    se, order = torch.sort(local_e, stable=True)
+    st = torch.div(order, k, rounding_mode="floor")
+    bounds = torch.searchsorted(se, torch.arange(E_local + 1, device=dev))
+    rank = torch.arange(T * k, device=dev) - bounds[se]
+    keep = (rank < C) & (se < E_local)
+    pos = torch.where(keep, se * C + rank, E_local * C)
+    token_ids = torch.full((E_local * C + 1,), -1, dtype=torch.int32,
+                           device=dev)
+    token_ids.scatter_(0, pos, st.to(torch.int32))
+    token_ids = token_ids[:E_local * C]
+    buf = kops.moe_gather(xt, token_ids, token_ids >= 0).reshape(
+        E_local, C, d)
+    y_e = _expert_ffn(cfg, p, buf).reshape(E_local * C, d)
+
+    # --- combine: each token's kept slots here, weighted, in increasing
+    # expert order; then the ranks' partial sums, one all-reduce
+    pos_tok = torch.empty_like(pos).scatter_(0, order, pos).reshape(T, k)
+    w_tok = (weights * (pos_tok < E_local * C)).to(y_e.dtype)
+    contrib = (y_e[pos_tok.clamp(max=E_local * C - 1)] * w_tok[..., None]
+               ).to(x.dtype)
+    y = contrib[:, 0]
+    for i in range(1, k):
+        y = y + contrib[:, i]
+    y = coll.all_reduce(y.contiguous(), mesh.group(plan.tp_axis))
 
     if cfg.n_shared_experts:
         y = y + ffn_apply(_shared_cfg(cfg), p["shared"], xt)

@@ -3,11 +3,12 @@
 Every parameter is declared once as a :class:`ParamDef` carrying its shape
 and logical axes. From one definition tree we derive:
 
+* ``abstract(defs, dtype)`` — tensors on the meta device (no storage:
+  the reference's ShapeDtypeStructs),
 * ``initialize(defs, generator, dtype, device)`` — real tensors,
+* ``specs(defs, plan)``  — the partition spec (``core.planner.P``) tree,
 * ``count(defs)``  — exact parameter count,
 * ``tree_paths(defs)`` — flat ``{"a.b.c": ParamDef}`` view.
-
-The sharding specs wait for the parallelism slice.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamDef", "initialize", "count", "tree_paths",
-           "flatten", "torch_dtype"]
+__all__ = ["ParamDef", "abstract", "initialize", "init_leaf", "specs",
+           "map_defs", "count", "tree_paths", "flatten", "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,22 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def map_defs(fn, defs) -> Dict[str, Any]:
+    """``fn`` of every ParamDef, into a nested dict of ``defs``' paths."""
+    return {k: fn(v) if isinstance(v, ParamDef) else map_defs(fn, v)
+            for k, v in sorted(defs.items())}
+
+
+def abstract(defs, dtype) -> Dict[str, Any]:
+    dt = torch_dtype(dtype)
+    return map_defs(
+        lambda d: torch.empty(d.shape, dtype=dt, device="meta"), defs)
+
+
+def specs(defs, plan) -> Dict[str, Any]:
+    return map_defs(lambda d: plan.spec(*d.axes), defs)
+
+
 def count(defs) -> int:
     return sum(math.prod(d.shape) for _, d in _iter_defs(defs))
 
@@ -75,7 +92,7 @@ def _std(d: ParamDef) -> float:
     return d.scale / math.sqrt(fan_in)
 
 
-def _init_leaf(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
+def init_leaf(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
                device) -> torch.Tensor:
     """One leaf, drawn on ``device`` directly in ``dtype`` (the full-width
     model is tens of GB: no float32 staging copy, no host draws)."""
@@ -91,7 +108,7 @@ def initialize(defs, generator: torch.Generator, dtype: torch.dtype,
                device) -> Dict[str, Any]:
     """Nested dict of tensors mirroring ``defs``. The std rules are the
     reference's; the numbers differ (torch.Generator, not jax.random)."""
-    return {k: (_init_leaf(v, generator, dtype, device)
+    return {k: (init_leaf(v, generator, dtype, device)
                 if isinstance(v, ParamDef)
                 else initialize(v, generator, dtype, device))
             for k, v in sorted(defs.items())}

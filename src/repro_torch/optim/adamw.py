@@ -11,9 +11,10 @@ leaf in float32 ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g g``,
 The update writes the new values into the leaves of ``params`` and of the
 moments, in place, and returns them: the reference's train loop donates
 both to its jitted step, and at full width (tens of GB of parameters and
-moments) a second copy does not fit beside the first. The moments' sharding
-specs (``opt_state_specs``, ``abstract_opt_state``) wait for the
-parallelism layer (ROADMAP.md, queue 1, item 9).
+moments) a second copy does not fit beside the first. The moments mirror
+the parameters' sharding (``opt_state_specs``); ``abstract_opt_state``
+gives them as meta tensors. The sharded update itself waits for training
+over the mesh (ROADMAP.md, queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -23,10 +24,11 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.core.planner import P
 from repro_torch.models.params import torch_dtype
 
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update",
-           "global_norm"]
+           "abstract_opt_state", "opt_state_specs", "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +56,19 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
                     v=tr.tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32,
                                      device=first.device))
+
+
+def abstract_opt_state(abstract_params, cfg: AdamWConfig) -> OptState:
+    dt = torch_dtype(cfg.moment_dtype)
+    meta = lambda p: torch.empty(p.shape, dtype=dt,  # noqa: E731
+                                 device="meta")
+    return OptState(m=tr.tree_map(meta, abstract_params),
+                    v=tr.tree_map(meta, abstract_params),
+                    step=torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def opt_state_specs(param_specs) -> OptState:
+    return OptState(m=param_specs, v=param_specs, step=P())
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 The training state is a tree: dicts (keys taken in sorted order, as JAX
 flattens them), tuples and lists (by index), NamedTuples (by field name),
-``None`` (no leaves), and anything else a leaf. ``leaves_with_path`` walks
+``None`` (no leaves), and anything else a leaf; a tuple whose type sets
+``tree_leaf`` (the planner's partition spec ``P``) is a leaf too, as JAX's
+``PartitionSpec`` is under ``is_leaf``. ``leaves_with_path`` walks
 it in JAX's leaf order and gives each leaf the path JAX's
 ``tree_flatten_with_path`` gives it (dict key, field name or index), which
 the checkpointer joins into file names and the optimizer's global norm
@@ -15,6 +17,10 @@ from typing import Any, Callable, List, Mapping, Tuple
 __all__ = ["leaves_with_path", "leaves", "tree_map", "unflatten"]
 
 
+def _is_leaf(tree: Any) -> bool:
+    return getattr(type(tree), "tree_leaf", False)
+
+
 def _is_namedtuple(tree: Any) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
@@ -23,6 +29,8 @@ def leaves_with_path(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     """[(path, leaf)] in JAX's flattening order."""
     if tree is None:
         return []
+    if _is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, Mapping):
         return [item for key in sorted(tree)
                 for item in leaves_with_path(tree[key], path + (key,))]
@@ -46,6 +54,8 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     structure."""
     if tree is None:
         return None
+    if _is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}

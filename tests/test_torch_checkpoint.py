@@ -128,7 +128,7 @@ def test_silent_worker_flagged():
     assert 2 in plan.stragglers
 
 
-def test_elastic_rebalance_and_reshard_waits_for_the_mesh():
+def test_elastic_rebalance_and_reshard_waits_for_the_mesh(torch):
     from repro.distributed import rebalance_shards as jrebalance
     from repro_torch.distributed import rebalance_shards, reshard_state
     asg = rebalance_shards(n_pages=10, old_workers=4, new_workers=3,
@@ -137,8 +137,21 @@ def test_elastic_rebalance_and_reshard_waits_for_the_mesh():
     sizes = [len(v) for v in asg.values()]
     assert max(sizes) - min(sizes) <= 1
     assert asg == jrebalance(10, 4, 3, {})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        reshard_state({}, {}, None)
+    # reshard_state keeps the slice a rank's coordinates own (a tuple
+    # entry: the first axis the major one); four ranks on one host run it
+    # in tests/test_torch_mesh.py
+    from torch_mesh_ranks import Grid
+
+    from repro_torch.core.planner import P
+    w = torch.arange(64.0).reshape(8, 8)
+    for i in range(2):
+        for j in range(2):
+            got = reshard_state({"w": w, "v": w}, {
+                "w": P("data", "model"), "v": P(("data", "model"))},
+                Grid({"data": 2, "model": 2}, data=i, model=j))
+            assert torch.equal(got["w"], w[4 * i:4 * i + 4, 4 * j:4 * j + 4])
+            k = 2 * i + j
+            assert torch.equal(got["v"], w[2 * k:2 * k + 2])
 
 
 def test_restore_into_a_different_template_fails_loudly(torch, tmp_path):
@@ -147,8 +160,12 @@ def test_restore_into_a_different_template_fails_loudly(torch, tmp_path):
     ck.save(1, {"a": torch.ones(3)})
     with pytest.raises(ValueError, match="template has 2"):
         ck.restore({"a": torch.ones(3), "b": torch.ones(3)})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ck.restore({"a": torch.ones(3)}, specs={}, mesh=object())
+    from torch_mesh_ranks import Grid
+
+    from repro_torch.core.planner import P
+    with pytest.raises(ValueError, match="does not split into 2 blocks"):
+        ck.restore({"a": torch.ones(3)}, specs={"a": P("data")},
+                   mesh=Grid({"data": 2}, data=0))
 
 
 def test_data_loader_cursor_recovery():

@@ -1063,3 +1063,49 @@ def test_training_on_the_card_follows_the_cpu(torch):
     card = train_loop(cfg, device="cuda", **kw)["losses"]
     host = train_loop(cfg, device="cpu", **kw)["losses"]
     np.testing.assert_allclose(card, host, rtol=1e-3)
+
+
+def test_expert_parallel_forward_over_four_ranks_on_the_card(torch,
+                                                             tmp_path):
+    """The expert-parallel phase's smallest form: reduced qwen2-moe (4
+    experts top-2, one shared) over a (data 1, model 4) mesh of four
+    processes sharing the card (gloo on CUDA tensors), float32, each rank's attention through the
+    flash kernel and its expert's dispatch through the gather kernel,
+    against the single process's plain forward on the card (attention
+    without the flash kernel, so the kernel is held too) within 2e-3 of
+    log_softmax (tests/test_multidevice.py's bound), and its served tokens
+    the single process's engine's."""
+    import dataclasses
+
+    from torch_mesh_ranks import run_ranks
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+    cfg = reduced_config(get_arch("qwen2_moe"))
+    model = build_model(cfg).init_params(
+        torch.Generator("cuda").manual_seed(0), torch.float32)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64),
+                                               dtype=np.int32)
+    serve = {"n_requests": 4, "max_new": 6, "batch_size": 2}
+    with torch.no_grad():
+        want, aux = model.forward({"tokens": torch.from_numpy(tokens).cuda()},
+                                  Ctx())
+        served = serve_model(model, **serve)["outputs"]
+    ranks = run_ranks(tmp_path, {"checks": ["ep"], "ep": [{
+        "name": "qwen", "cfg": dataclasses.asdict(cfg), "mesh": (1, 4),
+        "shape": "prefill_32k", "use_flash": True, "tokens": tokens,
+        "state": {k: v.cpu() for k, v in model.state_dict().items()},
+        "serve": serve}]}, device="cuda")
+    want = torch.log_softmax(want.cpu(), dim=-1)
+    for r in ranks:
+        res = r["ep"]["qwen"]
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert res["expert_shape"][1] == 1  # 4 experts over 4 ranks
+        err = float((torch.log_softmax(res["logits"], dim=-1) - want)
+                    .abs().max())
+        assert err < 2e-3, err
+        assert abs(res["aux"] - float(aux)) <= 1e-4 * abs(float(aux))
+        assert res["launches"]["flash_attention"] == cfg.n_layers
+        assert res["launches"]["moe_gather"] == cfg.n_layers
+        assert res["served"] == served

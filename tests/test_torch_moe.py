@@ -146,13 +146,26 @@ def test_moe_apply_matches_reference(torch, arch, case):
 
 
 def test_moe_ep_shard_map_waits_for_the_parallelism_layer(torch, qwen):
+    """``Ctx(ep_shard_map=True)`` without a mesh and an "ep" plan takes the
+    single-device path, as the reference's ``moe_apply`` does; with them,
+    the expert-parallel path serves only: a gradient waits for training
+    over the mesh (ROADMAP.md item 11). Its forward is held on four
+    ranks by tests/test_torch_mesh.py."""
+    from repro_torch.configs import get_shape
+    from repro_torch.core.planner import make_plan
     from repro_torch.models import Ctx
     from repro_torch.models import moe
-    p, x = _moe_inputs(qwen)
-    with pytest.raises(NotImplementedError, match="'Modules to port', "
-                       "item 9"):
-        moe.moe_apply(port_cfg(qwen), _to(torch.from_numpy, p),
-                      torch.from_numpy(x), Ctx(ep_shard_map=True))
+    cfg = port_cfg(qwen)
+    p, x = _to(torch.from_numpy, _moe_inputs(qwen)[0]), torch.from_numpy(
+        _moe_inputs(qwen)[1])
+    y, aux = moe.moe_apply(cfg, p, x, Ctx(ep_shard_map=True))
+    want, want_aux = moe.moe_apply(cfg, p, x, Ctx())
+    assert torch.equal(y, want) and torch.equal(aux, want_aux)
+    plan = make_plan(cfg, {"data": 1, "model": 4}, get_shape("train_4k"))
+    assert plan.moe_strategy == "ep"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        moe.moe_apply(cfg, p, x.requires_grad_(True),
+                      Ctx(plan=plan, mesh=object(), ep_shard_map=True))
 
 
 @pytest.mark.parametrize("use_flash", [False, True])

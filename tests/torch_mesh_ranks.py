@@ -1,0 +1,218 @@
+"""The rank side of the port's multi-rank tests (tests/test_torch_mesh.py on
+the CPU, the expert-parallel case of tests/test_torch_cuda.py on a card).
+
+    python tests/torch_mesh_ranks.py JOB RANK WORLD DEVICE
+
+JOB is a ``torch.save``d dict written by the test (``run_ranks``): the
+checks to run (``collectives``, ``ep``) and their inputs. Each rank joins a
+gloo or NCCL group (``launch.mesh.init_ranks``, whose rule picks the
+transport) through a FileStore beside JOB, runs every check, and saves
+what it got to ``rank<RANK>.pt`` beside JOB, for the test to hold against
+its reference. Nothing here imports JAX."""
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+WALL_S = 120  # each run of the ranks
+
+
+def run_ranks(where, job, world=4, device="cpu", wall_s=WALL_S):
+    """Start ``world`` rank processes of this file on ``job`` (written to
+    ``where``) and wait at most ``wall_s`` for all, killing any still
+    running then; returns each rank's saved results."""
+    where.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(job, timeout_s=wall_s), where / "job.pt")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    logs = [open(where / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(where / "job.pt"),
+         str(r), str(world), device], stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=ROOT, env=env) for r in range(world)]
+    deadline = time.monotonic() + wall_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    text = "\n".join(f"--- rank {r}\n" + (where / f"rank{r}.log").read_text()
+                     for r in range(world))
+    assert all(p.returncode == 0 for p in procs), (
+        f"rank exit codes {[p.returncode for p in procs]} (a rank past "
+        f"{wall_s} s is killed):\n{text[-6000:]}")
+    return [torch.load(where / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+class Grid:
+    """A mesh's coordinates without its process groups: enough for
+    ``reshard_state``, which places and never communicates."""
+
+    def __init__(self, shape, **coords):
+        self.shape, self.coords, self.device = shape, coords, "cpu"
+
+    def index(self, axis):
+        return self.coords[axis]
+
+
+def _rank_seeded(rank: int):
+    g = torch.Generator().manual_seed(100 + rank)
+    return {"a": torch.randn(8, 3, generator=g),
+            "b": torch.randn(3, generator=g),
+            "c": torch.randn(5, 2, generator=g)}
+
+
+def check_collectives(job, dev, device):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.engine.aggregation import (broadcast_join,
+                                                grad_reduce_two_stage,
+                                                hash_partition_join,
+                                                two_stage_aggregate)
+    from repro_torch.engine.pipeline_parallel import (pipeline_forward,
+                                                      pipeline_loss)
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    out = {}
+    mesh = make_mesh((4,), ("data",), device)
+    g, r = mesh.group("data"), mesh.index("data")
+    on = lambda t: t.to(dev)  # noqa: E731
+    # the inputs of tests/test_multidevice.py, each rank its block
+    keys, vals = torch.arange(64) % 16, torch.arange(64, dtype=torch.float32)
+    out["two_stage"] = two_stage_aggregate(
+        on(keys[16 * r:16 * r + 16]), on(vals[16 * r:16 * r + 16]), 16,
+        g).cpu()
+    probe = torch.arange(32) % 10
+    bk = torch.nn.functional.pad(torch.arange(10), (0, 2))
+    bv = torch.nn.functional.pad((torch.arange(10) * 10.0)[:, None],
+                                 (0, 0, 0, 2))
+    m, v = broadcast_join(on(probe[8 * r:8 * r + 8]),
+                          on(bk[3 * r:3 * r + 3]), on(bv[3 * r:3 * r + 3]), g)
+    out["broadcast_join"] = (probe[8 * r:8 * r + 8], m.cpu(), v.cpu())
+    hk = torch.arange(64) % 4
+    hv = torch.stack([torch.arange(64.0), hk.float()], dim=1)  # (row, key)
+    rk, rv = hash_partition_join(on(hk[16 * r:16 * r + 16]),
+                                 on(hv[16 * r:16 * r + 16]), 4, g)
+    out["hash_join"] = (rk.cpu(), rv.cpu())
+    grads = {k: on(t) for k, t in _rank_seeded(r).items()}
+    out["grad_reduce"] = {k: t.cpu() for k, t in
+                          grad_reduce_two_stage(grads, g).items()}
+    out["grad_inputs_kept"] = all(
+        torch.equal(grads[k].cpu(), t) for k, t in _rank_seeded(r).items())
+
+    pipe = make_mesh((4,), ("pipe",), device)
+    Ws, x = on(torch.from_numpy(job["Ws"])), on(torch.from_numpy(job["x"]))
+    stage = lambda W, h: torch.tanh(h @ W)  # noqa: E731
+    out["pipeline"] = pipeline_forward(stage, Ws, x, 4, pipe).cpu()
+    out["pipeline_loss"] = float(pipeline_loss(
+        stage, Ws, x, torch.zeros_like(x), 4, pipe))
+
+    grid = make_mesh((2, 2), ("data", "model"), device)
+    got, extra = Checkpointer(job["ckpt_dir"]).restore(
+        job["ckpt_template"], specs=job["ckpt_specs"], mesh=grid)
+    out["restore"] = ({k: t.cpu() for k, t in got.items()}, grid.coords,
+                      {k: str(t.device) for k, t in got.items()}, extra)
+    try:
+        make_production_mesh(device=device)
+        out["production_mesh"] = "built"
+    except ValueError as e:
+        out["production_mesh"] = str(e)
+    return out
+
+
+def check_ep(job, dev, device):
+    from repro_torch.configs import ArchConfig, get_shape
+    from repro_torch.core.planner import P, make_plan
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.params import flatten
+    out = {}
+    for case in job["ep"]:
+        cfg = ArchConfig(**case["cfg"])
+        mesh = make_mesh(case["mesh"], ("data", "model"), device)
+        plan = make_plan(cfg, mesh.shape, get_shape(case["shape"]))
+        assert plan.moe_strategy == "ep", plan.decisions
+        ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True,
+                  use_flash=case.get("use_flash", False))
+        dp, di = mesh.shape["data"], mesh.index("data")
+        res = {"coords": mesh.coords}
+        if "layer" in case:  # one MoE layer: the rank's experts, router whole
+            p = reshard_state(case["layer"], {
+                k: P("model") if k.startswith("w_") else P()
+                for k in case["layer"]}, mesh)
+            x = torch.from_numpy(case["x"])
+            n = x.shape[0] // dp
+            with torch.no_grad():
+                y, aux = moe_apply(cfg, p, x[di * n:(di + 1) * n].to(dev),
+                                   ctx)
+            res.update(y=y.cpu(), aux=float(aux))
+            wants = dict(p, router=p["router"].clone().requires_grad_(True))
+            try:
+                moe_apply(cfg, wants, x[:n].to(dev), ctx)
+                res["grad"] = "ran"
+            except NotImplementedError as e:
+                res["grad"] = str(e)
+        else:
+            model = build_model(cfg)
+            specs = flatten(model.ep_param_specs(plan))
+            model.load_shards(reshard_state(case["state"], specs, mesh))
+            res["expert_shape"] = tuple(model.blocks.moe.w_up.shape)
+            if case.get("init_shards"):  # drawn in turns = sliced after
+                drawn = build_model(cfg).init_shards(
+                    torch.Generator(dev).manual_seed(0), plan, mesh,
+                    torch.float32).state_dict()
+                whole = build_model(cfg).init_params(
+                    torch.Generator(dev).manual_seed(0), torch.float32)
+                want = reshard_state(whole.state_dict(), specs, mesh)
+                res["init_shards_equal"] = sorted(drawn) == sorted(want) and all(
+                    torch.equal(drawn[k], want[k]) for k in want)
+            tokens = torch.from_numpy(case["tokens"])
+            n = tokens.shape[0] // dp
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                logits, aux = model.forward(
+                    {"tokens": tokens[di * n:(di + 1) * n].to(dev)}, ctx)
+            res.update(logits=logits.cpu(), aux=float(aux),
+                       launches=dict(ops.launch_counts()))
+            if "serve" in case:
+                with torch.no_grad():
+                    res["served"] = serve_model(model, ctx=ctx,
+                                                **case["serve"])["outputs"]
+        out[case["name"]] = res
+    return out
+
+
+CHECKS = {"collectives": check_collectives, "ep": check_ep}
+
+
+def main(job_path: str, rank: int, world: int, device: str) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+    torch.set_num_threads(1)
+    job = torch.load(job_path, weights_only=False)
+    here = os.path.dirname(job_path)
+    dev = init_ranks(rank, world, device=device, timeout_s=job["timeout_s"],
+                     store=dist.FileStore(os.path.join(here, "store"), world))
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    for name in job["checks"]:
+        out[name] = CHECKS[name](job, dev, device)
+    torch.save(out, os.path.join(here, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
