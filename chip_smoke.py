@@ -124,9 +124,11 @@ final line:
    a save) is left out for time.
 18c. explicit expert parallelism: qwen2-moe-a2.7b over a (data 1, model
    4) mesh of four processes sharing the card (gloo on CUDA tensors, as
-   NCCL refuses two ranks on one device), each rank holding the dense layers whole and 15 of the
-   60 experts, drawn in turns from the seed so that one whole leaf at a
-   time is on the card. First the collective functions and the pipeline
+   NCCL refuses two ranks on one device), each rank holding its slices
+   under ``param_specs``: a quarter of the heads, ff and vocab, 15 of the
+   60 experts and a quarter of the shared experts' ff (two all-reduces a
+   layer and one for the embedding, the logits all-gathered), drawn in
+   turns from the seed so that one whole leaf at a time is on the card. First the collective functions and the pipeline
    at 4 stages on the ranks, against the single-process answer; then (a)
    float32 at every published width, 4 of 24 layers: prefill B=1,
    S=4096 under ``Ctx(use_flash=True)`` (flash and moe_gather once per
@@ -145,6 +147,31 @@ final line:
    with its experts in reverse order (``reverse_experts``: the same
    function, each token's k expert outputs added in the opposite order
    in bf16), its routes that differ and its logits' distance;
+18d. the tensor-parallel split of the dense layers: the single process
+   first, in this process, then four processes over the same (data 1,
+   model 4) mesh, each holding its slices under ``param_specs`` (a
+   quarter of the heads, ff and vocab, drawn in turns from the seed): (a)
+   gemma-7b float32 at every published width, 4 of 28 layers (16/16
+   heads of 256, geglu, tied embeddings): prefill B=1, S=4096 under
+   ``Ctx(use_flash=True)`` on the ranks (flash once per layer, at 4/4
+   heads), every position's log_softmax within 2e-3 of the single
+   process's plain forward (``Ctx()``, its logits written to a file the
+   ranks read), every rank's logits the same bits; paged decode fed the
+   single process's greedy tokens (paged_attention once per layer and
+   step), each step within 2e-3 on log_softmax and the same argmax, and
+   the smoke's 8 requests through ``serve_model`` over the paged pool,
+   token for token the single process's engine; (b) nemotron-4-340b bf16
+   at every published width, 4 of 96 layers (43.3 GiB, 10.8 GiB a rank;
+   96/8 heads of 192, 24/2 a rank; relu2): the single process's plain
+   last logits, its flash prefill timed, its greedy paged decode and
+   paged serving, then freed; on the ranks prefill B=1, S=4096, the
+   median of 3 after a warm run (tokens/s beside the single process's),
+   the all-reduces' and the all-gather's share of the wall (a run with
+   each timed alone), the kernels' busy share (copies and memsets apart),
+   peak memory a rank, the last logits within LOGITS_TOL of the single
+   process's plain ones; paged decode fed its greedy tokens, each step
+   within LOGITS_TOL; paged serving, the same tokens on every rank, the
+   count that differ from the single process's printed;
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -198,7 +225,8 @@ final line:
 
 Launch counts are set to 0 just before each main-path run of phases 3-23
 (prefill, paged decode, paged serving, the long-context step, serving,
-the training runs, each rank's EP prefill and serving, the timed Q1
+the training runs, each rank's EP prefill and serving, each rank's
+tensor-parallel prefill, decode and serving, the timed Q1
 runs, the workers', the entry points', the service's cold Q1, the
 tools') and read just after it. The last two lines are a JSON object
 with one entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
@@ -271,6 +299,14 @@ KERNEL_CASES = [  # (name, B, S, T, H, K, hd, causal, dtype)
     # phase's float32 ranks run it
     ("moe_prefill_f32", 1, PREFILL_SEQ, PREFILL_SEQ, 16, 16, 128, True,
      "float32"),
+    # a rank's heads at the tensor-parallel phases' prefill (a quarter of
+    # them): nemotron-4-340b's 24/2 at hd 192, gemma-7b's float32 4/4 at hd
+    # 256, qwen2-moe's 4/4 at hd 128 in float32 ((a) of 18c) and bf16
+    ("tp_hd192", 1, PREFILL_SEQ, PREFILL_SEQ, 24, 2, 192, True, "bfloat16"),
+    ("tp_hd256_f32", 1, PREFILL_SEQ, PREFILL_SEQ, 4, 4, 256, True,
+     "float32"),
+    ("tp_moe_f32", 1, PREFILL_SEQ, PREFILL_SEQ, 4, 4, 128, True, "float32"),
+    ("tp_moe", 1, PREFILL_SEQ, PREFILL_SEQ, 4, 4, 128, True, "bfloat16"),
 ]
 # moe_gather at qwen2-moe's dispatch shapes: T tokens of width d into
 # S = 60 experts x capacity slots, T*top_k = n_kept of them filled.
@@ -317,9 +353,10 @@ TRAIN_LOSS_TOL = 1e-3
 RESTART_ARCH = "jamba15_large"
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 4, 6
 # The expert-parallel phase: qwen2-moe-a2.7b over a (data 1, model 4) mesh
-# of EP_WORLD processes sharing the one card, each holding the dense layers
-# whole and 15 of the 60 experts (``Model.ep_param_specs``), drawn in turns
-# from SEED (``Model.init_shards``); (a) float32 at every published width
+# of EP_WORLD processes sharing the one card, each holding its slices under
+# ``Model.param_specs`` (a quarter of the heads, ff and vocab, and 15 of
+# the 60 experts), drawn in turns from SEED (``Model.init_shards``); (a)
+# float32 at every published width
 # and EP_F32_LAYERS of 24 layers (the training phase's cut, ~1.35 B
 # parameters a rank), held within EP_TOL of the single process's
 # log_softmax at every position, and token for token when serving; (b)
@@ -333,6 +370,17 @@ EP_TOL = 2e-3  # tests/test_multidevice.py's bound on log_softmax
 EP_AUX_RTOL = 1e-4  # one aux of (a)'s prefill against the single process's
 EP_WALL_S = 600  # the four ranks' run, and each collective's timeout
 EP_SERVE = {"n_requests": 8, "max_new": 32, "batch_size": 4}
+# The tensor-parallel phase over the same mesh: (a) TP_F32_ARCH float32 at
+# TP_F32_LAYERS of its 28 layers (1.89 B parameters, 7.05 GiB); (b)
+# TP_BF16_ARCH bf16 at TP_BF16_LAYERS of its 96 layers (43.31 GiB, 10.83
+# GiB a rank; the largest whole leaf drawn, the stacked w_up, 10.13 GiB).
+# Paged decode of TP_DECODE_STEPS steps at TP_DECODE_BATCH rows, the first
+# TP_PROMPT tokens drawn from SEED and the rest the single process's
+# greedy choices; (b)'s prefill timed TP_TIMED times after a warm run.
+TP_F32_ARCH, TP_F32_LAYERS = "gemma_7b", 4
+TP_BF16_ARCH, TP_BF16_LAYERS = "nemotron4_340b", 4
+TP_DECODE_BATCH, TP_PROMPT, TP_DECODE_STEPS = 4, 4, 12
+TP_TIMED = 3
 # moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
 # tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
 GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
@@ -387,6 +435,11 @@ PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes,
      "bfloat16", False, LONG_LENGTHS),
     ("long_f32", LONG_BATCH, 40, 8, 128, LONG_PAGE, LONG_SEQ // LONG_PAGE,
      "float32", True, LONG_LENGTHS),
+    # a rank's decode heads in the tensor-parallel phase's paged decode and
+    # serving (pages of 16, 3 a 48-token sequence): nemotron-4-340b's 24/2
+    # at hd 192 and gemma-7b's float32 4/4 at hd 256
+    ("tp_hd192", 4, 24, 2, 192, 16, 3, "bfloat16", False, None),
+    ("tp_hd256_f32", 4, 4, 4, 256, 16, 3, "float32", False, None),
 ]
 POOL_LAYERS = {"gemma_pool": 28}
 PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
@@ -2184,6 +2237,28 @@ def ep_bf16(torch, mesh, ref: dict) -> dict:
             "launches": launches}
 
 
+def run_rank_processes(fn, where: str, ref: dict, label: str) -> list:
+    """EP_WORLD spawned processes of ``fn(rank, EP_WORLD, where, ref)``,
+    waited for at most EP_WALL_S (a rank that fails fails the phase);
+    returns each rank's saved results."""
+    import torch.multiprocessing as mp
+    procs = mp.start_processes(fn, args=(EP_WORLD, where, ref),
+                               nprocs=EP_WORLD, join=False,
+                               start_method="spawn")
+    deadline = time.monotonic() + EP_WALL_S
+    while not procs.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in procs.processes:
+                p.kill()
+            raise AssertionError(f"[{label}] the ranks did not finish in "
+                                 f"{EP_WALL_S} s")
+    ranks = []
+    for r in range(EP_WORLD):
+        with open(os.path.join(where, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
 def ep_rank(rank: int, world: int, where: str, ref: dict) -> None:
     """One rank of the expert-parallel phase, a process of its own: the
     collectives, then (a) and (b) over the (data 1, model 4) mesh; its
@@ -2220,8 +2295,6 @@ def phase_ep(torch, smi: str) -> dict:
     (a)'s prefill and serving and (b)'s timed prefill."""
     import shutil
     import tempfile
-
-    import torch.multiprocessing as mp
 
     from repro_torch.kernels import ops
     from repro_torch.models import Ctx, build_model
@@ -2261,20 +2334,7 @@ def phase_ep(torch, smi: str) -> dict:
     where = tempfile.mkdtemp(prefix="ep_ranks_")
     t0 = time.perf_counter()
     try:
-        procs = mp.start_processes(ep_rank, args=(EP_WORLD, where, ref),
-                                   nprocs=EP_WORLD, join=False,
-                                   start_method="spawn")
-        deadline = time.monotonic() + EP_WALL_S
-        while not procs.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in procs.processes:
-                    p.kill()
-                raise AssertionError(f"[{label}] the ranks did not finish "
-                                     f"in {EP_WALL_S} s")
-        ranks = []
-        for r in range(EP_WORLD):
-            with open(os.path.join(where, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks = run_rank_processes(ep_rank, where, ref, label)
     finally:
         shutil.rmtree(where, ignore_errors=True)
     ranks_s = time.perf_counter() - t0
@@ -2352,6 +2412,437 @@ def phase_ep(torch, smi: str) -> dict:
         f"and serving, (b)'s timed prefill): {json.dumps(launches)}")
     return {"launches": launches, "tokens_per_s": S / wall,
             "single_tokens_per_s": S / single_s, "floor": floor}
+
+
+# ------------------------------------------------------------ phase 18d
+def tp_prompts(torch, cfg):
+    """TP_DECODE_BATCH rows of TP_DECODE_STEPS tokens drawn from SEED:
+    the first TP_PROMPT the prompt, the rest what a greedy run fills in."""
+    import numpy as np
+    return torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, (TP_DECODE_BATCH, TP_DECODE_STEPS))).to(DEVICE)
+
+
+def tp_decode(torch, model, tokens, ctx=None, greedy: bool = False):
+    """Decode over the paged pool (page PAGE_SIZE) from an empty state,
+    ``tokens`` (B, n) fed one column a step; with ``greedy``, each column
+    past TP_PROMPT is instead the step before's argmax (the single
+    process's run). Returns the tokens fed and each step's (B, V) float32
+    logits on the host."""
+    fed = tokens.clone()
+    B, n = fed.shape
+    state = model.init_decode_state(B, n + 4, model.dtype,
+                                    kv_layout="paged", page_size=PAGE_SIZE)
+    steps = []
+    for t in range(n):
+        logits, state = model.decode_step(fed[:, t:t + 1], state, ctx)
+        steps.append(logits[:, 0].float().cpu())
+        if greedy and TP_PROMPT <= t + 1 < n:
+            fed[:, t + 1] = logits[:, 0].argmax(-1)
+    return fed, steps
+
+
+def tp_single(torch, arch, layers: int, dtype, where: str, label: str
+              ) -> dict:
+    """The single process in the parent, before the ranks: its plain
+    prefill (``Ctx()``: (a) every position's logits, written to ``where``
+    for the ranks to read; (b) the last position's), for (b) its flash
+    prefill timed, its greedy paged decode and its paged serving; then
+    freed."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(arch, layers).init_params(
+        torch.Generator(DEVICE).manual_seed(SEED), dtype)
+    torch.cuda.synchronize()
+    out = {"params": model.param_count(),
+           "draw_s": time.perf_counter() - t0}
+    cfg = model.cfg
+    batch = prefill_batch(torch, model)
+    with torch.no_grad():
+        if dtype == torch.float32:
+            want = model.forward(batch, Ctx())[0][0]
+            path = os.path.join(where, f"{label}_logits.npy")
+            np.save(path, want.cpu().numpy())
+            out["logits"] = path
+        else:
+            want = model.forward(batch, Ctx(), last_only=True)[0]
+            out["logits"] = want.cpu().numpy()
+            model.forward(batch, Ctx(use_flash=True), last_only=True)
+            walls = []
+            for _ in range(TP_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.forward(batch, Ctx(use_flash=True), last_only=True)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out["prefill_s"] = sorted(walls)[len(walls) // 2]
+        del want
+        fed, steps = tp_decode(torch, model, tp_prompts(torch, cfg),
+                               greedy=True)
+        out["fed"] = fed.cpu().numpy()
+        out["steps"] = [s.numpy() for s in steps]
+        ops.reset_launch_counts()
+        served = serve_model(model, kv_layout="paged", page_size=PAGE_SIZE,
+                             **EP_SERVE)
+    out.update(served=served["outputs"], serve_s=served["seconds"],
+               serve_tokens=served["tokens"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_model(torch, mesh, arch, layers: int, dtype):
+    """This rank's slices of ``arch`` under ``param_specs``, drawn in
+    turns from SEED, and its plan, context and draw time."""
+    from repro_torch.configs import get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.models import Ctx, build_model
+
+    model = build_model(arch, layers)
+    plan = make_plan(model.cfg, mesh.shape, get_shape("prefill_32k"),
+                     hbm_bytes=torch.cuda.get_device_properties(0)
+                     .total_memory)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.init_shards(torch.Generator(DEVICE).manual_seed(SEED), plan, mesh,
+                      dtype)
+    torch.cuda.synchronize()
+    return (model, Ctx(plan=plan, mesh=mesh, use_flash=True),
+            time.perf_counter() - t0)
+
+
+def tp_decode_and_serve(torch, model, ctx, ref: dict) -> dict:
+    """Teacher-forced paged decode fed the single process's tokens, each
+    step's logits beside its, and the paged engine; both runs' launches
+    checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx
+
+    cfg = model.cfg
+    V = cfg.vocab_size
+    fed = torch.from_numpy(ref["fed"]).to(DEVICE)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        _, steps = tp_decode(torch, model, fed, ctx)
+    torch.cuda.synchronize()
+    decode = ops.launch_counts()
+    if decode != decode_launches(cfg, fed.shape[1]):
+        raise AssertionError(f"tp decode launches {decode}")
+    rel = [rel_err(torch, got[:, :V], torch.from_numpy(want[:, :V]))
+           for got, want in zip(steps, ref["steps"])]
+    lsm = [log_softmax_err(torch, got[:, :V], torch.from_numpy(want[:, :V]))
+           for got, want in zip(steps, ref["steps"])]
+    # the argmax each step against the token the single process chose
+    argmax = sum(int((got[:, :V].argmax(-1) != torch.from_numpy(
+        ref["fed"][:, t + 1])).sum()) for t, got in enumerate(steps[:-1])
+        if t + 1 >= TP_PROMPT)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        served = serve_model(model, ctx=Ctx(plan=ctx.plan, mesh=ctx.mesh),
+                             kv_layout="paged", page_size=PAGE_SIZE,
+                             **EP_SERVE)
+    serve = ops.launch_counts()
+    if serve != decode_launches(cfg, served["iters"]):
+        raise AssertionError(f"tp serve launches {serve}")
+    differ = sum(sum(a != b for a, b in zip(got, want))
+                 + abs(len(got) - len(want))
+                 for got, want in zip(served["outputs"], ref["served"]))
+    return {"decode_rel": max(rel), "decode_lsm": max(lsm),
+            "argmax_differ": argmax, "served": served["outputs"],
+            "served_differ": differ, "serve_s": served["seconds"],
+            "serve_tokens": served["tokens"], "iters": served["iters"],
+            "launches": [decode, serve]}
+
+
+def tp_float32(torch, mesh, ref: dict) -> dict:
+    """(a): gemma-7b float32 at TP_F32_LAYERS layers; the split prefill at
+    every position against the single process's plain forward, every
+    rank's logits the same bits; decode and serving against the single
+    process's."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+
+    model, ctx, draw_s = tp_rank_model(torch, mesh, TP_F32_ARCH,
+                                       TP_F32_LAYERS, torch.float32)
+    cfg = model.cfg
+    held = sum(p.numel() for p in model.parameters())
+    batch = prefill_batch(torch, model)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model.forward(batch, ctx)[0][0]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill = ops.launch_counts()
+    if prefill != expected_launches(cfg):
+        raise AssertionError(f"tp float32 prefill launches {prefill}")
+    V = cfg.vocab_size  # the pad columns are -1e30 in both
+    want = np.load(ref["logits"], mmap_mode="r")
+    err, sums = 0.0, [0.0, 0.0]
+    for i in range(0, logits.shape[0], 512):
+        block = logits[i:i + 512]
+        err = max(err, log_softmax_err(torch, block[:, :V], torch.from_numpy(
+            np.array(want[i:i + 512, :V])).to(DEVICE)))
+        block = block.double()
+        sums = [sums[0] + float(block.sum()),
+                sums[1] + float(block.square().sum())]
+    del logits, want
+    torch.cuda.empty_cache()
+    every = [None] * mesh.size
+    dist.all_gather_object(every, sums)
+    if any(s != every[0] for s in every):
+        raise AssertionError(f"the ranks' logits differ: {every}")
+    if not err < EP_TOL:
+        raise AssertionError(f"tp float32 log_softmax off by {err}")
+    rest = tp_decode_and_serve(torch, model, ctx, ref)
+    if rest["decode_lsm"] >= EP_TOL or rest["argmax_differ"]:
+        raise AssertionError(f"tp float32 decode: {rest}")
+    if rest["served"] != ref["served"]:
+        raise AssertionError("tp float32 engine's tokens differ from the "
+                             "single process's")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "held": held, "draw_s": draw_s,
+            "prefill_s": prefill_s, "err": err, "peak_gib": peak,
+            **{k: v for k, v in rest.items() if k != "launches"},
+            "launches": [prefill, *rest["launches"]]}
+
+
+def tp_bf16(torch, mesh, ref: dict) -> dict:
+    """(b): nemotron-4-340b bf16 at TP_BF16_LAYERS layers; a warm prefill,
+    TP_TIMED timed (the main path's), one with every all-reduce and the
+    all-gather timed alone, one under the profiler; the last position's
+    logits, each teacher-forced decode step's and the engine's tokens
+    against the single process's."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import ops
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, ctx, draw_s = tp_rank_model(torch, mesh, TP_BF16_ARCH,
+                                       TP_BF16_LAYERS, torch.bfloat16)
+    cfg = model.cfg
+    held = sum(p.numel() for p in model.parameters())
+    batch = prefill_batch(torch, model)
+
+    def forward():
+        return model.forward(batch, ctx, last_only=True)[0]
+
+    with torch.no_grad():
+        first = forward()
+        walls, launches = [], None
+        for _ in range(TP_TIMED):
+            torch.cuda.synchronize()
+            dist.barrier()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = forward()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+            if launches != expected_launches(cfg):
+                raise AssertionError(f"tp bf16 prefill launches {launches}")
+        spent = {"all_reduce": [], "all_gather": []}
+        real = {name: getattr(coll, name) for name in spent}
+
+        def timer(name):
+            def timed(*args, **kw):  # gloo's call, its copies included
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = real[name](*args, **kw)
+                torch.cuda.synchronize()
+                spent[name].append(time.perf_counter() - t1)
+                return out
+            return timed
+
+        dist.barrier()
+        for name in spent:
+            setattr(coll, name, timer(name))
+        try:
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            timed_wall = time.perf_counter() - t0
+        finally:
+            for name, fn in real.items():
+                setattr(coll, name, fn)
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if e not in copies]
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa
+                        or getattr(e, "self_cuda_time_total", 0.0))
+    V = cfg.vocab_size
+    err = rel_err(torch, logits[..., :V],
+                  torch.from_numpy(ref["logits"]).to(DEVICE)[..., :V])
+    finite = bool(torch.isfinite(logits[..., :V]).all())
+    same_bits = bool(torch.equal(first, logits))
+    del logits, first
+    rest = tp_decode_and_serve(torch, model, ctx, ref)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, rest["served"])
+    if any(s != every[0] for s in every):
+        raise AssertionError("tp bf16: the ranks served different tokens")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (finite and err < LOGITS_TOL and rest["decode_rel"] < LOGITS_TOL):
+        raise AssertionError(f"tp bf16 logits off by {err} (prefill), "
+                             f"{rest['decode_rel']} (decode) of the largest, "
+                             f"or not finite")
+    return {"layers": cfg.n_layers, "held": held, "draw_s": draw_s,
+            "wall_s": sorted(walls)[len(walls) // 2], "walls": walls,
+            "timed_wall_s": timed_wall,
+            "allreduce_s": sum(spent["all_reduce"]),
+            "allreduces": len(spent["all_reduce"]),
+            "allgather_s": sum(spent["all_gather"]),
+            "busy_s": sum(dev_us(e) for e in kernels) / 1e6,
+            "copy_s": sum(dev_us(e) for e in copies) / 1e6,
+            "top": [(e.key[:60], dev_us(e) / 1e6) for e in
+                    sorted(kernels, key=dev_us, reverse=True)[:4]],
+            "peak_gib": peak, "err": err, "same_bits": same_bits,
+            **{k: v for k, v in rest.items() if k != "launches"},
+            "launches": [launches, *rest["launches"]]}
+
+
+def tp_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of the tensor-parallel phase, a process of its own: (a)
+    and (b) over the (data 1, model 4) mesh; its results go to
+    ``where``/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_ranks(rank, world, device=DEVICE, timeout_s=EP_WALL_S,
+               store=dist.FileStore(os.path.join(where, "store"), world))
+    mesh = make_mesh(EP_MESH, ("data", "model"), DEVICE)
+    out = {"mesh": repr(mesh), "f32": tp_float32(torch, mesh, ref["f32"]),
+           "bf16": tp_bf16(torch, mesh, ref["bf16"])}
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tp(torch, smi: str) -> dict:
+    """The tensor-parallel split of the dense layers on the card: the
+    single process first, in this process ((a) gemma-7b float32 and (b)
+    nemotron-4-340b bf16, each freed before the next), then EP_WORLD
+    processes over the (data 1, model 4) mesh (``tp_rank``). Returns the
+    ranks' main-path launches summed: (a)'s prefill, decode and serving,
+    (b)'s last timed prefill, decode and serving."""
+    import shutil
+    import tempfile
+
+    label = "tp"
+    where = tempfile.mkdtemp(prefix="tp_ranks_")
+    try:
+        t0 = time.perf_counter()
+        ref = {"f32": tp_single(torch, TP_F32_ARCH, TP_F32_LAYERS,
+                                torch.float32, where, "f32"),
+               "bf16": tp_single(torch, TP_BF16_ARCH, TP_BF16_LAYERS,
+                                 torch.bfloat16, where, "bf16")}
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_rank_processes(tp_rank, where, ref, label)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    a, b = [r["f32"] for r in ranks], [r["bf16"] for r in ranks]
+    S, sa, sb = PREFILL_SEQ, ref["f32"], ref["bf16"]
+    log(f"[{label}] {EP_WORLD} ranks, one process each, on one card as a "
+        f"(data {EP_MESH[0]}, model {EP_MESH[1]}) mesh: {ranks[0]['mesh']}; "
+        f"heads, ff and vocab split over the model axis "
+        f"(``param_specs``), one all-reduce for the embedding and for each "
+        f"layer's attention and FFN, one all-gather of the logits; the "
+        f"single processes {single_s:.1f} s, the ranks' run {ranks_s:.1f} s")
+    log(f"[{label} a] {TP_F32_ARCH} float32, every published width, "
+        f"{a[0]['layers']} of 28 layers ({sa['params'] / 1e9:.3f} B "
+        f"parameters): {a[0]['held'] / 1e9:.3f} B a rank, drawn in turns in "
+        f"{max(r['draw_s'] for r in a):.1f} s; prefill B=1 S={S} in "
+        f"{max(r['prefill_s'] for r in a):.2f} s: max |log_softmax - the "
+        f"single process's plain forward| {max(r['err'] for r in a):.3g} "
+        f"over every position (bound {EP_TOL}), every rank's logits the "
+        f"same bits; paged decode of {TP_DECODE_STEPS} steps at B="
+        f"{TP_DECODE_BATCH} fed the single process's greedy tokens: max "
+        f"|log_softmax diff| {max(r['decode_lsm'] for r in a):.3g}, argmax "
+        f"differs {sum(r['argmax_differ'] for r in a)} times; paged serving "
+        f"{a[0]['serve_tokens']} tokens in {a[0]['serve_s']:.1f} s "
+        f"({a[0]['iters']} steps), token for token the single process's "
+        f"engine; peak memory a rank {max(r['peak_gib'] for r in a):.2f} GiB")
+    busy = sum(r["busy_s"] for r in b)
+    copied = sum(r["copy_s"] for r in b)
+    wall = max(r["wall_s"] for r in b)
+    reduce_share = max(r["allreduce_s"] / r["timed_wall_s"] for r in b)
+    gather_share = max(r["allgather_s"] / r["timed_wall_s"] for r in b)
+    log(f"[{label} b] {TP_BF16_ARCH} bf16, every published width, "
+        f"{b[0]['layers']} of 96 layers ({sb['params'] / 1e9:.3f} B "
+        f"parameters, the single process's peak {sb['peak_gib']:.2f} GiB): "
+        f"{b[0]['held'] / 1e9:.3f} B a rank, drawn in turns in "
+        f"{max(r['draw_s'] for r in b):.1f} s; prefill B=1 S={S}, median of "
+        f"{TP_TIMED} after a warm run: {wall * 1e3:.1f} ms, {S / wall:.0f} "
+        f"tokens/s (rank 0's runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in b[0]['walls'])} ms), against "
+        f"the single process's flash prefill {sb['prefill_s'] * 1e3:.1f} ms, "
+        f"{S / sb['prefill_s']:.0f} tokens/s in this run; peak memory a "
+        f"rank {max(r['peak_gib'] for r in b):.2f} GiB; the card's kernels "
+        f"{busy / wall:.1%} of the wall (the ranks' kernels, copies not "
+        f"counted: {', '.join(f'{r['busy_s'] * 1e3:.1f}' for r in b)} ms), "
+        f"its copies and memsets {copied / wall:.1%} ("
+        f"{', '.join(f'{r['copy_s'] * 1e3:.1f}' for r in b)} ms); in a run "
+        f"with each collective timed alone, the {b[0]['allreduces']} "
+        f"all-reduces {reduce_share:.1%} of the wall ("
+        f"{', '.join(f'{r['allreduce_s'] * 1e3:.1f}' for r in b)} ms of "
+        f"{', '.join(f'{r['timed_wall_s'] * 1e3:.1f}' for r in b)} ms) and "
+        f"the logits' all-gather {gather_share:.1%}; {smi}")
+    log(f"[{label} b] rank 0's top kernels: " + "; ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in b[0]["top"]))
+    log(f"[{label} b] last position's logits against the single process's "
+        f"plain forward: {b[0]['err']:.3g} of the largest (LOGITS_TOL "
+        f"{LOGITS_TOL}); the timed run's logits the warm run's bits: "
+        f"{all(r['same_bits'] for r in b)}; paged decode fed the single "
+        f"process's greedy tokens ({TP_DECODE_STEPS} steps at B="
+        f"{TP_DECODE_BATCH}): worst step {max(r['decode_rel'] for r in b):.3g} "
+        f"of the largest, argmax differs "
+        f"{max(r['argmax_differ'] for r in b)} times; paged serving "
+        f"{b[0]['serve_tokens']} tokens in {b[0]['serve_s']:.1f} s "
+        f"({b[0]['iters']} steps; the single process "
+        f"{sb['serve_tokens']} in {sb['serve_s']:.1f} s), the same tokens "
+        f"on every rank, {b[0]['served_differ']} of them differ from the "
+        f"single process's")
+    runs = [run for r in ranks for run in r["f32"]["launches"]] + [
+        run for r in ranks for run in r["bf16"]["launches"]]
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    log(f"[{label}] launches over the ranks' main-path runs ((a)'s prefill, "
+        f"decode and serving, (b)'s last timed prefill, decode and "
+        f"serving): {json.dumps(launches)}")
+    return {"launches": launches, "tokens_per_s": S / wall,
+            "single_tokens_per_s": S / sb["prefill_s"]}
 
 
 # ------------------------------------------------------------- phase 19
@@ -3487,9 +3978,19 @@ def main() -> int:
     runs.append(ep["launches"])
     log(f"[timing] expert-parallel phase: {time.perf_counter() - t0:.1f} s "
         f"(run so far {time.perf_counter() - start:.1f} s)")
+    t0 = time.perf_counter()
+    tp = phase_tp(torch, smi)
+    runs.append(tp["launches"])
+    log(f"[summary] {TP_BF16_ARCH} bf16, {TP_BF16_LAYERS} layers, over a "
+        f"(data 1, model 4) mesh of {EP_WORLD} processes on the card: "
+        f"prefill {tp['tokens_per_s']:.0f} tokens/s against the single "
+        f"process's {tp['single_tokens_per_s']:.0f}; {smi}")
+    log(f"[timing] tensor-parallel phase: {time.perf_counter() - t0:.1f} s "
+        f"(run so far {time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18, the training phases and "
-        f"the expert-parallel phase's ranks: {json.dumps(launches)}")
+        f"the expert-parallel and tensor-parallel phases' ranks: "
+        f"{json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)
     q1 = phase_q1(torch, smi, rel)

@@ -44,15 +44,18 @@ def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_gather(t: torch.Tensor, group) -> torch.Tensor:
-    """The group's tensors concatenated along the first dim, group rank
-    order (``all_gather(..., tiled=True)``)."""
+def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim``, group rank order
+    (``all_gather(..., axis=dim, tiled=True)``)."""
     dist = _dist()
     n = dist.get_world_size(group)
     src = t.contiguous()
-    out = src.new_empty((n * t.shape[0], *t.shape[1:]))
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=group)
-    return out
+    dim %= t.dim()
+    if dim == 0:
+        return out
+    return out.view(n, *src.shape).movedim(0, dim).flatten(dim, dim + 1)
 
 
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:

@@ -12,7 +12,6 @@ axes splits it into their product, the first axis the major one (JAX's
 order); ``None``, or a dim past the spec's end, stays whole."""
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, List
 
 import torch
@@ -35,22 +34,16 @@ def rebalance_shards(n_pages: int, old_workers: int, new_workers: int,
 
 def local_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The view of the whole ``x`` that ``mesh``'s rank owns under
-    ``spec``."""
-    if len(spec) > x.ndim:
-        raise ValueError(f"spec {spec} for a tensor of {x.ndim} dims")
+    ``spec``: a block of ``models.params.local_shape``."""
+    from repro_torch.models.params import local_shape
+    size = local_shape(tuple(x.shape), spec, mesh.shape)
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        n = math.prod(mesh.shape[a] for a in axes)
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                             f"into {n} blocks over {axes}")
         block = 0
-        for a in axes:  # major first
-            block = block * mesh.shape[a] + mesh.index(a)
-        size = x.shape[dim] // n
-        x = x.narrow(dim, block * size, size)
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            block = block * mesh.shape[a] + mesh.index(a)  # major first
+        x = x.narrow(dim, block * size[dim], size[dim])
     return x
 
 

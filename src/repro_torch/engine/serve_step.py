@@ -65,7 +65,13 @@ class ServingEngine:
     (the dense, MoE, vlm and hybrid families; audio and ssm raise). A
     hybrid or xLSTM model also keeps its per-slot recurrent states; an
     audio model decodes against ``enc_out`` zeros, as the reference's
-    serving never runs the encoder."""
+    serving never runs the encoder.
+
+    Under a mesh ``ctx`` every rank of the model axis runs the same
+    engine over its slices of the model (``Model.param_specs``): the same
+    requests, the same page books, its own kv heads in the cache or pool,
+    and the same greedy token from the logits that every rank holds
+    whole."""
 
     def __init__(self, model: Model, batch_size: int, max_seq: int,
                  ctx: Optional[Ctx] = None, eos_id: int = 0,
@@ -80,7 +86,8 @@ class ServingEngine:
         n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
                   else cfg.n_layers)
         self.kv_cfg = KVCacheConfig(
-            n_layers=n_attn, n_kv_heads=cfg.n_kv_heads,
+            n_layers=n_attn,
+            n_kv_heads=model.kv_heads_held() or cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, max_seq_len=max_seq,
             page_size=page_size,
             num_pages=batch_size * (-(-max_seq // page_size)) * 2,

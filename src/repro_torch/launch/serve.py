@@ -56,8 +56,9 @@ def serve_model(model: Model, *, n_requests: int = 8, max_new: int = 32,
     greedily to completion through a ``ServingEngine`` over ``model``
     (max_seq ``max_new + 16``; ``kv_layout`` "dense" or "paged",
     ``page_size`` tokens a page; ``ctx`` the model context, e.g. a rank's
-    expert-parallel one, every rank of its mesh serving the same
-    requests). Returns the counts, the wall time and each request's
+    over a mesh, whose model holds its slices under ``param_specs``, every
+    rank of the mesh serving the same requests and sampling the same
+    tokens). Returns the counts, the wall time and each request's
     generated tokens in submission order."""
     eng = ServingEngine(model, batch_size=batch_size,
                         max_seq=max_new + 16, ctx=ctx, eos_id=-1,

@@ -4,7 +4,17 @@ the hand-written paged-attention kernel, a paged pool, and the
 encoder-decoder's cross-attention (port of ``repro.models.attention``).
 
 Layouts are the reference's: q (B,S,H,hd), k/v (B,T,K,hd); q head h
-reads kv head h // G (contiguous grouping).
+reads kv head h // G (contiguous grouping). The attention functions take
+the head counts from their inputs' shapes.
+
+On a rank of a mesh the projections hold the slices ``Model.param_specs``
+places (``attn_heads``): ``wq``/``bq`` and ``wo`` split by ``q_dim`` give
+the rank H/tp whole heads; ``wk``/``wv``/``bk``/``bv`` split by
+``kv_heads`` (``kv_strategy == "heads"``) give it K/tp. Where they are
+whole (K does not divide the model axis: the "sequence" strategy), the
+rank projects only the kv heads that its q heads read. Its heads'
+attention is the single device's, and the ``wo`` product's partials are
+summed by one all-reduce over the model axis.
 """
 from __future__ import annotations
 
@@ -14,10 +24,12 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import rope
+from repro_torch.models.context import Ctx
+from repro_torch.models.layers import held_split, model_sum, rope
 from repro_torch.models.params import ParamDef
 
-__all__ = ["attn_defs", "attn_project_qkv", "full_attention",
+__all__ = ["attn_defs", "attn_heads", "attn_project_qkv", "attn_output",
+           "full_attention",
            "chunked_attention", "decode_attention", "paged_decode_attention",
            "attention_block", "cross_attention_block"]
 
@@ -43,27 +55,75 @@ def attn_defs(cfg: ArchConfig, stacked: Optional[int] = None) -> Dict:
     return out
 
 
+def attn_heads(cfg: ArchConfig, q_width: int, k_width: int
+               ) -> Tuple[int, int]:
+    """(q heads, kv heads) that a rank computes, from the widths of the
+    ``wq`` and ``wk`` it holds: both whole, both split (H/tp, K/tp), or
+    ``wq`` split and ``wk`` whole, where it computes the kv heads its H/tp
+    q heads read: H/tp / G of them, or one where G is a multiple of H/tp.
+    A q_dim split inside a head, and q heads whose kv heads fall unevenly,
+    raise NotImplementedError."""
+    hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    if q_width % hd:
+        raise NotImplementedError(
+            f"{cfg.name}: a q_dim block of {q_width} splits a head of "
+            f"{hd} ({H} heads over the model axis); the explicit split "
+            f"takes whole heads (ROADMAP.md, queue 1, item 18)")
+    Hl, Kl = q_width // hd, k_width // hd
+    if Hl == H or Kl < K:
+        return Hl, Kl
+    G = H // K
+    if Hl % G == 0:
+        return Hl, Hl // G
+    if G % Hl == 0:
+        return Hl, 1
+    raise NotImplementedError(
+        f"{cfg.name}: {Hl} q heads a rank read their kv heads (groups of "
+        f"{G}) unevenly (ROADMAP.md, queue 1, item 18)")
+
+
 def attn_project_qkv(cfg: ArchConfig, p: Dict, xq: torch.Tensor,
-                     xkv: Optional[torch.Tensor] = None
+                     xkv: Optional[torch.Tensor] = None,
+                     ctx: Optional[Ctx] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns q (B,S,H,hd) from xq, k/v (B,T,K,hd) from xkv (default
-    xq; the encoder output for cross-attention)."""
+    xq; the encoder output for cross-attention): H and K the heads that
+    ``p`` gives this rank (``attn_heads``)."""
     if xkv is None:
         xkv = xq
     hd = cfg.resolved_head_dim
-    H, K = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = xq @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    H, K = attn_heads(cfg, p["wq"].shape[-1], wk.shape[-1])
+    if held_split(p["wq"].shape[-1], cfg.n_heads * hd, ctx) and \
+            wk.shape[-1] == cfg.n_kv_heads * hd:
+        # kv whole: this rank's q heads read kv heads k0 .. k0 + K - 1
+        k0 = ctx.tp_index * H // (cfg.n_heads // cfg.n_kv_heads)
+        cols = slice(k0 * hd, (k0 + K) * hd)
+        wk, wv = wk[..., cols], wv[..., cols]
+        if cfg.qkv_bias:
+            bk, bv = bk[..., cols], bv[..., cols]
+    q, k, v = xq @ p["wq"], xkv @ wk, xkv @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
     B, S = xq.shape[:2]
     T = xkv.shape[1]
     return (q.reshape(B, S, H, hd), k.reshape(B, T, K, hd),
             v.reshape(B, T, K, hd))
 
 
-def _gqa_shape(cfg: ArchConfig, q: torch.Tensor) -> torch.Tensor:
+def attn_output(cfg: ArchConfig, p: Dict, out: torch.Tensor,
+                ctx: Optional[Ctx] = None) -> torch.Tensor:
+    """out (B,S,H*hd) @ ``wo``; with ``wo``'s q_dim rows split over the
+    model axis, the ranks' partials summed by one all-reduce."""
+    y = out @ p["wo"]
+    if held_split(p["wo"].shape[-2], cfg.n_heads * cfg.resolved_head_dim,
+                  ctx):
+        y = model_sum(y, ctx)
+    return y
+
+
+def _gqa_shape(q: torch.Tensor, K: int) -> torch.Tensor:
     B, S, H, hd = q.shape
-    K = cfg.n_kv_heads
     return q.reshape(B, S, K, H // K, hd)
 
 
@@ -79,7 +139,7 @@ def full_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     """Materialized-scores attention. q:(B,S,H,hd), k/v:(B,T,K,hd)."""
     B, S, H, hd = q.shape
     T = k.shape[1]
-    scores = _scores(_gqa_shape(cfg, q), k, "bskgd,btkd->bkgst")
+    scores = _scores(_gqa_shape(q, k.shape[2]), k, "bskgd,btkd->bkgst")
     scores.mul_(hd ** -0.5)  # in place: one (B,K,G,S,T) f32 buffer, not two
     if causal:
         qi = torch.arange(S, device=q.device) + q_offset
@@ -97,9 +157,9 @@ def chunked_attention(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     """Online softmax over KV chunks (the flash algorithm, plain torch)."""
     B, S, H, hd = q.shape
     T = k.shape[1]
-    K = cfg.n_kv_heads
+    K = k.shape[2]
     G = H // K
-    qg = _gqa_shape(cfg, q)
+    qg = _gqa_shape(q, K)
     scale = hd ** -0.5
     qi = torch.arange(S, device=q.device)
     m = torch.full((B, K, G, S), _NEG, dtype=torch.float32, device=q.device)
@@ -132,7 +192,7 @@ def decode_attention(cfg: ArchConfig, q: torch.Tensor, k_cache: torch.Tensor,
     q: (B,1,H,hd); k/v_cache: (B,Smax,K,hd); length: (B,) valid prefix."""
     B, _, H, hd = q.shape
     Smax = k_cache.shape[1]
-    qg = _gqa_shape(cfg, q)[:, 0]  # (B,K,G,hd)
+    qg = _gqa_shape(q, k_cache.shape[2])[:, 0]  # (B,K,G,hd)
     s = _scores(qg, k_cache, "bkgd,btkd->bkgt") * hd ** -0.5
     valid = torch.arange(Smax, device=q.device)[None, :] < length[:, None]
     s.masked_fill_(~valid[:, None, None], _NEG)
@@ -154,9 +214,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool = True,
-                    use_flash: bool = False) -> torch.Tensor:
-    """Self-attention over a full sequence (prefill)."""
-    q, k, v = attn_project_qkv(cfg, p, x)
+                    use_flash: bool = False,
+                    ctx: Optional[Ctx] = None) -> torch.Tensor:
+    """Self-attention over a full sequence (prefill), over the heads that
+    ``p`` gives this rank."""
+    q, k, v = attn_project_qkv(cfg, p, x, ctx=ctx)
     if cfg.pos_embedding == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -167,7 +229,7 @@ def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         out = chunked_attention(cfg, q, k, v, causal)
     else:
         out = full_attention(cfg, q, k, v, causal)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return attn_output(cfg, p, out.reshape(B, S, -1), ctx)
 
 
 def cross_attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,

@@ -4,8 +4,14 @@ sharding plan, the mesh and the engine knobs into model functions.
 ``constrain`` is the identity. The reference annotates activations with
 ``with_sharding_constraint`` for GSPMD, which never changes a value; the
 port runs explicit SPMD, one process a rank, where each rank holds the
-activations it computes and the only collectives are the explicit ones
-(``moe._moe_apply_ep``'s all-reduce), so there is nothing to annotate."""
+activations it computes and the only collectives are the explicit ones,
+so there is nothing to annotate. A rank holds its slice of every leaf
+under ``Model.param_specs(plan)``: the dense layers' heads, ff and vocab
+split over the plan's model axis (``tp`` ranks, this one at
+``tp_index``), the experts too under expert parallelism. The layers read
+what they hold from their leaves' shapes, and sum a split product's
+partials with one all-reduce over ``tp_group`` (``models.layers``,
+``models.attention``, ``models.moe``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,8 +28,30 @@ class Ctx:
     use_flash: bool = False  # hand-written CUDA kernel paths (plain on CPU)
     quantize_dispatch: bool = False  # int8 round trip of the MoE buffer
     ep_shard_map: bool = False  # explicit expert parallelism over the mesh
-    mesh: Optional[object] = None  # launch.mesh.Mesh: the EP path's groups
+    mesh: Optional[object] = None  # launch.mesh.Mesh: the split paths' groups
     deterministic: bool = True
 
     def constrain(self, x, *axes):
         return x
+
+    @property
+    def tp(self) -> int:
+        """The ranks of the plan's model axis that split this rank's
+        leaves: 1 without a mesh, or when the plan has no model axis."""
+        if self.mesh is None or self.plan is None or \
+                self.plan.tp_axis is None:
+            return 1
+        return self.plan.tp_size
+
+    @property
+    def tp_index(self) -> int:
+        """This rank's coordinate along the model axis (0 when tp is 1)."""
+        return self.mesh.index(self.plan.tp_axis) if self.tp > 1 else 0
+
+    @property
+    def tp_group(self):
+        """The process group of this rank's line along the model axis."""
+        if self.tp == 1:
+            raise ValueError("a leaf split over the model axis needs a "
+                             "Ctx with the plan and the mesh")
+        return self.mesh.group(self.plan.tp_axis)

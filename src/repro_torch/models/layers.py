@@ -4,6 +4,15 @@
 Matmuls run in the param dtype with float32 norm statistics; logits are
 float32. The casts sit exactly where the reference puts them, because in
 bf16 their order changes the bits.
+
+On a rank of a mesh (``Ctx.tp`` > 1) the layers compute with the slices
+that ``Model.param_specs`` places, read from the leaves' shapes: the
+embedding's vocab rows (a token outside them looks up zeros, and one
+all-reduce over the model axis sums the ranks' rows: each sum has one
+non-zero addend, so it is exact), the FFN's ff columns of ``w_up`` and
+``w_gate`` and rows of ``w_down`` (one all-reduce sums the partial
+products), and the head's vocab columns (the pad mask at the global
+column, then one all-gather along the vocab).
 """
 from __future__ import annotations
 
@@ -13,11 +22,34 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.models.context import Ctx
 from repro_torch.models.params import ParamDef
 
 __all__ = ["rmsnorm", "layernorm", "norm_def", "apply_norm", "rope",
-           "ffn_defs", "ffn_apply", "embed_defs", "embed_lookup",
-           "position_lookup", "logits"]
+           "ffn_defs", "ffn_apply", "ffn_partial", "embed_defs",
+           "embed_lookup", "position_lookup", "logits", "held_split",
+           "model_sum"]
+
+
+# ----------------------------------------------------------- model axis
+def held_split(held: int, whole: int, ctx: Optional[Ctx]) -> bool:
+    """Whether a leaf's dim of size ``whole`` is held as this rank's
+    1/tp block (``held``) rather than whole; anything else raises."""
+    if held == whole:
+        return False
+    if ctx is None or ctx.tp == 1 or held * ctx.tp != whole:
+        raise ValueError(
+            f"a leaf dim of {held} where the model has {whole}: a rank "
+            f"holds it whole or as 1/tp of it, under a Ctx with the plan "
+            f"and the mesh (tp {1 if ctx is None else ctx.tp})")
+    return True
+
+
+def model_sum(y: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """The ranks' partial products summed over the model axis: one
+    all-reduce."""
+    return coll.all_reduce(y.contiguous(), ctx.tp_group)
 
 
 # ------------------------------------------------------------------ norms
@@ -96,12 +128,24 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(cfg.activation)
 
 
-def ffn_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def ffn_partial(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The FFN on the ff columns (and ``w_down`` rows) that ``p`` holds:
+    the whole FFN, or this rank's partial of it."""
     if cfg.activation in ("swiglu", "geglu"):
         h = _act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = _act(cfg, x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def ffn_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+              ctx: Optional[Ctx] = None) -> torch.Tensor:
+    """The FFN; with ff split over the model axis (column- then
+    row-parallel), the ranks' partials summed by one all-reduce."""
+    y = ffn_partial(cfg, p, x)
+    if held_split(p["w_down"].shape[-2], cfg.d_ff, ctx):
+        y = model_sum(y, ctx)
+    return y
 
 
 # -------------------------------------------------------------- embedding
@@ -124,8 +168,21 @@ def embed_defs(cfg: ArchConfig) -> Dict:
     return d
 
 
-def embed_lookup(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["tokens"])
+def embed_lookup(cfg: ArchConfig, p: Dict, tokens: torch.Tensor,
+                 ctx: Optional[Ctx] = None) -> torch.Tensor:
+    """The tokens' rows of the embedding table; with its vocab rows split
+    over the model axis, each rank's rows (zeros for tokens it does not
+    hold) summed by one all-reduce."""
+    table = p["tokens"]
+    if not held_split(table.shape[0], cfg.padded_vocab, ctx):
+        return F.embedding(tokens.long(), table)
+    V = table.shape[0]
+    local = tokens.long() - ctx.tp_index * V
+    mine = (local >= 0) & (local < V)
+    rows = F.embedding(local.clamp(0, V - 1), table)
+    rows = torch.where(mine[..., None], rows, torch.zeros(
+        (), dtype=rows.dtype, device=rows.device))
+    return model_sum(rows, ctx)
 
 
 def position_lookup(table: torch.Tensor, index: torch.Tensor
@@ -138,14 +195,20 @@ def position_lookup(table: torch.Tensor, index: torch.Tensor
     return torch.where((index < n)[:, None], rows, float("nan"))
 
 
-def logits(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def logits(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+           ctx: Optional[Ctx] = None) -> torch.Tensor:
     """Final projection to the padded vocab: the product in x's dtype, then
-    f32, with the pad columns masked to -1e30."""
+    f32, with the pad columns masked to -1e30. With the vocab split over
+    the model axis, each rank's columns (masked at their global index),
+    then one all-gather along the vocab: every rank holds the same
+    logits."""
     w = p["tokens"].T if cfg.tie_embeddings else p["head"]
     out = (x @ w.to(x.dtype)).float()
+    V = out.shape[-1]
+    split = held_split(V, cfg.padded_vocab, ctx)
     if cfg.padded_vocab != cfg.vocab_size:
-        mask = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
-                           device=out.device)
-        mask[cfg.vocab_size:] = -1e30
+        start = ctx.tp_index * V if split else 0
+        mask = torch.zeros(V, dtype=torch.float32, device=out.device)
+        mask[max(0, cfg.vocab_size - start):] = -1e30
         out = out + mask
-    return out
+    return coll.all_gather(out, ctx.tp_group, dim=-1) if split else out

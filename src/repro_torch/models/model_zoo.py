@@ -14,10 +14,13 @@ autograd graph); ``init_params(..., trainable=True)``, or
 The sharding side is the reference's: ``param_specs(plan)`` and
 ``decode_state_specs(plan, kv_dtype)`` give partition spec trees
 (``core.planner.P``) over the same paths, ``abstract_params`` meta tensors.
-A rank of a mesh holds what ``ep_param_specs`` gives it: the experts
-sliced over the model axis, every other leaf whole (GSPMD's tensor-parallel
-split of the dense layers is not ported: ROADMAP.md, queue 1, item 12);
-``load_shards`` puts those local slices in place of the parameters.
+A rank of a mesh holds exactly its slice of every leaf under
+``param_specs(plan)`` (``distributed.elastic.local_slice``): heads, ff and
+vocab split over the model axis, the experts too under expert
+parallelism, norms and positions whole. ``init_shards`` draws those slices
+and ``load_shards`` puts them in place of the parameters; ``forward`` and
+``decode_step`` under ``Ctx(plan=, mesh=)`` compute with them
+(``transformer``).
 """
 from __future__ import annotations
 
@@ -90,28 +93,20 @@ class Model(nn.Module):
     def param_specs(self, plan: ShardingPlan) -> Dict[str, Any]:
         return pp.specs(self.defs, plan)
 
-    def ep_param_specs(self, plan: ShardingPlan) -> Dict[str, Any]:
-        """What a rank holds under explicit expert parallelism: each
-        leaf's "experts" dim over the plan's model axis, as
-        ``param_specs`` would place it, every other dim whole."""
-        def spec(d: pp.ParamDef) -> P:
-            full = plan.spec(*d.axes)
-            return P(*(e if name == "experts" else None
-                       for name, e in zip(d.axes, full)))
-        return pp.map_defs(spec, self.defs)
-
     def init_shards(self, generator: torch.Generator, plan: ShardingPlan,
                     mesh, dtype=None) -> "Model":
-        """This rank's slices (``ep_param_specs``) of the very weights
+        """This rank's slices (``param_specs``) of the very weights
         ``init_params(generator, dtype)`` draws in one process: each leaf
         is drawn whole on the generator's device, in that order, its slice
         kept and the whole freed. The ranks take turns, a barrier each, so
         that ranks sharing a card never hold more than one whole leaf on
-        it at once."""
+        it at once: on a card the rank whose turn ends hands the freed
+        leaves' blocks back (``torch.cuda.empty_cache``), else its caching
+        allocator keeps a whole leaf's room for the rest of the run."""
         import torch.distributed as dist
         from repro_torch.distributed.elastic import local_slice
         dt = pp.torch_dtype(dtype or self.cfg.param_dtype)
-        specs = pp.flatten(self.ep_param_specs(plan))
+        specs = pp.flatten(self.param_specs(plan))
         shards = {}
         for turn in range(mesh.size):
             if turn == mesh.rank:
@@ -121,26 +116,26 @@ class Model(nn.Module):
                         mesh.device, memory_format=torch.contiguous_format,
                         copy=True)
                     del whole
+                if generator.device.type == "cuda":
+                    torch.cuda.empty_cache()
             dist.barrier()
         return self.load_shards(shards)
 
     def load_shards(self, state: Dict[str, torch.Tensor]) -> "Model":
         """``load_state_dict(state, assign=True)`` for a rank's local
         slices (``distributed.elastic.reshard_state`` of the parameters
-        under ``ep_param_specs``), whose shapes are not the full ones.
-        Only the experts may be sliced: a dense leaf split over the mesh
-        (``param_specs``' tensor-parallel placement) raises."""
+        under ``param_specs``), whose shapes are not the full ones: each
+        dim of a leaf whole or an even block of it (ValueError
+        otherwise)."""
         defs = pp.tree_paths(self.defs)
         for key, t in state.items():
             module, _, name = key.rpartition(".")
             old = self.get_parameter(key)
-            if tuple(t.shape) != defs[key].shape and \
-                    "experts" not in defs[key].axes:
-                raise NotImplementedError(
-                    f"{key}: a slice {tuple(t.shape)} of a dense leaf "
-                    f"{defs[key].shape}; GSPMD's tensor-parallel split of "
-                    f"the dense layers is not ported, a rank holds them "
-                    f"whole (ROADMAP.md, queue 1, item 12)")
+            whole = defs[key].shape
+            if t.dim() != len(whole) or any(
+                    n <= 0 or w % n for n, w in zip(t.shape, whole)):
+                raise ValueError(f"{key}: {tuple(t.shape)} is not a block "
+                                 f"of {whole}")
             setattr(self.get_submodule(module), name,
                     nn.Parameter(t, requires_grad=old.requires_grad))
         return self
@@ -188,12 +183,28 @@ class Model(nn.Module):
         another float type: a cache of it), the xLSTM states, or, with
         ``kv_layout="paged"``, the paged pool of ``page_size``-token pages
         (``transformer.init_decode_state``); dtype defaults to the config's
-        ``param_dtype`` and device to the parameters' device."""
+        ``param_dtype`` and device to the parameters' device. The caches
+        hold the kv heads the model computes (``kv_heads_held``)."""
         return tf.init_decode_state(
             self.cfg, batch, max_seq,
             pp.torch_dtype(dtype or self.cfg.param_dtype),
             device or self.device, kv_dtype=kv_dtype, kv_layout=kv_layout,
-            page_size=page_size, num_pages=num_pages)
+            page_size=page_size, num_pages=num_pages,
+            kv_heads=self.kv_heads_held())
+
+    def kv_heads_held(self) -> Optional[int]:
+        """The kv heads this model's attention computes, and so its decode
+        state caches: the config's, or on a rank of a mesh those of its
+        slices (``attention.attn_heads``); None without attention."""
+        from repro_torch.models.attention import attn_heads
+        for path in ("blocks.attn", "groups.attn", "decoder.attn"):
+            try:
+                attn = self.get_submodule(path)
+            except AttributeError:
+                continue
+            return attn_heads(self.cfg, attn.wq.shape[-1],
+                              attn.wk.shape[-1])[1]
+        return None
 
     def decode_state_specs(self, plan: ShardingPlan,
                            kv_dtype: Optional[str] = None):

@@ -18,7 +18,8 @@ to a trash index E*C, which is where duplicate scatter writes land.
 explicit expert-parallel path (the reference's
 ``_moe_apply_ep_shard_map``, :func:`_moe_apply_ep`): each rank of the
 model axis routes its tokens, keeps the slots of its own E/tp experts,
-builds their buffer through the same ``moe_gather``, runs them, and one
+builds their buffer through the same ``moe_gather``, runs them, adds the
+partial of the shared experts whose ff columns it holds, and one
 all-reduce over the model axis sums the ranks' partial outputs.
 """
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.context import Ctx
-from repro_torch.models.layers import _act, ffn_apply, ffn_defs
+from repro_torch.models.layers import (_act, ffn_apply, ffn_defs,
+                                       ffn_partial, held_split, model_sum)
 from repro_torch.models.params import ParamDef
 
 __all__ = ["moe_defs", "moe_apply", "expert_capacity"]
@@ -81,6 +83,11 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     if (ctx.ep_shard_map and ctx.mesh is not None and ctx.plan is not None
             and ctx.plan.moe_strategy == "ep"):
         return _moe_apply_ep(cfg, p, x, ctx)
+    if p["w_up"].shape[-3] != cfg.n_experts:
+        raise ValueError(
+            f"{p['w_up'].shape[-3]} of {cfg.n_experts} experts held: a "
+            f"rank's experts run under Ctx(plan=, mesh=, ep_shard_map=True) "
+            f"with an \"ep\" plan")
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -141,7 +148,7 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
         y = y + contrib[:, i]
 
     if cfg.n_shared_experts:
-        y = y + ffn_apply(_shared_cfg(cfg), p["shared"], xt)
+        y = y + ffn_apply(_shared_cfg(cfg), p["shared"], xt, ctx)
     return y.reshape(B, S, d), aux
 
 
@@ -149,11 +156,13 @@ def _moe_apply_ep(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Explicit expert parallelism: x (B, S, d) is this rank's data shard
     of the batch, whole on every rank of the model axis, and ``p``'s
-    expert leaves hold this rank's E/tp experts (``Model.ep_param_specs``)
-    with the router and shared experts whole; each rank gathers only its
-    own experts' tokens (a shard-local hash-partition build: no dispatch
-    collective), runs them, and the combine is one all-reduce of the
-    partial outputs over the model axis a layer.
+    expert leaves hold this rank's E/tp experts (``Model.param_specs``)
+    with the router whole and the shared experts' ff split over the model
+    axis where it divides; each rank gathers only its own experts' tokens
+    (a shard-local hash-partition build: no dispatch collective), runs
+    them, adds its partial of the shared experts, and the combine is one
+    all-reduce of the partial outputs over the model axis a layer (shared
+    experts held whole are added after it).
 
     As in the reference: the capacity C is ``expert_capacity`` of the
     global token count (B * S times the data shards), while each shard
@@ -161,8 +170,7 @@ def _moe_apply_ep(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     not the single-device path's; the aux loss is this shard's own, not
     reduced (the reference returns data shard 0's, its shard_map's
     replicated output); ``quantize_dispatch`` is ignored; the shared
-    experts run outside the collective."""
-    from repro_torch.distributed import collectives as coll
+    experts' partial rides the same all-reduce."""
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t.requires_grad for t in p.values()
             if isinstance(t, torch.Tensor))):
@@ -218,8 +226,13 @@ def _moe_apply_ep(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     y = contrib[:, 0]
     for i in range(1, k):
         y = y + contrib[:, i]
-    y = coll.all_reduce(y.contiguous(), mesh.group(plan.tp_axis))
-
+    shared = None
     if cfg.n_shared_experts:
-        y = y + ffn_apply(_shared_cfg(cfg), p["shared"], xt)
+        scfg = _shared_cfg(cfg)
+        shared = ffn_partial(scfg, p["shared"], xt)
+        if held_split(p["shared"]["w_down"].shape[-2], scfg.d_ff, ctx):
+            y, shared = y + shared, None
+    y = model_sum(y, ctx)
+    if shared is not None:
+        y = y + shared
     return y.reshape(B, S, d), aux

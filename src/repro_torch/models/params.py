@@ -7,6 +7,8 @@ and logical axes. From one definition tree we derive:
   the reference's ShapeDtypeStructs),
 * ``initialize(defs, generator, dtype, device)`` — real tensors,
 * ``specs(defs, plan)``  — the partition spec (``core.planner.P``) tree,
+* ``local_shape(shape, spec, axis_sizes)`` — what one rank holds of a
+  leaf under its spec,
 * ``count(defs)``  — exact parameter count,
 * ``tree_paths(defs)`` — flat ``{"a.b.c": ParamDef}`` view.
 """
@@ -19,7 +21,8 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import torch
 
 __all__ = ["ParamDef", "abstract", "initialize", "init_leaf", "specs",
-           "map_defs", "count", "tree_paths", "flatten", "torch_dtype"]
+           "map_defs", "count", "tree_paths", "flatten", "torch_dtype",
+           "local_shape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +80,28 @@ def abstract(defs, dtype) -> Dict[str, Any]:
 
 def specs(defs, plan) -> Dict[str, Any]:
     return map_defs(lambda d: plan.spec(*d.axes), defs)
+
+
+def local_shape(shape: Tuple[int, ...], spec,
+                axis_sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``shape`` under
+    ``spec`` (a ``core.planner.P``) on a mesh of ``axis_sizes``: a dim
+    whose entry names an axis, or a tuple of axes, is split into that many
+    equal blocks (their product); ``None``, or a dim past the spec's end,
+    stays whole. Raises ValueError where a dim does not split evenly."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} for a leaf of {len(shape)} dims")
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n = math.prod(axis_sizes[a] for a in axes)
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"into {n} blocks over {axes}")
+        out[dim] = shape[dim] // n
+    return tuple(out)
 
 
 def count(defs) -> int:

@@ -24,6 +24,19 @@ xLSTM stack's recurrent states (``DecodeState.mlstm`` / ``slstm``), or a
 paged pool (``PagedDecodeState``, ``kv_layout="paged"``; the dense, MoE,
 vlm and hybrid families) whose every attention layer reads through the
 paged-attention kernel. ``decode_step`` dispatches on the state's type.
+
+Over a mesh (``Ctx(plan=, mesh=)`` with a model axis of tp > 1) a rank
+runs the uniform stacks (dense, MoE, vlm) on the slices of every leaf that
+``Model.param_specs`` places: the embedding's vocab rows, its heads, its
+ff columns and rows, its experts under expert parallelism, the head's
+vocab columns; norms, positions and the router whole. The residual stream
+is whole on every rank: each split product ends in one all-reduce over the
+model axis (the embedding, each layer's attention and feed-forward), and
+the logits in one all-gather along the vocab, so every rank holds the same
+logits. A rank's decode state holds the kv heads it computes
+(``attention.attn_heads``). The hybrid, ssm and audio families, the MoE
+"tp" strategy and leaves sharded over the data axis (FSDP) raise
+NotImplementedError on such a mesh (``check_split``).
 """
 from __future__ import annotations
 
@@ -33,8 +46,8 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import xlstm as xl
-from repro_torch.models.attention import (attn_defs, attn_project_qkv,
-                                          attention_block,
+from repro_torch.models.attention import (attn_defs, attn_output,
+                                          attn_project_qkv, attention_block,
                                           cross_attention_block,
                                           decode_attention,
                                           paged_decode_attention)
@@ -54,7 +67,7 @@ from repro_torch.objectmodel.kvcache import (KVCacheConfig, PagedKVState,
                                              write_paged, write_token)
 
 __all__ = ["model_defs", "forward", "decode_step", "init_decode_state",
-           "encode_whisper", "DecodeState", "PagedDecodeState"]
+           "encode_whisper", "check_split", "DecodeState", "PagedDecodeState"]
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
@@ -113,6 +126,37 @@ def _check_supported(cfg: ArchConfig) -> None:
             f"an xLSTM stack runs whole groups of slstm_period="
             f"{cfg.slstm_period} blocks; n_layers={cfg.n_layers} is not a "
             f"multiple")
+
+
+# Where the split over the model axis is not ported, the ROADMAP item
+# (queue 1) that takes it up
+_SPLIT_ITEMS = {"hybrid": 14, "ssm": 15, "audio": 16}
+
+
+def check_split(cfg: ArchConfig, ctx: Ctx) -> None:
+    """Raise NotImplementedError for what a rank of a mesh with a model
+    axis of tp > 1 cannot run: the hybrid (Mamba's ``inner`` over the
+    model axis), ssm and audio families, the MoE "tp" strategy (experts
+    that do not divide the model axis), and leaves sharded over a data axis
+    of more than one rank (FSDP, which training over the mesh brings)."""
+    if ctx.tp == 1:
+        return
+    if cfg.family in _SPLIT_ITEMS:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family split over the model axis "
+            f"(tp {ctx.tp}) is not ported (ROADMAP.md, queue 1, item "
+            f"{_SPLIT_ITEMS[cfg.family]})")
+    if cfg.is_moe and ctx.plan.moe_strategy == "tp":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_experts} experts do not divide the model "
+            f"axis ({ctx.tp}); tensor parallelism within the experts (the "
+            f"\"tp\" MoE strategy) is not ported (ROADMAP.md, queue 1, item "
+            f"17)")
+    if ctx.plan.fsdp and ctx.plan.mesh_axes.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: FSDP shards the leaves over the data axis; it "
+            f"comes with training over the mesh (ROADMAP.md, queue 1, item "
+            f"11)")
 
 
 def _xlstm_period(cfg: ArchConfig) -> int:
@@ -180,7 +224,7 @@ def _mixer(cfg: ArchConfig, layer_p: Dict, z: torch.Tensor, ctx: Ctx
     """The layer's feed-forward part: (output, aux loss or None)."""
     if "moe" in layer_p:
         return moe_apply(cfg, layer_p["moe"], z, ctx)
-    return ffn_apply(cfg, layer_p["mlp"], z), None
+    return ffn_apply(cfg, layer_p["mlp"], z, ctx), None
 
 
 class _HybridLayer(NamedTuple):
@@ -234,11 +278,12 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
     audio config needs ``frames`` (B, encoder_len, d).
     last_only=True (prefill): the LM head is applied to the final position
     only, so no (B, S, V) logits buffer ever materializes."""
+    check_split(cfg, ctx)
     if cfg.family == "audio":
         return _whisper_forward(cfg, params, batch, ctx, last_only)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(cfg, params["embed"], tokens, ctx)
     if cfg.family == "vlm" and "patches" in batch:
         P = cfg.n_patches
         patches = batch["patches"] + params["embed"]["patch_pos"]
@@ -256,7 +301,7 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
     if last_only:
         x = x[:, -1:]
     x = apply_norm(cfg, params["final_norm"], x)
-    return logits(cfg, params["embed"], x), aux
+    return logits(cfg, params["embed"], x, ctx), aux
 
 
 def _uniform_stack(cfg, blocks, x, positions, ctx):
@@ -268,7 +313,7 @@ def _uniform_stack(cfg, blocks, x, positions, ctx):
         h = ctx.constrain(x, "batch", None, None)
         a = attention_block(cfg, layer_p["attn"],
                             apply_norm(cfg, layer_p["ln1"], h), positions,
-                            causal=True, use_flash=ctx.use_flash)
+                            causal=True, use_flash=ctx.use_flash, ctx=ctx)
         h = h + a
         m, layer_aux = _mixer(cfg, layer_p, apply_norm(cfg, layer_p["ln2"], h),
                               ctx)
@@ -345,7 +390,8 @@ def _whisper_forward(cfg, params, batch, ctx, last_only: bool = False):
     enc = encode_whisper(cfg, params, batch["frames"], ctx)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_lookup(params["embed"], tokens) + params["embed"]["positions"][:S]
+    x = (embed_lookup(cfg, params["embed"], tokens)
+         + params["embed"]["positions"][:S])
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     for i in range(cfg.n_layers):
         layer_p = _take(params["decoder"], i)
@@ -368,8 +414,11 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       dtype: torch.dtype, device,
                       kv_dtype: Optional[str] = None,
                       kv_layout: str = "dense", page_size: int = 64,
-                      num_pages: Optional[int] = None):
-    """The decode state for ``batch`` sequences of up to ``max_seq`` tokens.
+                      num_pages: Optional[int] = None,
+                      kv_heads: Optional[int] = None):
+    """The decode state for ``batch`` sequences of up to ``max_seq`` tokens,
+    its caches holding ``kv_heads`` kv heads (default the config's; a
+    rank of a mesh, the ones it computes).
 
     ``kv_layout="dense"`` gives a ``DecodeState``. Its caches are in
     ``kv_dtype`` where given, else ``dtype``: ``"int8"`` with float32
@@ -430,7 +479,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
         n_attn = cfg.n_layers // g
         mamba = mamba_init_state(cfg, batch, dtype, device,
                                  n_attn * (g - 1))
-    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    K, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     if kv_layout == "paged":
         per_seq = -(-max_seq // page_size)
         kv_cfg = KVCacheConfig(
@@ -490,15 +539,16 @@ def _paged_step(state: PagedDecodeState) -> _PagedStep:
 
 
 def _attn_decode(cfg, p, z, state, i: int,
-                 paged: Optional[_PagedStep] = None):
+                 paged: Optional[_PagedStep] = None,
+                 ctx: Optional[Ctx] = None):
     """One-token attention for attention layer i, writing its k/v into the
     state's layer-i views in place: the paged pool (read through the paged
     kernel), the int8 cache (quantized on write; the whole cache is
     dequantized for the attention, as in the reference) or the dense
-    cache."""
+    cache; over the heads that ``p`` gives this rank."""
     B = z.shape[0]
     length = state.length
-    q, k, v = attn_project_qkv(cfg, p, z)
+    q, k, v = attn_project_qkv(cfg, p, z, ctx=ctx)
     if cfg.pos_embedding == "rope":
         pos = length[:, None]  # each slot's own position
         q = rope(q, pos, cfg.rope_theta)
@@ -526,7 +576,7 @@ def _attn_decode(cfg, p, z, state, i: int,
         out = decode_attention(cfg, q, k_l, v_l, length + 1)
     # a cache narrower than the parameters (bf16 under float32) gives an
     # output in its type, which JAX promotes for the product
-    return out.reshape(B, 1, -1).to(p["wo"].dtype) @ p["wo"]
+    return attn_output(cfg, p, out.reshape(B, 1, -1).to(p["wo"].dtype), ctx)
 
 
 def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
@@ -538,9 +588,10 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
     caches, pool and recurrent states are updated in place. Learned
     positions are read at each slot's ``length`` (NaN past the table's
     end, as ``jnp.take`` fills)."""
+    check_split(cfg, ctx)
     paged = (_paged_step(state) if isinstance(state, PagedDecodeState)
              else None)
-    x = embed_lookup(params["embed"], token)
+    x = embed_lookup(cfg, params["embed"], token, ctx)
     if cfg.pos_embedding == "learned":
         x = x + position_lookup(params["embed"]["positions"],
                                 state.length)[:, None]
@@ -555,7 +606,8 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
         for i in range(cfg.n_layers):
             layer_p = _take(params["blocks"], i)
             z = apply_norm(cfg, layer_p["ln1"], x)
-            h = x + _attn_decode(cfg, layer_p["attn"], z, state, i, paged)
+            h = x + _attn_decode(cfg, layer_p["attn"], z, state, i, paged,
+                                 ctx)
             m, _ = _mixer(cfg, layer_p, apply_norm(cfg, layer_p["ln2"], h),
                           ctx)
             x = h + m
@@ -567,7 +619,7 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
             tail=tail_pages(paged.tables, paged.lengths,
                             state.kv.k_pages.shape[2]))
     x = apply_norm(cfg, params["final_norm"], x)
-    return logits(cfg, params["embed"], x), state
+    return logits(cfg, params["embed"], x, ctx), state
 
 
 def _whisper_decode(cfg: ArchConfig, decoder: Dict, x: torch.Tensor,

@@ -1109,3 +1109,56 @@ def test_expert_parallel_forward_over_four_ranks_on_the_card(torch,
         assert res["launches"]["flash_attention"] == cfg.n_layers
         assert res["launches"]["moe_gather"] == cfg.n_layers
         assert res["served"] == served
+
+
+def test_tensor_parallel_forward_over_four_ranks_on_the_card(torch,
+                                                             tmp_path):
+    """The tensor-parallel phase's smallest form: reduced nemotron-4-340b
+    (4 heads of 16 over 2 kv heads, relu2, untied head) over a (data 1,
+    model 4) mesh of four processes sharing the card (gloo on CUDA
+    tensors), each holding a quarter of the heads, ff and vocab under
+    ``param_specs``, float32, its attention through the flash kernel at
+    one head, against the single process's plain forward on the card
+    (attention without the flash kernel, so the kernel is held too)
+    within 2e-3 of log_softmax (tests/test_multidevice.py's bound); its
+    paged decode and paged serving the single process's."""
+    import dataclasses
+
+    from torch_mesh_ranks import _teacher_forced, run_ranks
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+    cfg = reduced_config(get_arch("nemotron4_340b"))
+    model = build_model(cfg).init_params(
+        torch.Generator("cuda").manual_seed(0), torch.float32)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 64), dtype=np.int32)
+    dec = rng.integers(0, cfg.vocab_size, (2, 4), dtype=np.int32)
+    serve = {"n_requests": 4, "max_new": 6, "batch_size": 2}
+    with torch.no_grad():
+        want = model.forward({"tokens": torch.from_numpy(tokens).cuda()},
+                             Ctx())[0]
+        steps = _teacher_forced(model, torch.from_numpy(dec).cuda(), None,
+                                kv_layout="paged", page_size=4)
+        served = serve_model(model, kv_layout="paged", page_size=4,
+                             **serve)["outputs"]
+    ranks = run_ranks(tmp_path, {"checks": ["tp"], "tp": [{
+        "name": "nemotron", "cfg": dataclasses.asdict(cfg), "mesh": (1, 4),
+        "shape": "prefill_32k", "use_flash": True, "tokens": tokens,
+        "decode": dec, "serve": serve,
+        "state": {k: v.cpu() for k, v in model.state_dict().items()}}]},
+        device="cuda")
+    want = torch.log_softmax(want.cpu(), dim=-1)
+    for r in ranks:
+        res = r["tp"]["nemotron"]
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert res["shapes"]["blocks.attn.wq"][-1] == 16  # one head of 4
+        err = float((torch.log_softmax(res["logits"], dim=-1) - want)
+                    .abs().max())
+        assert err < 2e-3, err
+        assert res["launches"]["flash_attention"] == cfg.n_layers
+        for got, ref in zip(res["decode"]["paged"], steps):
+            assert float((got - ref).abs().max()
+                         / ref.abs().max()) < 1e-5
+        assert res["served"]["paged"] == served

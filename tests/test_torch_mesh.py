@@ -12,7 +12,9 @@ limit. One run of the ranks serves the tests of a group.
   ``NamedSharding`` places at the same mesh position (read from a
   four-device JAX process).
 * Explicit expert parallelism (``Ctx(plan=, mesh=, ep_shard_map=True)``)
-  on (2, 2) and (1, 4) meshes in float32 with capacity_factor 4.0 (the
+  on the placement of ``param_specs`` (the dense layers split over the
+  model axis too: tests/test_torch_tensor_parallel.py) on (2, 2) and
+  (1, 4) meshes in float32 with capacity_factor 4.0 (the
   reference's own test case): logits within 2e-3 of the reference's
   single-device ``log_softmax`` (tests/test_multidevice.py's bound), aux
   to 1e-5 of the reference's on the rank's own data shard (the EP aux is
@@ -357,9 +359,11 @@ def test_init_shards_draws_the_single_process_weights(ep):
     assert all(r["qwen_1x4"]["init_shards_equal"] for r in ep["ranks"])
 
 
-def test_what_waits_for_later_items_refuses(torch):
-    """A rank holding a dense leaf split over the mesh (item 12) and a
-    train step over a mesh (item 11) raise, naming their ROADMAP items."""
+def test_what_waits_for_later_items_refuses(torch, ep):
+    """A rank's slices under ``param_specs`` (the dense layers split over
+    the model axis, the experts too) load, and the ranks of ``ep`` ran one
+    forward on them; a train step over a mesh (item 11) raises, naming its
+    ROADMAP item."""
     from repro_torch.configs import get_arch as tget
     from repro_torch.configs import get_shape
     from repro_torch.configs import reduced_config as treduced
@@ -374,13 +378,15 @@ def test_what_waits_for_later_items_refuses(torch):
     plan = make_plan(cfg, {"data": 1, "model": 4}, get_shape("prefill_32k"))
     grid = Grid({"data": 1, "model": 4}, data=0, model=1)
     whole = model.state_dict()
-    ep = reshard_state(whole, flatten(model.ep_param_specs(plan)), grid)
-    assert ep["blocks.moe.w_up"].shape[1] == 1  # 4 experts over 4
-    assert torch.equal(ep["blocks.attn.wq"], whole["blocks.attn.wq"])
-    build_model(cfg).load_shards(ep)
     tp = reshard_state(whole, flatten(model.param_specs(plan)), grid)
-    assert tp["blocks.attn.wq"].shape != whole["blocks.attn.wq"].shape
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(cfg).load_shards(tp)
+    assert tp["blocks.moe.w_up"].shape[1] == 1  # 4 experts over 4
+    q_dim = whole["blocks.attn.wq"].shape[-1]
+    assert tp["blocks.attn.wq"].shape[-1] == q_dim // 4
+    loaded = build_model(cfg).load_shards(tp)
+    assert loaded.blocks.attn.wq.shape == tp["blocks.attn.wq"].shape
+    for r in ep["ranks"]:
+        res = r["qwen_1x4"]
+        assert res["wq_shape"][-1] == q_dim // 4
+        assert np.isfinite(res["logits"].numpy()).all()
     with pytest.raises(NotImplementedError, match="item 11"):
         make_train_step(model, Ctx(plan=plan, mesh=grid))

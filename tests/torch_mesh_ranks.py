@@ -1,10 +1,11 @@
-"""The rank side of the port's multi-rank tests (tests/test_torch_mesh.py on
-the CPU, the expert-parallel case of tests/test_torch_cuda.py on a card).
+"""The rank side of the port's multi-rank tests (tests/test_torch_mesh.py
+and tests/test_torch_tensor_parallel.py on the CPU, the expert-parallel
+and tensor-parallel cases of tests/test_torch_cuda.py on a card).
 
     python tests/torch_mesh_ranks.py JOB RANK WORLD DEVICE
 
 JOB is a ``torch.save``d dict written by the test (``run_ranks``): the
-checks to run (``collectives``, ``ep``) and their inputs. Each rank joins a
+checks to run (``collectives``, ``ep``, ``tp``) and their inputs. Each rank joins a
 gloo or NCCL group (``launch.mesh.init_ranks``, whose rule picks the
 transport) through a FileStore beside JOB, runs every check, and saves
 what it got to ``rank<RANK>.pt`` beside JOB, for the test to hold against
@@ -167,9 +168,10 @@ def check_ep(job, dev, device):
                 res["grad"] = str(e)
         else:
             model = build_model(cfg)
-            specs = flatten(model.ep_param_specs(plan))
+            specs = flatten(model.param_specs(plan))
             model.load_shards(reshard_state(case["state"], specs, mesh))
             res["expert_shape"] = tuple(model.blocks.moe.w_up.shape)
+            res["wq_shape"] = tuple(model.blocks.attn.wq.shape)
             if case.get("init_shards"):  # drawn in turns = sliced after
                 drawn = build_model(cfg).init_shards(
                     torch.Generator(dev).manual_seed(0), plan, mesh,
@@ -195,7 +197,93 @@ def check_ep(job, dev, device):
     return out
 
 
-CHECKS = {"collectives": check_collectives, "ep": check_ep}
+def _teacher_forced(model, tokens, ctx, **state_kw):
+    """Each step's logits of ``tokens`` (B, n) fed one a step from an
+    empty decode state."""
+    state = model.init_decode_state(tokens.shape[0], tokens.shape[1] + 4,
+                                    model.dtype, **state_kw)
+    out = []
+    for t in range(tokens.shape[1]):
+        step, state = model.decode_step(tokens[:, t:t + 1], state, ctx)
+        out.append(step.cpu())
+    return out
+
+
+def check_tp(job, dev, device):
+    """The tensor-parallel split of every case's model: each rank holds
+    its slices under ``param_specs`` (loaded from the whole state, drawn
+    by ``init_shards``, or restored from a checkpoint), runs the forward
+    on its data shard of the batch, teacher-forced dense and paged decode
+    and ``serve_model`` (dense and paged) under the mesh context."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ArchConfig, get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models.params import flatten
+    out = {}
+    for case in job["tp"]:
+        cfg = ArchConfig(**case["cfg"])
+        mesh = make_mesh(case["mesh"], ("data", "model"), device)
+        plan = make_plan(cfg, mesh.shape, get_shape(case["shape"]))
+        ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=cfg.is_moe,
+                  use_flash=case.get("use_flash", False))
+        dp, di = mesh.shape["data"], mesh.index("data")
+        res = {"coords": mesh.coords, "kv_strategy": plan.kv_strategy}
+        model = build_model(cfg)
+        specs = flatten(model.param_specs(plan))
+        model.load_shards(reshard_state(case["state"], specs, mesh))
+        res["shapes"] = {k: tuple(t.shape)
+                         for k, t in model.state_dict().items()}
+        res["specs"] = specs
+        if case.get("init_shards"):  # drawn in turns = sliced after
+            drawn = build_model(cfg).init_shards(
+                torch.Generator(dev).manual_seed(0), plan, mesh,
+                torch.float32).state_dict()
+            whole = build_model(cfg).init_params(
+                torch.Generator(dev).manual_seed(0), torch.float32)
+            want = reshard_state(whole.state_dict(), specs, mesh)
+            res["init_shards_equal"] = sorted(drawn) == sorted(want) and all(
+                torch.equal(drawn[k], want[k]) for k in want)
+        n = case["tokens"].shape[0] // dp
+        rows = slice(di * n, (di + 1) * n)
+        batch = {"tokens": torch.from_numpy(case["tokens"][rows]).to(dev)}
+        if case.get("patches") is not None:
+            batch["patches"] = torch.from_numpy(case["patches"][rows]).to(dev)
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            logits, aux = model.forward(batch, ctx)
+            res.update(logits=logits.cpu(), aux=float(aux),
+                       launches=dict(ops.launch_counts()))
+            if case.get("keep_state"):
+                res["state"] = {k: t.cpu()
+                                for k, t in model.state_dict().items()}
+            if "ckpt_dir" in case:
+                restored, _ = Checkpointer(case["ckpt_dir"]).restore(
+                    build_model(cfg).state_dict(), specs=specs, mesh=mesh)
+                again = build_model(cfg).load_shards(restored)
+                res["restored_logits"] = again.forward(batch, ctx)[0].cpu()
+            if "decode" in case:
+                tokens = torch.from_numpy(case["decode"][rows]).to(dev)
+                res["decode"] = {
+                    "dense": _teacher_forced(model, tokens, ctx),
+                    "paged": _teacher_forced(model, tokens, ctx,
+                                             kv_layout="paged", page_size=4)}
+                res["cache_heads"] = tuple(model.init_decode_state(
+                    1, 4, model.dtype).k_cache.shape[3:])
+            if "serve" in case:
+                res["served"] = {layout: serve_model(
+                    model, ctx=ctx, kv_layout=layout, page_size=4,
+                    **case["serve"])["outputs"]
+                    for layout in ("dense", "paged")}
+        out[case["name"]] = res
+    return out
+
+
+CHECKS = {"collectives": check_collectives, "ep": check_ep, "tp": check_tp}
 
 
 def main(job_path: str, rank: int, world: int, device: str) -> None:
