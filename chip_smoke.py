@@ -172,6 +172,30 @@ final line:
    process's plain ones; paged decode fed its greedy tokens, each step
    within LOGITS_TOL; paged serving, the same tokens on every rank, the
    count that differ from the single process's printed;
+18e. training over the (data, model) mesh on the split placement (the
+   split products' backward, the loss over the split vocab, one
+   all-reduce a leaf over the data axis, AdamW on each rank's slices,
+   checkpoints of whole leaves): the single processes first, in this
+   process, then four processes sharing the card: (a) 18a's run, qwen2-moe-a2.7b at
+   every published width, 4 of 24 layers, float32 weights and moments,
+   its repeated B=4 x 1,025 batch, 5 steps, learning rate and seed, over
+   (data 1, model 4) through ``train_loop(mesh=)``: each step's loss and
+   gradient norm within 1e-3 relative of 18a's history, every whole leaf
+   the same bits on every rank after the last step, moe_gather and its
+   backward 4 a step on every rank and no attention kernel; per step its
+   ms and tokens/s, then one more step with each collective timed alone
+   (their share of the wall), one uninstrumented and one under the
+   profiler (the ranks' kernels and, apart, their copies against the
+   wall), peak memory a rank and in all; (b) gemma-7b float32 at every
+   published width, 1 of 28 layers (``fsdp=False``, its only edit), 3
+   steps of 4 x 256 tokens in one process, then 2 steps over (data 2,
+   model 2) and a save of whole leaves (the files one process writes),
+   and a restart over (data 1, model 4) from that checkpoint for the
+   third step under the supervisor, every loss and gradient norm within
+   1e-3 of the single process's; (c) reduced jamba over (data 2, model
+   1) from the single process's weights, 2 steps within 1e-3 of it,
+   ssm_scan and its backward (and moe_gather and its backward) on both
+   ranks;
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -185,8 +209,9 @@ final line:
    FMA in either's SASS but the division routines' own (as many as a
    ``-fmad=false`` build holds); the card's DADD latency (a one-thread
    chain of dependent ``__dadd_rn``) and host link rates (pinned copies
-   each way); then TPC-H Q1 at scale factor 10 (59,986,052 lineitems, 4
-   partitions) through ``Session`` / ``q1_pricing_summary``: the numpy
+   each way); then TPC-H Q1 at scale factor 2.5 (14,996,513 lineitems,
+   a quarter of SF 10's, 4 partitions) through ``Session`` /
+   ``q1_pricing_summary``: the numpy
    backend once as the oracle, the torch backend warm and then 3 timed
    runs, every column byte-identical to the oracle's, K1 once per batch
    and K2 once per partition, a traced query's span split (its copies
@@ -197,7 +222,7 @@ final line:
    latency) and ``scatter_reduce_``, with its kernels' device split, the
    device's busy share over one query and the peak device memory. Phase
    2 builds K1 and K2 with the other four kernels.
-20. the worker runtime: the same Q1 at SF 10 (phase 19's set and its
+20. the worker runtime: the same Q1 at SF 2.5 (phase 19's set and its
    numpy answer as the oracle) through ``Session(backend="workers",
    num_workers=4, worker_kind="thread")`` on ``expr_backend="torch"``,
    the four ranks threads sharing the card: a warm run, then 3 timed
@@ -226,7 +251,8 @@ final line:
 Launch counts are set to 0 just before each main-path run of phases 3-23
 (prefill, paged decode, paged serving, the long-context step, serving,
 the training runs, each rank's EP prefill and serving, each rank's
-tensor-parallel prefill, decode and serving, the timed Q1
+tensor-parallel prefill, decode and serving, each rank's training runs
+over the mesh, the timed Q1
 runs, the workers', the entry points', the service's cold Q1, the
 tools') and read just after it. The last two lines are a JSON object
 with one entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
@@ -381,6 +407,23 @@ TP_F32_ARCH, TP_F32_LAYERS = "gemma_7b", 4
 TP_BF16_ARCH, TP_BF16_LAYERS = "nemotron4_340b", 4
 TP_DECODE_BATCH, TP_PROMPT, TP_DECODE_STEPS = 4, 4, 12
 TP_TIMED = 3
+# Training over the mesh (phase 18e), ranks sharing the card as in 18c
+# and 18d: (a) the training phase's run (MOE_ARCH at every published
+# width, TRAIN_LAYERS layers, float32 weights and moments, the same
+# repeated batch, steps, learning rate and seed) over the (data 1, model
+# 4) mesh, each step's loss and gradient norm held within TRAIN_LOSS_TOL
+# of phase 18a's; (b) MT_B_ARCH at every published width, MT_B_LAYERS of
+# 28 layers, float32, with ``fsdp=False`` (the config's only edit: FSDP
+# waits), MT_B_STEPS steps of MT_B_BATCH x (MT_B_SEQ + 1) tokens in one
+# process, then MT_B_SAVE steps and a save over (data 2, model 2) and a
+# restart from that checkpoint over (data 1, model 4) for the rest; (c)
+# reduced jamba over (data 2, model 1), MT_C_STEPS steps, the Mamba
+# kernels on both ranks.
+MT_A_MESH = (1, 4)
+MT_B_ARCH, MT_B_LAYERS = "gemma_7b", 1
+MT_B_BATCH, MT_B_SEQ, MT_B_STEPS, MT_B_SAVE = 4, 255, 3, 2
+MT_B_MESHES = ((2, 2), (1, 4))
+MT_C_ARCH, MT_C_MESH, MT_C_STEPS = "jamba15_large", (2, 1), 2
 # moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
 # tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
 GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
@@ -447,10 +490,13 @@ PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
 # kernels nowhere but in training
 NO_RELATIONAL = {"expr_core": 0, "segment_reduce": 0}
 NO_BACKWARD = {"moe_gather_bwd": 0, "ssm_scan_bwd": 0}
-# phase 19, the relational engine: TPC-H Q1 at scale factor 10 (the spec's
-# lineitem rows) over the executor's 4 partitions; K1's op x dtype matrix
-# at the executor's batch of 8,192 rows; K2's cases (name, rows, groups)
-Q1_ROWS = 59_986_052
+# phase 19, the relational engine: TPC-H Q1 at scale factor 2.5 (a quarter
+# of the spec's 59,986,052 lineitem rows at scale factor 10: with the
+# mesh-training phase the whole run came within 72 s of its 1,200 s limit
+# at SF 10 and within 98 s at SF 5 on slow hosts) over the executor's 4
+# partitions; K1's op x dtype matrix at the executor's batch of 8,192
+# rows; K2's cases (name, rows, groups)
+Q1_ROWS = 59_986_052 // 4
 Q1_PARTITIONS = 4
 Q1_TIMED = 3
 EXPR_ROWS = 8192
@@ -2237,13 +2283,14 @@ def ep_bf16(torch, mesh, ref: dict) -> dict:
             "launches": launches}
 
 
-def run_rank_processes(fn, where: str, ref: dict, label: str) -> list:
-    """EP_WORLD spawned processes of ``fn(rank, EP_WORLD, where, ref)``,
+def run_rank_processes(fn, where: str, ref: dict, label: str,
+                       world: int = EP_WORLD) -> list:
+    """``world`` spawned processes of ``fn(rank, world, where, ref)``,
     waited for at most EP_WALL_S (a rank that fails fails the phase);
     returns each rank's saved results."""
     import torch.multiprocessing as mp
-    procs = mp.start_processes(fn, args=(EP_WORLD, where, ref),
-                               nprocs=EP_WORLD, join=False,
+    procs = mp.start_processes(fn, args=(world, where, ref),
+                               nprocs=world, join=False,
                                start_method="spawn")
     deadline = time.monotonic() + EP_WALL_S
     while not procs.join(timeout=5):
@@ -2253,7 +2300,7 @@ def run_rank_processes(fn, where: str, ref: dict, label: str) -> list:
             raise AssertionError(f"[{label}] the ranks did not finish in "
                                  f"{EP_WALL_S} s")
     ranks = []
-    for r in range(EP_WORLD):
+    for r in range(world):
         with open(os.path.join(where, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     return ranks
@@ -2845,6 +2892,455 @@ def phase_tp(torch, smi: str) -> dict:
             "single_tokens_per_s": S / sb["prefill_s"]}
 
 
+# ------------------------------------------------------------ phase 18e
+def mt_start_rank(torch, rank: int, world: int, where: str):
+    """Join the ranks' gloo group on the card (TF32 off, as the single
+    process runs)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_ranks(rank, world, device=DEVICE, timeout_s=EP_WALL_S,
+               store=dist.FileStore(os.path.join(where, "store"), world))
+
+
+def mt_digests(torch, model, params) -> dict:
+    """sha256 of the bytes of every leaf this rank holds whole."""
+    import hashlib
+
+    from repro_torch.models.params import flatten, tree_paths
+
+    whole = {k: d.shape for k, d in tree_paths(model.defs).items()}
+    return {k: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, t in flatten(params).items()
+            if tuple(t.shape) == tuple(whole[k])}
+
+
+def mt_history(out: dict) -> dict:
+    return {"loss": [h["loss"] for h in out["history"]],
+            "grad_norm": [h["grad_norm"] for h in out["history"]],
+            "seconds": [h["seconds"] for h in out["history"]]}
+
+
+def mt_full_width(torch, mesh) -> dict:
+    """(a) on this rank: ``train_loop`` over the mesh (the main path,
+    launches counted from 0), then one more step of the same state with
+    every collective timed alone (the card synchronised on either side;
+    gloo's own copies inside), one uninstrumented and one under the
+    profiler (kernels and copies apart)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.planner import make_plan
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.engine import TrainConfig, make_train_step, shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import AdamWConfig, constant
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_loop(MOE_ARCH, reduced=False, layers=TRAIN_LAYERS,
+                     steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     records=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED, mesh=mesh,
+                     log_every=TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    model = build_model(MOE_ARCH, TRAIN_LAYERS)  # meta: the config only
+    res = {"wall_s": wall, "launches": launches, **mt_history(out),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "held": sum(t.numel() for t in tr.leaves(out["params"])),
+           "digests": mt_digests(torch, model, out["params"])}
+
+    plan = make_plan(model.cfg, mesh.shape, ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True)
+    step = make_train_step(model, ctx, TrainConfig(
+        opt=AdamWConfig(moment_dtype="float32")), constant(TRAIN_LR))
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, model.cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+        dtype=np.int32))
+    batch = {k: t.to(mesh.device) for k, t in shard_batch(
+        {"tokens": toks, "labels": toks}, ctx).items()}
+    state = [out["params"], out["opt"]]
+    del out
+
+    def one():
+        state[0], state[1], _, m = step(state[0], state[1], None, batch)
+        return float(m["total_loss"])
+
+    names = ("all_reduce", "all_reduce_max", "all_gather")
+    spent = {name: [] for name in names}
+    real = {name: getattr(coll, name) for name in names}
+
+    def timer(name):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t1)
+            return got
+        return timed
+
+    dist.barrier()
+    for name in names:
+        setattr(coll, name, timer(name))
+    try:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        res["timed_wall_s"] = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(coll, name, fn)
+    res["collective_s"] = {k: sum(v) for k, v in spent.items()}
+    res["collectives"] = {k: len(v) for k, v in spent.items()}
+    dist.barrier()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    res["step_s"] = time.perf_counter() - t0
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa
+                        or getattr(e, "self_cuda_time_total", 0.0))
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    res["busy_s"] = sum(dev_us(e) for e in events if e not in copies) / 1e6
+    res["copy_s"] = sum(dev_us(e) for e in copies) / 1e6
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mt_gemma_config():
+    """MT_B_ARCH with ``fsdp=False``, the only edit."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MT_B_ARCH), fsdp=False)
+
+
+def mt_gemma(torch, mesh, steps: int, ckpt: str) -> dict:
+    """(b) on this rank: ``train_loop`` over ``mesh`` to step ``steps``
+    under the supervisor, saving to (or resuming from) ``ckpt``."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+
+    spent = {"save": [], "restore": []}
+    real = {name: getattr(Checkpointer, name) for name in spent}
+
+    def timer(name):
+        def timed(*args, **kw):
+            t1 = time.perf_counter()
+            got = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t1)
+            return got
+        return timed
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    ops.reset_launch_counts()
+    for name in spent:
+        setattr(Checkpointer, name, timer(name))
+    t0 = time.perf_counter()
+    try:
+        out = train_loop(mt_gemma_config(), reduced=False,
+                         layers=MT_B_LAYERS, steps=steps, batch=MT_B_BATCH,
+                         seq=MT_B_SEQ, lr=TRAIN_LR, seed=SEED, mesh=mesh,
+                         ckpt_dir=ckpt, save_every=MT_B_SAVE,
+                         log_every=steps + 1)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(Checkpointer, name, fn)
+    res = {"wall_s": time.perf_counter() - t0, "save_s": spent["save"],
+           "restore_s": spent["restore"],
+           "launches": ops.launch_counts(), **mt_history(out),
+           "restored_from": out["report"].restored_from,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "mesh": repr(mesh)}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mt_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of phase 18e's four, a process of its own: (a) over (data
+    1, model 4), then (b) over (data 2, model 2) and its restart over
+    (data 1, model 4); its results go to ``where``/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mt_start_rank(torch, rank, world, where)
+    out = {"a": mt_full_width(torch, make_mesh(MT_A_MESH, ("data", "model"),
+                                                DEVICE))}
+    ckpt = os.path.join(where, "ckpt")
+    out["b_save"] = mt_gemma(torch, make_mesh(MT_B_MESHES[0], (
+        "data", "model"), DEVICE), MT_B_SAVE, ckpt)
+    if rank == 0:
+        d = os.path.join(ckpt, f"step_{MT_B_SAVE}")
+        out["ckpt_files"] = sorted(os.listdir(d))
+        out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                                for f in out["ckpt_files"])
+    out["b_restart"] = mt_gemma(torch, make_mesh(MT_B_MESHES[1], (
+        "data", "model"), DEVICE), MT_B_STEPS, ckpt)
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mt_jamba_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of (c), over (data 2, model 1): reduced jamba from the
+    single process's weights; its results to ``where``/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+
+    mt_start_rank(torch, rank, world, where)
+    mesh = make_mesh(MT_C_MESH, ("data", "model"), DEVICE)
+    dist.barrier()
+    ops.reset_launch_counts()
+    out = train_loop(ref["cfg"], reduced=False, steps=MT_C_STEPS,
+                     batch=REDUCED_BATCH, seq=REDUCED_SEQ, seed=SEED,
+                     weights=ref["weights"], mesh=mesh,
+                     log_every=MT_C_STEPS + 1)
+    torch.cuda.synchronize()
+    res = {"launches": ops.launch_counts(), **mt_history(out),
+           "mesh": repr(mesh)}
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mt_within(got: list, want: list) -> float:
+    """The largest |got - want| / |want| over the steps."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_mesh_train(torch, smi: str, train: dict) -> dict:
+    """Training over the (data, model) mesh on the split placement: the
+    single processes first, in this process ((a) reuses phase 18a's
+    history; (b) and (c) run here and are freed), then four spawned
+    processes for (a) and (b) (``mt_rank``) and two for (c)
+    (``mt_jamba_rank``). Returns the ranks' main-path launches summed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+
+    label = "mesh train"
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gemma = train_loop(mt_gemma_config(), reduced=False, layers=MT_B_LAYERS,
+                       steps=MT_B_STEPS, batch=MT_B_BATCH, seq=MT_B_SEQ,
+                       lr=TRAIN_LR, seed=SEED, device=DEVICE,
+                       log_every=MT_B_STEPS + 1)
+    gemma_params = build_model(mt_gemma_config(), MT_B_LAYERS).param_count()
+    gemma = mt_history(gemma)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the published capacity: the plain MoE path ranks each expert's
+    # slots over the global batch, so the ranks drop what one process drops
+    jcfg = reduced_config(get_arch(MT_C_ARCH))
+    weights = build_model(jcfg).init_params(
+        torch.Generator().manual_seed(SEED), "float32").state_dict()
+    jamba = mt_history(train_loop(
+        jcfg, reduced=False, steps=MT_C_STEPS, batch=REDUCED_BATCH,
+        seq=REDUCED_SEQ, seed=SEED, weights=weights, device=DEVICE,
+        log_every=MT_C_STEPS + 1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t0
+    where = [tempfile.mkdtemp(prefix="mt_ranks_"),
+             tempfile.mkdtemp(prefix="mt_jamba_")]
+    free = shutil.disk_usage(where[0]).free
+    try:
+        t0 = time.perf_counter()
+        ranks = run_rank_processes(mt_rank, where[0], {}, label)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jranks = run_rank_processes(mt_jamba_rank, where[1], {
+            "cfg": jcfg, "weights": weights}, label, world=2)
+        jranks_s = time.perf_counter() - t0
+    finally:
+        for d in where:
+            shutil.rmtree(d, ignore_errors=True)
+
+    # (a) against phase 18a's history
+    cfg = build_model(MOE_ARCH, TRAIN_LAYERS).cfg
+    a = [r["a"] for r in ranks]
+    want = train["history"]
+    loss_err = max(mt_within(r["loss"], [h["loss"] for h in want])
+                   for r in a)
+    norm_err = max(mt_within(r["grad_norm"],
+                             [h["grad_norm"] for h in want]) for r in a)
+    per_step = train_launches(cfg, TRAIN_STEPS)
+    for r in a:
+        full = {**{k: 0 for k in r["launches"]}, **per_step}
+        if r["launches"] != full:
+            raise AssertionError(f"[{label} a] launches {r['launches']}, "
+                                 f"want {full}")
+    digests = a[0]["digests"]
+    same_bits = all(r["digests"] == digests for r in a)
+    if not (same_bits and loss_err <= TRAIN_LOSS_TOL
+            and norm_err <= TRAIN_LOSS_TOL
+            and all(np.isfinite(r["loss"]).all() for r in a)):
+        raise AssertionError(
+            f"[{label} a] losses {a[0]['loss']} against phase 18a's "
+            f"{[h['loss'] for h in want]} ({loss_err:.3g}), gradient norms "
+            f"{norm_err:.3g}, whole leaves the same bits: {same_bits}")
+    tokens = TRAIN_TOKENS
+    log(f"[{label}] {EP_WORLD} ranks, one process each, sharing the card "
+        f"(gloo on CUDA tensors); the single processes ((b), (c)) "
+        f"{single_s:.1f} s, the ranks' run for (a) and (b) {ranks_s:.1f} "
+        f"s, (c)'s two ranks {jranks_s:.1f} s; {free / 2**30:.0f} GiB free "
+        f"for the checkpoint; {smi}")
+    log(f"[{label} a] {cfg.name} at every published width, {cfg.n_layers} "
+        f"of 24 layers, float32 weights and AdamW moments, over (data "
+        f"{MT_A_MESH[0]}, model {MT_A_MESH[1]}): {a[0]['held'] / 1e9:.3f} B "
+        f"parameters a rank; B={TRAIN_BATCH} x {TRAIN_SEQ + 1} tokens, one "
+        f"repeated batch, {TRAIN_STEPS} steps at lr {TRAIN_LR}: losses "
+        f"{[round(x, 6) for x in a[0]['loss']]}, gradient norms "
+        f"{[round(x, 6) for x in a[0]['grad_norm']]}; phase 18a's within "
+        f"{loss_err:.3g} (losses) and {norm_err:.3g} (norms) relative (tol "
+        f"{TRAIN_LOSS_TOL}); the {len(digests)} whole leaves the same bits "
+        f"on every rank; train_loop {max(r['wall_s'] for r in a):.1f} s; "
+        f"{smi}")
+    for i in range(TRAIN_STEPS):
+        s = max(r["seconds"][i] for r in a)
+        log(f"[{label} a] step {i}: {s * 1e3:.1f} ms (ranks "
+            f"{', '.join(f'{r['seconds'][i] * 1e3:.1f}' for r in a)}), "
+            f"{tokens / s:.0f} tokens/s; {smi}")
+    step_s = max(r["step_s"] for r in a)
+    coll_s = [sum(r["collective_s"].values()) for r in a]
+    busy = sum(r["busy_s"] for r in a)
+    copied = sum(r["copy_s"] for r in a)
+    log(f"[{label} a] one more step, uninstrumented: {step_s * 1e3:.1f} ms "
+        f"({tokens / step_s:.0f} tokens/s); with each collective timed "
+        f"alone ({a[0]['collectives']} calls a rank): "
+        f"{', '.join(f'{c * 1e3:.1f}' for c in coll_s)} ms of "
+        f"{', '.join(f'{r['timed_wall_s'] * 1e3:.1f}' for r in a)} ms, "
+        f"{max(c / r['timed_wall_s'] for c, r in zip(coll_s, a)):.1%} of "
+        f"the wall (rank 0: {json.dumps({k: round(v * 1e3, 1) for k, v in a[0]['collective_s'].items()})} "
+        f"ms); under the profiler the ranks' kernels "
+        f"{', '.join(f'{r['busy_s'] * 1e3:.1f}' for r in a)} ms ("
+        f"{min(r['busy_s'] for r in a) / step_s:.1%}-"
+        f"{max(r['busy_s'] for r in a) / step_s:.1%} of the uninstrumented "
+        f"step's wall each, {busy / step_s:.1%} summed: past 100% the "
+        f"processes' kernels overlap on the card or their spans take in "
+        f"one another's time slices, which the profiler does not tell "
+        f"apart), their copies and memsets "
+        f"{', '.join(f'{r['copy_s'] * 1e3:.1f}' for r in a)} ms "
+        f"({copied / step_s:.1%} summed); peak "
+        f"memory a rank {', '.join(f'{r['peak_gib']:.2f}' for r in a)} GiB, "
+        f"{sum(r['peak_gib'] for r in a):.2f} GiB in all (the single "
+        f"process's {train['peak_gib']:.2f}); launches a rank "
+        f"{json.dumps(a[0]['launches'])}; {smi}")
+
+    # (b) against the single process
+    b1, b2 = [r["b_save"] for r in ranks], [r["b_restart"] for r in ranks]
+    got = [r1["loss"] + r2["loss"] for r1, r2 in zip(b1, b2)]
+    got_norm = [r1["grad_norm"] + r2["grad_norm"] for r1, r2 in zip(b1, b2)]
+    b_loss = max(mt_within(g, gemma["loss"]) for g in got)
+    b_norm = max(mt_within(g, gemma["grad_norm"]) for g in got_norm)
+    if not (b_loss <= TRAIN_LOSS_TOL and b_norm <= TRAIN_LOSS_TOL
+            and all(r["restored_from"] == [MT_B_SAVE] for r in b2)
+            and all(len(g) == MT_B_STEPS for g in got)):
+        raise AssertionError(
+            f"[{label} b] losses {got} against the single process's "
+            f"{gemma['loss']}; restored from "
+            f"{[r['restored_from'] for r in b2]}")
+    gtok = MT_B_BATCH * (MT_B_SEQ + 1)
+    log(f"[{label} b] {MT_B_ARCH} float32 at every published width, "
+        f"{MT_B_LAYERS} of 28 layers ({gemma_params / 1e9:.3f} B "
+        f"parameters; fsdp=False, the only edit), B={MT_B_BATCH} x "
+        f"{MT_B_SEQ + 1} tokens: the single process's {MT_B_STEPS} steps "
+        f"{[round(x, 6) for x in gemma['loss']]} "
+        f"({', '.join(f'{s * 1e3:.1f}' for s in gemma['seconds'])} ms); "
+        f"over {b1[0]['mesh']}: {MT_B_SAVE} steps "
+        f"({', '.join(f'{max(r['seconds'][i] for r in b1) * 1e3:.1f}' for i in range(MT_B_SAVE))} "
+        f"ms, {gtok / max(b1[0]['seconds']):.0f} tokens/s at the slower) "
+        f"and a save of {len(ranks[0]['ckpt_files'])} files, "
+        f"{ranks[0]['ckpt_bytes'] / 2**30:.2f} GiB, in "
+        f"{max(sum(r['save_s']) for r in b1):.1f} s (train_loop "
+        f"{max(r['wall_s'] for r in b1):.1f} s, peak "
+        f"{max(r['peak_gib'] for r in b1):.2f} GiB a rank); restarted over "
+        f"{b2[0]['mesh']} from step {b2[0]['restored_from']} (the restore "
+        f"{max(sum(r['restore_s']) for r in b2):.1f} s): "
+        f"{MT_B_STEPS - MT_B_SAVE} step "
+        f"({max(r['seconds'][-1] for r in b2) * 1e3:.1f} ms; train_loop "
+        f"with the restore and the last save "
+        f"({max(sum(r['save_s']) for r in b2):.1f} s) "
+        f"{max(r['wall_s'] for r in b2):.1f} s, peak "
+        f"{max(r['peak_gib'] for r in b2):.2f} GiB a rank): losses "
+        f"{[round(x, 6) for x in got[0]]}, the single process's within "
+        f"{b_loss:.3g}, gradient norms within {b_norm:.3g} (tol "
+        f"{TRAIN_LOSS_TOL}); {smi}")
+
+    # (c) against the single process
+    c_loss = max(mt_within(r["loss"], jamba["loss"]) for r in jranks)
+    c_norm = max(mt_within(r["grad_norm"], jamba["grad_norm"])
+                 for r in jranks)
+    c_want = train_launches(jcfg, MT_C_STEPS)
+    for r in jranks:
+        full = {**{k: 0 for k in r["launches"]}, **c_want}
+        if r["launches"] != full:
+            raise AssertionError(f"[{label} c] launches {r['launches']}, "
+                                 f"want {full}")
+    if not (c_loss <= TRAIN_LOSS_TOL and c_norm <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"[{label} c] losses {[r['loss'] for r in jranks]}"
+                             f" against {jamba['loss']}")
+    log(f"[{label} c] {MT_C_ARCH} reduced over {jranks[0]['mesh']}: "
+        f"{MT_C_STEPS} steps of B={REDUCED_BATCH} x {REDUCED_SEQ + 1} "
+        f"tokens, losses {[round(x, 6) for x in jranks[0]['loss']]}, the "
+        f"single process's within {c_loss:.3g} (norms {c_norm:.3g}; tol "
+        f"{TRAIN_LOSS_TOL}); launches on each rank "
+        f"{json.dumps(jranks[0]['launches'])}; {smi}")
+    runs = [r["a"]["launches"] for r in ranks] + [
+        r[k]["launches"] for r in ranks for k in ("b_save", "b_restart")] + [
+        r["launches"] for r in jranks]
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    log(f"[{label}] launches over the ranks' main-path runs ((a)'s "
+        f"{TRAIN_STEPS} steps, (b)'s {MT_B_STEPS}, (c)'s {MT_C_STEPS} a "
+        f"rank): {json.dumps(launches)}")
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "tokens_per_s": tokens / step_s}
+
+
+
 # ------------------------------------------------------------- phase 19
 def expr_values(np, rng, dt, n: int):
     """n values of numpy dtype dt for the expression matrix: random over
@@ -3172,7 +3668,7 @@ def capture_first_call(ops, name: str, record: dict):
 
 
 def phase_q1(torch, smi: str, probes: dict) -> dict:
-    """TPC-H Q1 at scale factor 10 through the Session API: the numpy
+    """TPC-H Q1 at scale factor 2.5 through the Session API: the numpy
     backend once as the oracle, then ``expr_backend="torch"`` on the card
     (one warm run, then Q1_TIMED timed): every output column
     byte-identical to the oracle's, shuffle bytes and elided exchanges
@@ -3418,7 +3914,7 @@ def pinned_host_gib(torch) -> str:
 
 
 def phase_workers_q1(torch, smi: str, q1: dict) -> dict:
-    """Phase 20: TPC-H Q1 at SF 10 (phase 19's lineitem set, no cut) over
+    """Phase 20: TPC-H Q1 at SF 2.5 (phase 19's lineitem set, no cut) over
     WORKERS thread workers sharing the card, on ``expr_backend="torch"``:
     one warm run, then WORKERS_TIMED runs; every column byte-identical to
     phase 19's numpy-backend answer, K1 once per batch of every rank and
@@ -3600,7 +4096,7 @@ def dsl_queries(core, ds) -> dict:
 def phase_service(torch, smi: str, q1: dict) -> dict:
     """Phase 22: the query service. A ``QueryService(launch="thread",
     num_workers=WORKERS, expr_backend="torch")`` over phase 19's store: a
-    cold Q1 at SF 10 ships the shards (SETUP bytes), then SERVICE_CLIENTS
+    cold Q1 at SF 2.5 ships the shards (SETUP bytes), then SERVICE_CLIENTS
     ``Session.connect`` clients submit Q1 (warm: zero SETUP bytes) and
     the DSL queries at the same time, SERVICE_ADMITTED of them admitted
     at once. Every answer byte-identical to the
@@ -3671,7 +4167,7 @@ def phase_service(torch, smi: str, q1: dict) -> dict:
                                      f"shipped {setup} SETUP bytes")
         runs = svc.queries_run
     log(f"[service] {WORKERS} resident thread workers on the card: Q1 at "
-        f"SF 10 cold {cold_s:.2f} s ({cold_setup:,} SETUP bytes); then "
+        f"SF 2.5 cold {cold_s:.2f} s ({cold_setup:,} SETUP bytes); then "
         f"{SERVICE_CLIENTS} clients at once ({SERVICE_ADMITTED} admitted at "
         f"a time), each a warm Q1 (0 SETUP "
         f"bytes) and the DSL queries, in {warm_s:.2f} s wall (Q1 "
@@ -3825,6 +4321,7 @@ def phase_train(torch, smi: str) -> dict:
         dtype=np.int32)).to(DEVICE)
     batch = {"tokens": toks, "labels": toks}
     state = [out["params"], out["opt"]]
+    history = out["history"]
     del out
 
     def one():
@@ -3849,7 +4346,7 @@ def phase_train(torch, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_s * 1e3,
             "tokens_per_s": tokens / step_s, "peak_gib": peak,
-            "busy": busy / step_s}
+            "busy": busy / step_s, "history": history}
 
 
 def phase_train_reduced(torch, smi: str) -> list:
@@ -3987,10 +4484,20 @@ def main() -> int:
         f"process's {tp['single_tokens_per_s']:.0f}; {smi}")
     log(f"[timing] tensor-parallel phase: {time.perf_counter() - t0:.1f} s "
         f"(run so far {time.perf_counter() - start:.1f} s)")
+    t0 = time.perf_counter()
+    mesh_train = phase_mesh_train(torch, smi, train)
+    runs.append(mesh_train["launches"])
+    log(f"[summary] {MOE_ARCH} training at full width, {TRAIN_LAYERS} "
+        f"layers, over a (data {MT_A_MESH[0]}, model {MT_A_MESH[1]}) mesh of "
+        f"{EP_WORLD} processes on the card: {mesh_train['step_ms']:.1f} "
+        f"ms/step, {mesh_train['tokens_per_s']:.0f} tokens/s against the "
+        f"single process's {train['step_ms']:.1f} ms/step; {smi}")
+    log(f"[timing] training over the mesh: {time.perf_counter() - t0:.1f} s "
+        f"(run so far {time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18, the training phases and "
-        f"the expert-parallel and tensor-parallel phases' ranks: "
-        f"{json.dumps(launches)}")
+        f"the expert-parallel, tensor-parallel and mesh-training phases' "
+        f"ranks: {json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)
     q1 = phase_q1(torch, smi, rel)

@@ -15,10 +15,16 @@ the port restores a checkpoint the reference wrote.
   machine lacks), so a bf16 leaf is written as its uint16 bits with
   ``"dtype": "bfloat16"`` in the manifest and read back bit for bit. The
   reference's own bf16 files (``ml_dtypes`` arrays) are not read.
-* **Sharded restore**: ``restore(..., specs=, mesh=)`` reads every leaf
-  to the host and keeps, through ``distributed.elastic.reshard_state``,
-  the slice this rank of ``mesh`` owns, on its device; restoring onto
+* **Sharded restore**: ``restore(..., specs=, mesh=)`` reads, leaf by
+  leaf from a memory map, the slice this rank of ``mesh`` owns
+  (``distributed.elastic.local_index``) onto its device; restoring onto
   another mesh than the one that saved is the elastic-scaling path.
+* **Save over a mesh**: ``save(..., specs=, mesh=)`` writes the same
+  mesh-independent files a single process writes, whole leaves under the
+  same names: rank 0 alone writes, leaf by leaf, each split leaf's blocks
+  gathered to it through host memory along the one mesh axis that splits
+  it (host memory bounded by about twice the largest leaf), between two
+  barriers so that no rank reads or saves again before the publish.
 """
 from __future__ import annotations
 
@@ -92,8 +98,13 @@ class Checkpointer:
         return s[-1] if s else None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, state: Any,
-             extra: Optional[Dict] = None) -> str:
+    def save(self, step: int, state: Any, extra: Optional[Dict] = None,
+             specs: Any = None, mesh=None) -> str:
+        """Write ``state`` as step ``step``; with ``specs`` and ``mesh``
+        every rank calls it with its slices and the whole leaves are
+        written (the module's "Save over a mesh")."""
+        if specs is not None and mesh is not None:
+            return self._save_mesh(step, state, extra or {}, specs, mesh)
         return self._write(step, self._host(state), extra or {})
 
     def save_async(self, step: int, state: Any,
@@ -113,8 +124,9 @@ class Checkpointer:
     def _host(state: Any) -> List[Tuple[str, np.ndarray, str]]:
         return [(name, *_to_host(leaf)) for name, leaf in _flatten(state)]
 
-    def _write(self, step: int, host: List[Tuple[str, np.ndarray, str]],
-               extra: Dict) -> str:
+    def _write(self, step: int, host, extra: Dict) -> str:
+        """Write the (name, array, dtype) triples ``host`` yields, in
+        order, then publish."""
         tmp = os.path.join(self.dir, f"tmp.{step}")
         final = os.path.join(self.dir, f"step_{step}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -128,6 +140,7 @@ class Checkpointer:
                 os.fsync(f.fileno())
             manifest["leaves"].append(
                 {"file": fname, "shape": list(arr.shape), "dtype": dtype})
+            del arr
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
@@ -136,6 +149,32 @@ class Checkpointer:
         os.rename(tmp, final)  # atomic publish
         self.saves += 1
         self._gc()
+        return final
+
+    def _save_mesh(self, step: int, state: Any, extra: Dict, specs: Any,
+                   mesh) -> str:
+        import torch.distributed as dist
+        named, spec_leaves = _flatten(state), tr.leaves(specs)
+        if len(named) != len(spec_leaves):
+            raise ValueError(f"state has {len(named)} leaves, specs "
+                             f"{len(spec_leaves)}")
+        leaves = list(zip(named, spec_leaves))
+
+        def whole():  # rank 0's stream of whole leaves; the others' none
+            for (name, leaf), spec in leaves:
+                full = _gather_leaf(leaf, spec, mesh)
+                if mesh.rank == 0:
+                    yield (name, *_to_host(full))
+                del full
+
+        dist.barrier()
+        final = os.path.join(self.dir, f"step_{step}")
+        if mesh.rank == 0:
+            final = self._write(step, whole(), extra)
+        else:
+            for _ in whole():
+                pass
+        dist.barrier()
         return final
 
     def _gc(self) -> None:
@@ -163,13 +202,40 @@ class Checkpointer:
         if len(like) != len(manifest["leaves"]):
             raise ValueError(f"checkpoint has {len(manifest['leaves'])} "
                              f"leaves, template has {len(like)}")
-        if sharded:  # whole leaves on the host, then each slice
-            like = [torch.empty(0)] * len(like)
+        if sharded:  # each leaf's slice, read from a memory map
+            from repro_torch.distributed.elastic import local_index
+            on = torch.empty(0, device=mesh.device)
+            arrays = []
+            for meta, spec in zip(manifest["leaves"], tr.leaves(specs)):
+                mm = np.load(os.path.join(d, meta["file"]), mmap_mode="r")
+                part = np.array(mm[local_index(mm.shape, spec, mesh)],
+                                order="C")
+                arrays.append(_from_host(part, meta["dtype"], on))
+                del mm, part
+            return tr.unflatten(template, arrays), manifest["extra"]
         arrays = [_from_host(np.load(os.path.join(d, meta["file"])),
                              meta["dtype"], leaf)
                   for meta, leaf in zip(manifest["leaves"], like)]
-        if sharded:
-            from repro_torch.distributed.elastic import reshard_state
-            return (reshard_state(tr.unflatten(template, arrays), specs,
-                                  mesh), manifest["extra"])
         return tr.unflatten(template, arrays), manifest["extra"]
+
+
+def _gather_leaf(leaf: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
+    """The whole leaf on mesh rank 0 (on the host where it was split),
+    None on the others: a leaf split along one mesh axis has its blocks
+    gathered along the line of that axis through rank 0; a leaf whole on
+    every rank is rank 0's own."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.elastic import split_axes
+    axes = split_axes(spec)
+    if not axes:
+        return leaf if mesh.rank == 0 else None
+    if len(axes) > 1 or len(axes[0][1]) > 1:
+        raise NotImplementedError(
+            f"a leaf split over {axes}: saving leaves sharded over more "
+            f"than one mesh axis (FSDP) waits for the rest of training "
+            f"over the mesh (ROADMAP.md, queue 1, item 11)")
+    dim, (axis,) = axes[0]
+    if any(mesh.index(a) for a in mesh.shape if a != axis):
+        return None  # not on rank 0's line along the axis
+    blocks = coll.gather_to_first(leaf, mesh.group(axis))
+    return torch.cat(blocks, dim) if blocks else None

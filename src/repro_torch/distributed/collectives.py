@@ -13,13 +13,22 @@ gloo group, runs the pair on the copy and copies the result back; every
 other call hands its tensors over as they are, and gloo stages them
 itself. That is the transport of ranks sharing one card
 (``launch.mesh.backend_for``).
+
+Two of them are also autograd functions, the pair of tensor parallelism
+over a group whose ranks all compute the same loss: :func:`sum_forward`
+(an all-reduce forward, the gradient passed as it is) ends a split
+product, and :func:`sum_backward` (the identity forward, the gradient
+all-reduced) starts one. ``torch.distributed.nn.functional`` is not used:
+its all-gather sums the gradient over the ranks, which counts a loss that
+every rank computes the same way once a rank.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["all_reduce", "reduce_scatter", "all_gather", "all_to_all",
-           "broadcast", "ring_shift"]
+__all__ = ["all_reduce", "all_reduce_max", "reduce_scatter", "all_gather",
+           "all_to_all", "broadcast", "gather_to_first", "ring_shift",
+           "sum_forward", "sum_backward"]
 
 
 def _dist():
@@ -30,6 +39,14 @@ def _dist():
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over the group, in place; returns ``t``."""
     _dist().all_reduce(t, group=group)
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the group, in place; returns
+    ``t``."""
+    dist = _dist()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
 
 
@@ -74,6 +91,18 @@ def broadcast(t: torch.Tensor, src_rank: int, group) -> torch.Tensor:
     return t
 
 
+def gather_to_first(t: torch.Tensor, group) -> list:
+    """Every group rank's ``t`` (same shape) on group rank 0, in group
+    rank order, through host memory; an empty list on the others."""
+    dist = _dist()
+    src = t.detach().cpu().contiguous()
+    first = dist.get_rank(group) == 0
+    out = [torch.empty_like(src) for _ in range(
+        dist.get_world_size(group))] if first else None
+    dist.gather(src, out, dst=dist.get_global_rank(group, 0), group=group)
+    return out if first else []
+
+
 def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
     """Each group rank's ``t`` to the next (the last's to the first);
     returns what the previous rank sent (``ppermute`` over the ring). One
@@ -94,3 +123,42 @@ def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out.to(t.device)
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(memory_format=torch.contiguous_format),
+                          group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.group), None
+
+
+def sum_forward(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the group; the gradient passes back as it is.
+    Where autograd records, the sum goes into a copy (never into a tensor
+    the graph holds); else into ``t``'s own storage when contiguous."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _SumForward.apply(t, group)
+    return all_reduce(t.contiguous(), group)
+
+
+def sum_backward(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` as it is; its gradient summed over the group."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _SumBackward.apply(t, group)
+    return t

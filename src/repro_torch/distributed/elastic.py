@@ -18,7 +18,8 @@ import torch
 
 from repro_torch import tree as tr
 
-__all__ = ["rebalance_shards", "reshard_state", "local_slice"]
+__all__ = ["rebalance_shards", "reshard_state", "local_slice",
+           "local_index", "split_axes"]
 
 
 def rebalance_shards(n_pages: int, old_workers: int, new_workers: int,
@@ -32,19 +33,32 @@ def rebalance_shards(n_pages: int, old_workers: int, new_workers: int,
     return assignment
 
 
-def local_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """The view of the whole ``x`` that ``mesh``'s rank owns under
-    ``spec``: a block of ``models.params.local_shape``."""
+def local_index(shape, spec, mesh) -> tuple:
+    """The slices of a whole leaf of ``shape`` that ``mesh``'s rank owns
+    under ``spec``: a block of ``models.params.local_shape``."""
     from repro_torch.models.params import local_shape
-    size = local_shape(tuple(x.shape), spec, mesh.shape)
+    size = local_shape(tuple(shape), spec, mesh.shape)
+    out = [slice(None)] * len(shape)
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
         block = 0
         for a in (entry if isinstance(entry, tuple) else (entry,)):
             block = block * mesh.shape[a] + mesh.index(a)  # major first
-        x = x.narrow(dim, block * size[dim], size[dim])
-    return x
+        out[dim] = slice(block * size[dim], (block + 1) * size[dim])
+    return tuple(out)
+
+
+def split_axes(spec) -> List[tuple]:
+    """[(dim, the mesh axes it is split over)] of a spec's split dims."""
+    return [(dim, entry if isinstance(entry, tuple) else (entry,))
+            for dim, entry in enumerate(spec) if entry is not None]
+
+
+def local_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The view of the whole ``x`` that ``mesh``'s rank owns under
+    ``spec`` (:func:`local_index`)."""
+    return x[local_index(x.shape, spec, mesh)]
 
 
 def reshard_state(state: Any, specs: Any, mesh) -> Any:

@@ -35,14 +35,27 @@ class SupervisorReport:
 class Supervisor:
     """Runs ``state = step_fn(state, step)`` for `total_steps`, saving every
     `save_every` steps; any exception triggers restore-from-checkpoint and
-    continue (the worker re-fork)."""
+    continue (the worker re-fork).
+
+    Over a mesh (``specs`` and ``mesh``, every rank running its own
+    supervisor in step) the saves write whole leaves and the restores take
+    the rank's slices (``Checkpointer.save`` / ``restore``), so a job
+    restarted on another mesh resumes from the same files; a failure must
+    reach every rank at the same step (one rank alone would leave the
+    others waiting in a collective). Async saves are single-process only:
+    a mesh save gathers on every rank."""
 
     def __init__(self, checkpointer: Checkpointer, save_every: int = 10,
-                 max_restarts: int = 5, async_save: bool = False):
+                 max_restarts: int = 5, async_save: bool = False,
+                 specs: Any = None, mesh=None):
+        if async_save and mesh is not None:
+            raise ValueError("an async save over a mesh: its gathers run "
+                             "on every rank in step, save synchronously")
         self.ckpt = checkpointer
         self.save_every = save_every
         self.max_restarts = max_restarts
         self.async_save = async_save
+        self.placement = {"specs": specs, "mesh": mesh}
 
     def run(self, state: Any, step_fn: Callable[[Any, int], Any],
             total_steps: int,
@@ -53,7 +66,7 @@ class Supervisor:
         start = 0
         latest = self.ckpt.latest_step()
         if latest is not None:  # resuming an interrupted job
-            state, extra = self.ckpt.restore(state)
+            state, extra = self.ckpt.restore(state, **self.placement)
             if restore_extra:
                 restore_extra(extra)
             start = latest
@@ -69,7 +82,7 @@ class Supervisor:
                     if self.async_save:
                         self.ckpt.save_async(step, state, extra)
                     else:
-                        self.ckpt.save(step, state, extra)
+                        self.ckpt.save(step, state, extra, **self.placement)
             except Exception:
                 rep.restarts += 1
                 if rep.restarts > self.max_restarts:
@@ -78,7 +91,7 @@ class Supervisor:
                 latest = self.ckpt.latest_step()
                 if latest is None:
                     raise
-                state, extra = self.ckpt.restore(state)
+                state, extra = self.ckpt.restore(state, **self.placement)
                 if restore_extra:
                     restore_extra(extra)
                 step = latest

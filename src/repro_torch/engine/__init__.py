@@ -16,10 +16,11 @@ from repro_torch.engine.serve_step import (ServingEngine, make_serve_step,
 from repro_torch.engine.specs import (abstract_decode_state, input_shardings,
                                       input_specs)
 from repro_torch.engine.train_step import (TrainConfig, make_eval_step,
-                                           make_loss_fn, make_train_step)
+                                           make_grad_fn, make_loss_fn,
+                                           make_train_step, shard_batch)
 
-__all__ = ["TrainConfig", "make_eval_step", "make_loss_fn",
-           "make_train_step", "ServingEngine", "make_serve_step",
+__all__ = ["TrainConfig", "make_eval_step", "make_grad_fn", "make_loss_fn",
+           "make_train_step", "shard_batch", "ServingEngine", "make_serve_step",
            "sample_token", "broadcast_join", "grad_reduce_two_stage",
            "hash_partition_join", "segment_preaggregate",
            "two_stage_aggregate", "CompressionConfig", "compress_grads",

@@ -12,6 +12,20 @@ storage, detached from any graph), so it takes any tree of tensors, and
 AdamW then writes the new values into that storage: the step updates
 ``params`` and ``opt_state`` in place and returns them, as the reference's
 train loop donates them to its jitted step.
+
+Over a mesh (``Ctx(plan=, mesh=)``) each rank holds its slices of every
+leaf under ``Model.param_specs`` and its data shard of the batch
+(:func:`shard_batch`: its rows of each global microbatch), and the step
+computes what the single device computes on the global batch, as GSPMD
+gives the reference: the loss's denominators and the MoE aux over the
+global batch, the loss over the split vocab from all-reduced maxima, sums
+of exponentials and label logits (no all-gather of the logits), stage 1
+on the shard, then stage 2's shuffle: one all-reduce a leaf of its
+float32 gradient over the data axes. Leaves held whole on the model axis
+get the same complete gradient on every rank (``layers.to_model`` /
+``model_sum``), so nothing is reduced over it; compression and AdamW run
+on the rank's slices with the whole leaf's semantics (``split``: the
+leaves split over the model axis).
 """
 from __future__ import annotations
 
@@ -21,14 +35,16 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.distributed import collectives as coll
 from repro_torch.engine.compression import CompressionConfig, compress_grads
 from repro_torch.models import transformer as tf
 from repro_torch.models.context import Ctx
+from repro_torch.models.layers import data_sum, model_sum
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim import AdamWConfig, OptState, adamw_update, constant
 
-__all__ = ["TrainConfig", "make_loss_fn", "make_train_step",
-           "make_eval_step", "AUX_LOSS_COEF"]
+__all__ = ["TrainConfig", "make_loss_fn", "make_grad_fn", "make_train_step",
+           "make_eval_step", "shard_batch", "AUX_LOSS_COEF"]
 
 AUX_LOSS_COEF = 0.01
 
@@ -41,64 +57,123 @@ class TrainConfig:
     z_loss: float = 1e-4
 
 
+def shard_batch(batch: Dict, ctx: Ctx, microbatches: int = 1) -> Dict:
+    """This rank's data shard of a global batch: for each of the
+    ``microbatches`` global microbatches (rows [i B/k, (i+1) B/k), the
+    reference's split), this shard's block of its rows, in microbatch
+    order; the whole batch without data shards."""
+    dp, r, k = ctx.dp, ctx.dp_index, max(1, microbatches)
+    if dp == 1:
+        return batch
+
+    def rows(x):
+        B = x.shape[0]
+        if B % (k * dp):
+            raise ValueError(f"a batch of {B} rows does not split into {k} "
+                             f"microbatches of {dp} data shards")
+        return x.reshape(k, dp, B // (k * dp), *x.shape[1:])[:, r].reshape(
+            B // dp, *x.shape[1:])
+    return {key: rows(x) for key, x in batch.items()}
+
+
+def _split_leaves(model: Model, ctx: Ctx):
+    """A tree of the parameters' structure: True where this rank holds a
+    block of a leaf split over the model axis (``param_specs``); None
+    without one."""
+    if ctx.tp == 1:
+        return None
+    axis = ctx.plan.tp_axis
+    return tr.tree_map(lambda spec: any(
+        e == axis or (isinstance(e, tuple) and axis in e) for e in spec),
+        model.param_specs(ctx.plan))
+
+
+def _split_vocab(lg: torch.Tensor, tg: torch.Tensor, ctx: Ctx
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log Z, the label's logit) from this rank's vocab columns ``lg``
+    (..., V/tp): the maximum, the sum of exponentials and the label's
+    logit (from the rank that holds its column) summed over the model
+    axis."""
+    V = lg.shape[-1]
+    m = coll.all_reduce_max(lg.detach().amax(dim=-1), ctx.tp_group)
+    logz = m + torch.log(model_sum(torch.exp(lg - m[..., None]).sum(-1),
+                                   ctx))
+    local = tg - ctx.tp_index * V
+    mine = (local >= 0) & (local < V)
+    ll = torch.gather(lg, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    return logz, model_sum(torch.where(mine, ll, 0.0), ctx)
+
+
 def make_loss_fn(model: Model, ctx: Ctx, tcfg: TrainConfig):
-    """loss_fn(params, batch) -> (total, metrics): shifted cross-entropy
-    (token t+1 predicted from the prefix up to t; labels < 0 masked), plus
-    the z-loss on log Z, plus ``AUX_LOSS_COEF`` times the MoE load-balance
-    loss, as the reference's."""
+    """loss_fn(params, batch) -> (objective, metrics): shifted
+    cross-entropy (token t+1 predicted from the prefix up to t; labels < 0
+    masked), plus the z-loss on log Z, plus ``AUX_LOSS_COEF`` times the
+    MoE load-balance loss, as the reference's; ``metrics["total"]`` is
+    that sum.
+
+    Over a mesh ``batch`` is the rank's shard, the metrics are the global
+    batch's and the objective is the rank's: its tokens' cross-entropy
+    and z-loss over the global token count, plus the aux, whose gradients
+    summed over the data shards are the global loss's. Without one the
+    objective is the total."""
     cfg = model.cfg
+    if ctx.mesh is not None:
+        ctx = dataclasses.replace(ctx, global_aux=True)
 
     def loss_fn(params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
-        logits, aux = tf.forward(cfg, params, batch, ctx)  # (B,S,V) f32
+        logits, aux = tf.forward(cfg, params, batch, ctx,
+                                 gather_logits=False)
         labels = batch["labels"]
         lg = logits[:, :-1]
         tg = labels[:, 1:]
         mask = (tg >= 0).to(torch.float32)
         tg = torch.clamp(tg, min=0).long()
-        logz = torch.logsumexp(lg, dim=-1)
-        ll = torch.gather(lg, -1, tg[..., None])[..., 0]
+        if lg.shape[-1] == cfg.padded_vocab:
+            logz = torch.logsumexp(lg, dim=-1)
+            ll = torch.gather(lg, -1, tg[..., None])[..., 0]
+        else:
+            logz, ll = _split_vocab(lg, tg, ctx)
         nll = (logz - ll) * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
-        ce = nll.sum() / denom
-        zl = tcfg.z_loss * ((logz * mask) ** 2).sum() / denom
-        total = ce + zl + AUX_LOSS_COEF * aux
+        zsq = ((logz * mask) ** 2).sum()
+        # the global batch's token count, nll and z sums: one all-reduce
+        sums = data_sum(torch.stack([mask.sum(), nll.sum(), zsq]).detach(),
+                        ctx)
+        denom = torch.clamp(sums[0], min=1.0)
+        objective = (nll.sum() / denom + tcfg.z_loss * zsq / denom
+                     + AUX_LOSS_COEF * aux)
+        ce, zl = sums[1] / denom, tcfg.z_loss * sums[2] / denom
         metrics = {"loss": ce, "aux_loss": aux, "z_loss": zl,
-                   "tokens": denom}
-        return total, metrics
+                   "tokens": denom, "total": ce + zl + AUX_LOSS_COEF * aux}
+        return objective, metrics
 
     return loss_fn
 
 
 def _value_and_grad(loss_fn, params, batch):
-    """((total, metrics), grads): grads a tree of params' structure."""
+    """((total, metrics), grads): the gradient of the objective, a tree of
+    params' structure, and the total from the metrics."""
     work = tr.tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        total, metrics = loss_fn(work, batch)
-        grads = torch.autograd.grad(total, tr.leaves(work))
+        objective, metrics = loss_fn(work, batch)
+        grads = torch.autograd.grad(objective, tr.leaves(work))
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (total.detach(), metrics), tr.unflatten(params, list(grads))
+    return (metrics.pop("total"), metrics), tr.unflatten(params, list(grads))
 
 
-def make_train_step(model: Model, ctx: Ctx,
-                    tcfg: TrainConfig = TrainConfig(),
-                    lr_fn: Optional[Callable] = None):
-    """Returns train_step(params, opt_state, err_state, batch) ->
-    (params, opt_state, err_state, metrics). One device: a context with a
-    mesh raises, as no step reduces its gradients over one."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(
-            "a train step over a mesh (data-parallel or FSDP, gradients "
-            "through grad_reduce_two_stage, sharded AdamW state, the EP "
-            "backward) waits for training over the mesh (ROADMAP.md, "
-            "queue 1, item 11)")
+def make_grad_fn(model: Model, ctx: Ctx, tcfg: TrainConfig = TrainConfig()):
+    """grad_fn(params, batch) -> (loss, metrics, grads): stage 1, the
+    microbatches' float32 gradients added in order and divided by their
+    count, then over a mesh stage 2's shuffle, each leaf's gradient summed
+    over the data axes by one all-reduce (the loss the global batch's
+    total)."""
     loss_fn = make_loss_fn(model, ctx, tcfg)
-    if lr_fn is None:
-        lr_fn = constant(3e-4)
+    groups = ctx.dp_groups
 
-    def train_step(params, opt_state: OptState, err_state, batch: Dict):
+    def grad_fn(params, batch: Dict):
         k = tcfg.microbatches
         if k <= 1:
-            (loss, metrics), grads = _value_and_grad(loss_fn, params, batch)
+            (loss, metrics), grads = _value_and_grad(loss_fn, params,
+                                                     batch)
         else:
             # -------- stage 1: microbatch pre-aggregation (combiner pages)
             micro = [{key: x.reshape(k, x.shape[0] // k, *x.shape[1:])[i]
@@ -117,14 +192,40 @@ def make_train_step(model: Model, ctx: Ctx,
             grads = tr.tree_map(lambda g: g.div_(k), grads)
             loss = loss_sum / k
             metrics = {"loss": loss}
+        # -------- stage 2: the shuffle, the data shards' gradients summed
+        for group in groups:
+            grads = tr.tree_map(lambda g: coll.all_reduce(
+                g if g.dtype == torch.float32 else g.float(), group), grads)
+        return loss, metrics, grads
 
+    return grad_fn
+
+
+def make_train_step(model: Model, ctx: Ctx,
+                    tcfg: TrainConfig = TrainConfig(),
+                    lr_fn: Optional[Callable] = None):
+    """Returns train_step(params, opt_state, err_state, batch) ->
+    (params, opt_state, err_state, metrics). Over a mesh ``params``,
+    ``opt_state`` and ``err_state`` hold the rank's slices and ``batch``
+    its shard (:func:`shard_batch`); FSDP (leaves over a data axis)
+    raises NotImplementedError."""
+    if ctx.mesh is not None:
+        tf.check_split(model.cfg, ctx)
+    grad_fn = make_grad_fn(model, ctx, tcfg)
+    split = _split_leaves(model, ctx)
+    if lr_fn is None:
+        lr_fn = constant(3e-4)
+
+    def train_step(params, opt_state: OptState, err_state, batch: Dict):
+        group = None if split is None else ctx.tp_group
+        loss, metrics, grads = grad_fn(params, batch)
         # -------- optional compression with error feedback (cross-pod)
         grads, err_state = compress_grads(grads, err_state,
-                                          tcfg.compression)
+                                          tcfg.compression, split, group)
         # -------- stage 2: the optimizer update (final aggregation)
         lr = lr_fn(opt_state.step)
         params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, lr, tcfg.opt)
+            grads, opt_state, params, lr, tcfg.opt, split, group)
         metrics = {**metrics, **opt_metrics, "total_loss": loss}
         return params, opt_state, err_state, metrics
 

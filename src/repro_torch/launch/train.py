@@ -9,6 +9,15 @@ depth only, never a width. Every MoE layer's dispatch goes through the
 layer's scan through ``ssm_scan`` and its backward; attention runs on the
 plain path (``Ctx()``, as the reference trains).
 
+Over a mesh (``mesh=``, a ``launch.mesh.Mesh``; one process a rank, each
+calling ``train_loop`` alike) the loop plans for the mesh, each rank draws
+its slices of the very weights one process draws (``Model.init_shards``)
+or takes them from ``weights``, draws the same global batch from the same
+loader and keeps its data shard (``engine.train_step.shard_batch``), and
+steps under ``Ctx(plan=, mesh=)``: the losses are the single process's.
+Checkpoints hold whole leaves, as one process writes them, and a job
+restarted on another mesh restores its slices from them.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_moe \\
       --layers 4 --steps 5 --batch 4 --seq 1024
@@ -24,15 +33,20 @@ from typing import Any, Dict, Mapping, Optional, Union
 import torch
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs import ArchConfig, get_arch, reduced_config
+from repro_torch.configs import (ArchConfig, ShapeConfig, get_arch,
+                                 reduced_config)
+from repro_torch.core.planner import make_plan
 from repro_torch.data import TokenLoader, TokenPageWriter
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.distributed import HeartbeatMonitor, Supervisor
-from repro_torch.engine.train_step import TrainConfig, make_train_step
+from repro_torch.distributed.elastic import reshard_state
+from repro_torch.engine.train_step import (TrainConfig, make_train_step,
+                                           shard_batch)
 from repro_torch.models import Ctx, build_model, resolve_device
-from repro_torch.models.params import torch_dtype
+from repro_torch.models.params import flatten, torch_dtype
 from repro_torch.objectmodel import PagedStore
-from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
+from repro_torch.optim import (AdamWConfig, init_opt_state, opt_state_specs,
+                               warmup_cosine)
 
 __all__ = ["train_loop", "main"]
 
@@ -45,8 +59,8 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
                dtype: str = "float32", device=None,
                layers: Optional[int] = None,
                records: Optional[int] = None,
-               weights: Optional[Mapping[str, torch.Tensor]] = None
-               ) -> Dict[str, Any]:
+               weights: Optional[Mapping[str, torch.Tensor]] = None,
+               mesh=None) -> Dict[str, Any]:
     """Train ``arch`` (a name or an ``ArchConfig``) for ``steps`` steps of
     ``batch`` sequences of ``seq + 1`` tokens. Weights are random, drawn
     on the device from ``seed``, or a copy of ``weights`` (a state_dict of
@@ -55,7 +69,8 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
     and one on the CPU start from the same state through ``weights``. The
     tokens are ``lm_tokens`` rows, as the reference's: ``records`` of them
     (default max(64, 8 x batch)), so ``records == batch`` repeats one
-    batch every step. Returns the
+    batch every step. ``mesh``: this rank's mesh (the module's "Over a
+    mesh"; the device is then the mesh's). Returns the
     reference's dict (losses, params, opt, report, seconds,
     straggler_plan) plus ``history``, one dict a step: loss (the total
     loss), grad_norm, lr and the step's wall seconds, taken after the
@@ -63,23 +78,38 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     if reduced:
         cfg = reduced_config(cfg)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model = build_model(cfg, layers)
     cfg = model.cfg
-    if weights is None:
+    ctx, specs = Ctx(), None
+    if mesh is not None:
+        plan = make_plan(cfg, mesh.shape,
+                         ShapeConfig("train", seq, batch, "train"))
+        ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True)
+        specs = model.param_specs(plan)
+    if weights is None and mesh is None:
         model.init_params(torch.Generator(dev).manual_seed(seed), dtype,
                           trainable=True)
+    elif weights is None:
+        model.init_shards(torch.Generator(dev).manual_seed(seed), plan,
+                          mesh, dtype).requires_grad_(True)
     else:
         dt = torch_dtype(dtype)
-        model.load_state_dict({k: v.detach().to(dev, dt, copy=True)
-                               for k, v in weights.items()}, assign=True)
+        if mesh is None:
+            model.load_state_dict({k: v.detach().to(dev, dt, copy=True)
+                                   for k, v in weights.items()}, assign=True)
+        else:  # each leaf's slice, then onto the rank's device
+            model.load_shards(reshard_state(
+                {k: v.detach().to(dtype=dt) for k, v in weights.items()},
+                flatten(specs), mesh))
         model.requires_grad_(True)
     params = model.params()
     ocfg = AdamWConfig(moment_dtype="float32")
     opt = init_opt_state(params, ocfg)
     tcfg = TrainConfig(microbatches=microbatches, opt=ocfg)
     lr_fn = warmup_cosine(lr, max(1, steps // 20), steps)
-    step_fn = make_train_step(model, Ctx(), tcfg, lr_fn)
+    step_fn = make_train_step(model, ctx, tcfg, lr_fn)
+    talk = mesh is None or mesh.rank == 0
 
     # --- data: synthetic tokens through the zero-copy page pipeline
     store = PagedStore()
@@ -98,7 +128,7 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
         loader.restore(extra.get("data", loader.state()))
         data["batches"].close()
         data["batches"] = _cycle(loader)
-    extra = _extra_inputs(cfg, batch, dtype, dev)
+    extra = _extra_inputs(cfg, batch // ctx.dp, dtype, dev)
 
     monitor = HeartbeatMonitor(n_workers=1)
     losses, history = [], []
@@ -113,7 +143,9 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
             raise RuntimeError("injected worker failure")  # tests
         b = next(data["batches"])
         t0 = time.perf_counter()
-        tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        tb = {k: t.to(dev) for k, t in shard_batch(
+            {k: torch.from_numpy(v) for k, v in b.items()}, ctx,
+            microbatches).items()}
         tb.update(extra)
         params, opt, _, metrics = step_fn(params, opt, None, tb)
         loss = float(metrics["total_loss"])
@@ -123,7 +155,7 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
         history.append({"step": step, "loss": loss,
                         "grad_norm": float(metrics["grad_norm"]),
                         "lr": float(metrics["lr"]), "seconds": seconds})
-        if step % log_every == 0:
+        if step % log_every == 0 and talk:
             print(f"step {step:5d} loss {loss:.4f} "
                   f"lr {history[-1]['lr']:.2e} "
                   f"gnorm {history[-1]['grad_norm']:.3f}", flush=True)
@@ -132,7 +164,10 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
     state = (params, opt)
     report = None
     if ckpt_dir:
-        sup = Supervisor(Checkpointer(ckpt_dir), save_every=save_every)
+        sup = Supervisor(Checkpointer(ckpt_dir), save_every=save_every,
+                         specs=None if mesh is None else (
+                             specs, opt_state_specs(specs)),
+                         mesh=mesh)
         state, report = sup.run(
             state, one_step, steps,
             extra_fn=lambda: {"data": loader.state()},

@@ -14,7 +14,10 @@ the rank H/tp whole heads; ``wk``/``wv``/``bk``/``bv`` split by
 whole (K does not divide the model axis: the "sequence" strategy), the
 rank projects only the kv heads that its q heads read. Its heads'
 attention is the single device's, and the ``wo`` product's partials are
-summed by one all-reduce over the model axis.
+summed by one all-reduce over the model axis. For the gradient the
+inputs enter the split projections through ``layers.to_model``, and so do
+whole ``wk``/``wv`` (and biases) before a rank slices them: the ranks
+that read one kv head add up its gradient.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.context import Ctx
-from repro_torch.models.layers import held_split, model_sum, rope
+from repro_torch.models.layers import held_split, model_sum, rope, to_model
 from repro_torch.models.params import ParamDef
 
 __all__ = ["attn_defs", "attn_heads", "attn_project_qkv", "attn_output",
@@ -94,14 +97,19 @@ def attn_project_qkv(cfg: ArchConfig, p: Dict, xq: torch.Tensor,
     hd = cfg.resolved_head_dim
     wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
     H, K = attn_heads(cfg, p["wq"].shape[-1], wk.shape[-1])
-    if held_split(p["wq"].shape[-1], cfg.n_heads * hd, ctx) and \
-            wk.shape[-1] == cfg.n_kv_heads * hd:
-        # kv whole: this rank's q heads read kv heads k0 .. k0 + K - 1
-        k0 = ctx.tp_index * H // (cfg.n_heads // cfg.n_kv_heads)
-        cols = slice(k0 * hd, (k0 + K) * hd)
-        wk, wv = wk[..., cols], wv[..., cols]
-        if cfg.qkv_bias:
-            bk, bv = bk[..., cols], bv[..., cols]
+    if held_split(p["wq"].shape[-1], cfg.n_heads * hd, ctx):
+        same = xkv is xq
+        xq = to_model(xq, ctx)
+        xkv = xq if same else to_model(xkv, ctx)
+        if wk.shape[-1] == cfg.n_kv_heads * hd:
+            # kv whole: this rank's q heads read kv heads k0 .. k0 + K - 1
+            k0 = ctx.tp_index * H // (cfg.n_heads // cfg.n_kv_heads)
+            cols = slice(k0 * hd, (k0 + K) * hd)
+            wk = to_model(wk, ctx)[..., cols]
+            wv = to_model(wv, ctx)[..., cols]
+            if cfg.qkv_bias:
+                bk = to_model(bk, ctx)[..., cols]
+                bv = to_model(bv, ctx)[..., cols]
     q, k, v = xq @ p["wq"], xkv @ wk, xkv @ wv
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + bk, v + bv

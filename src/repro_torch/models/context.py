@@ -11,7 +11,11 @@ split over the plan's model axis (``tp`` ranks, this one at
 ``tp_index``), the experts too under expert parallelism. The layers read
 what they hold from their leaves' shapes, and sum a split product's
 partials with one all-reduce over ``tp_group`` (``models.layers``,
-``models.attention``, ``models.moe``)."""
+``models.attention``, ``models.moe``). Over a data axis the batch is
+split into ``dp`` shards (``dp_groups``, one group a data axis of more
+than one rank); ``global_aux`` (the train step sets it) takes the MoE
+load-balance loss over the global batch, where serving keeps each
+shard's own."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +34,7 @@ class Ctx:
     ep_shard_map: bool = False  # explicit expert parallelism over the mesh
     mesh: Optional[object] = None  # launch.mesh.Mesh: the split paths' groups
     deterministic: bool = True
+    global_aux: bool = False  # MoE aux over the data shards (training)
 
     def constrain(self, x, *axes):
         return x
@@ -55,3 +60,32 @@ class Ctx:
             raise ValueError("a leaf split over the model axis needs a "
                              "Ctx with the plan and the mesh")
         return self.mesh.group(self.plan.tp_axis)
+
+    @property
+    def dp(self) -> int:
+        """The data shards the batch is split over: 1 without a mesh or
+        where the plan keeps the batch whole."""
+        if self.mesh is None or self.plan is None or \
+                not self.plan.shard_batch:
+            return 1
+        return self.plan.dp_size
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's data shard (the data axes row-major, as a batch
+        spec over several of them splits)."""
+        i = 0
+        if self.dp > 1:
+            for a in self.plan.dp_axes:
+                i = i * self.plan.mesh_axes[a] + self.mesh.index(a)
+        return i
+
+    @property
+    def dp_groups(self) -> list:
+        """The process groups of this rank's lines along each data axis
+        of more than one rank: a sum over all of them in turn is the sum
+        over the data shards."""
+        if self.dp == 1:
+            return []
+        return [self.mesh.group(a) for a in self.plan.dp_axes
+                if self.plan.mesh_axes[a] > 1]

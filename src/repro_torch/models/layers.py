@@ -12,7 +12,15 @@ all-reduce over the model axis sums the ranks' rows: each sum has one
 non-zero addend, so it is exact), the FFN's ff columns of ``w_up`` and
 ``w_gate`` and rows of ``w_down`` (one all-reduce sums the partial
 products), and the head's vocab columns (the pad mask at the global
-column, then one all-gather along the vocab).
+column, then one all-gather along the vocab, or the rank's columns as
+they are for a loss over the split vocab).
+
+Gradients flow through the split as tensor parallelism pairs them, every
+rank computing the same loss: an input of a split product enters through
+:func:`to_model` (the identity; its gradient summed over the model axis)
+and the partials leave through :func:`model_sum` (the all-reduce; the
+gradient as it is). Every leaf held whole then gets the same complete
+gradient on every rank, and a split leaf its block's.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ from repro_torch.models.params import ParamDef
 __all__ = ["rmsnorm", "layernorm", "norm_def", "apply_norm", "rope",
            "ffn_defs", "ffn_apply", "ffn_partial", "embed_defs",
            "embed_lookup", "position_lookup", "logits", "held_split",
-           "model_sum"]
+           "model_sum", "to_model", "data_sum"]
 
 
 # ----------------------------------------------------------- model axis
@@ -48,8 +56,24 @@ def held_split(held: int, whole: int, ctx: Optional[Ctx]) -> bool:
 
 def model_sum(y: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """The ranks' partial products summed over the model axis: one
-    all-reduce."""
-    return coll.all_reduce(y.contiguous(), ctx.tp_group)
+    all-reduce; the gradient passes back as it is (the identity where the
+    model axis is one rank)."""
+    return y if ctx.tp == 1 else coll.sum_forward(y, ctx.tp_group)
+
+
+def to_model(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``x`` as it is, entering a split product; its gradient summed over
+    the model axis (each rank's covers only its slices)."""
+    return x if ctx.tp == 1 else coll.sum_backward(x, ctx.tp_group)
+
+
+def data_sum(t: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``t`` summed over the data shards; the gradient passes back as it
+    is, so each shard's part of a statistic of the global batch gets its
+    own share."""
+    for group in ctx.dp_groups:
+        t = coll.sum_forward(t, group)
+    return t
 
 
 # ------------------------------------------------------------------ norms
@@ -141,11 +165,11 @@ def ffn_partial(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
 def ffn_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor,
               ctx: Optional[Ctx] = None) -> torch.Tensor:
     """The FFN; with ff split over the model axis (column- then
-    row-parallel), the ranks' partials summed by one all-reduce."""
-    y = ffn_partial(cfg, p, x)
+    row-parallel), x entering through ``to_model`` and the ranks' partials
+    summed by one all-reduce."""
     if held_split(p["w_down"].shape[-2], cfg.d_ff, ctx):
-        y = model_sum(y, ctx)
-    return y
+        return model_sum(ffn_partial(cfg, p, to_model(x, ctx)), ctx)
+    return ffn_partial(cfg, p, x)
 
 
 # -------------------------------------------------------------- embedding
@@ -196,19 +220,25 @@ def position_lookup(table: torch.Tensor, index: torch.Tensor
 
 
 def logits(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-           ctx: Optional[Ctx] = None) -> torch.Tensor:
+           ctx: Optional[Ctx] = None, gather: bool = True) -> torch.Tensor:
     """Final projection to the padded vocab: the product in x's dtype, then
     f32, with the pad columns masked to -1e30. With the vocab split over
-    the model axis, each rank's columns (masked at their global index),
-    then one all-gather along the vocab: every rank holds the same
-    logits."""
+    the model axis, each rank's columns (masked at their global index,
+    x entering through ``to_model``), then one all-gather along the vocab:
+    every rank holds the same logits (no gradient flows back through the
+    gather: the train step's loss takes ``gather=False``, the rank's
+    columns alone)."""
     w = p["tokens"].T if cfg.tie_embeddings else p["head"]
+    split = held_split(w.shape[-1], cfg.padded_vocab, ctx)
+    if split:
+        x = to_model(x, ctx)
     out = (x @ w.to(x.dtype)).float()
     V = out.shape[-1]
-    split = held_split(V, cfg.padded_vocab, ctx)
     if cfg.padded_vocab != cfg.vocab_size:
         start = ctx.tp_index * V if split else 0
         mask = torch.zeros(V, dtype=torch.float32, device=out.device)
         mask[max(0, cfg.vocab_size - start):] = -1e30
         out = out + mask
-    return coll.all_gather(out, ctx.tp_group, dim=-1) if split else out
+    if split and gather:
+        return coll.all_gather(out, ctx.tp_group, dim=-1)
+    return out

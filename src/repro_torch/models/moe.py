@@ -20,7 +20,21 @@ explicit expert-parallel path (the reference's
 model axis routes its tokens, keeps the slots of its own E/tp experts,
 builds their buffer through the same ``moe_gather``, runs them, adds the
 partial of the shared experts whose ff columns it holds, and one
-all-reduce over the model axis sums the ranks' partial outputs.
+all-reduce over the model axis sums the ranks' partial outputs. It
+trains too: x enters the gather (P3 forward, ``moe_gather_bwd``
+backward) and the routing weights enter the combine through
+``layers.to_model``, so the router's and x's gradients are complete on
+every rank.
+
+On a batch split over data shards (``Ctx.dp`` > 1) the capacity is that
+of the global token count, and :func:`moe_apply` ranks each expert's
+slots over the global batch: a shard's ranks start after the earlier
+shards' counts (one all-gather of E counts over the data axes a layer;
+``engine.shard_batch`` puts their rows first in every microbatch), so
+the kept slots are the single device's. Under ``Ctx.global_aux`` the
+load-balance loss is the global batch's: the expert counts and the sums
+of the probs summed over the shards (``layers.data_sum``, autograd
+through the probs), as the single device computes it.
 """
 from __future__ import annotations
 
@@ -30,10 +44,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kops
 from repro_torch.models.context import Ctx
-from repro_torch.models.layers import (_act, ffn_apply, ffn_defs,
-                                       ffn_partial, held_split, model_sum)
+from repro_torch.models.layers import (_act, data_sum, ffn_apply, ffn_defs,
+                                       ffn_partial, held_split, model_sum,
+                                       to_model)
 from repro_torch.models.params import ParamDef
 
 __all__ = ["moe_defs", "moe_apply", "expert_capacity"]
@@ -68,6 +84,31 @@ def moe_defs(cfg: ArchConfig, stacked: Optional[int] = None) -> Dict:
     return out
 
 
+def _aux_loss(cfg: ArchConfig, counts: torch.Tensor, probs: torch.Tensor,
+              ctx: Ctx) -> torch.Tensor:
+    """The Switch load-balance loss E * sum_e f_e * P_e from the expert
+    counts of the T * k slots and the (T, E) probs: this shard's, or under
+    ``ctx.global_aux`` the global batch's (counts and prob sums summed
+    over the data shards)."""
+    E = cfg.n_experts
+    T, k = probs.shape[0], cfg.top_k
+    if not (ctx.global_aux and ctx.dp > 1):
+        return E * torch.sum(counts / (T * k) * probs.mean(dim=0))
+    n = T * ctx.dp
+    counts = data_sum(counts, ctx)
+    return E * torch.sum(counts / (n * k) * (data_sum(probs.sum(0), ctx) / n))
+
+
+def _earlier_counts(counts: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """Each expert's slots on the data shards before this one: every
+    shard's (E,) counts all-gathered over the data axes, innermost first,
+    so the rows fall in ``ctx.dp_index`` order."""
+    every = counts[None]
+    for group in reversed(ctx.dp_groups):
+        every = coll.all_gather(every, group)
+    return every[:ctx.dp_index].sum(0)
+
+
 def _expert_ffn(cfg: ArchConfig, p: Dict, buf: torch.Tensor) -> torch.Tensor:
     """buf: (E, C, d) -> (E, C, d), batched over experts."""
     if cfg.activation in ("swiglu", "geglu"):
@@ -91,7 +132,7 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
-    C = expert_capacity(cfg, T)
+    C = expert_capacity(cfg, T * ctx.dp)
     xt = x.reshape(T, d)
     dev = x.device
 
@@ -112,11 +153,12 @@ def moe_apply(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     bounds = torch.searchsorted(se, torch.arange(E + 1, device=dev))
     starts = bounds[:-1]  # first slot per expert
     rank = torch.arange(T * k, device=dev) - starts[se]
+    if ctx.dp > 1:  # ranked over the global batch, as the single device
+        rank = rank + _earlier_counts(bounds[1:] - starts, ctx)[se]
     pos = torch.where(rank < C, se * C + rank, E * C)  # E*C = overflow bin
 
     # --- load-balance aux loss (Switch): E * sum_e f_e * P_e
-    counts = (bounds[1:] - starts).float()
-    aux = E * torch.sum(counts / (T * k) * probs.mean(dim=0))
+    aux = _aux_loss(cfg, (bounds[1:] - starts).float(), probs, ctx)
 
     # --- build per-expert buffers (the repartitioned pages). pos_tok: each
     # token's k slots in increasing order (its experts are sorted), dropped
@@ -167,25 +209,27 @@ def _moe_apply_ep(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     As in the reference: the capacity C is ``expert_capacity`` of the
     global token count (B * S times the data shards), while each shard
     routes only its own tokens, so under a tight capacity the drops are
-    not the single-device path's; the aux loss is this shard's own, not
-    reduced (the reference returns data shard 0's, its shard_map's
-    replicated output); ``quantize_dispatch`` is ignored; the shared
-    experts' partial rides the same all-reduce."""
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in p.values()
-            if isinstance(t, torch.Tensor))):
-        raise NotImplementedError(
-            "explicit expert parallelism serves only: its backward waits "
-            "for training over the mesh (ROADMAP.md, queue 1, item 11)")
+    not the single-device path's; the aux loss is this shard's own (the
+    reference returns data shard 0's, its shard_map's replicated output)
+    unless ``ctx.global_aux`` asks for the global batch's;
+    ``quantize_dispatch`` is ignored; the shared experts' partial rides
+    the same all-reduce.
+
+    For the gradient, x enters the gather and the split shared experts,
+    and the routing weights enter the combine, through ``to_model``: each
+    rank's slots and shared columns give a partial gradient, which the
+    backward sums over the model axis, so x's and the router's gradients
+    (combine and aux) are complete on every rank and the aux counts
+    once."""
     plan, mesh = ctx.plan, ctx.mesh
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     E_local = E // plan.tp_size
     my = mesh.index(plan.tp_axis)
-    shards = plan.dp_size if plan.shard_batch else 1
-    C = expert_capacity(cfg, B * shards * S)
+    C = expert_capacity(cfg, B * ctx.dp * S)
     T = B * S
     xt = x.reshape(T, d)
+    xm = to_model(xt, ctx)
     dev = x.device
 
     # --- routing (float32), this shard's tokens
@@ -197,7 +241,7 @@ def _moe_apply_ep(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
     weights = weights.gather(-1, perm)
     counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
         0, ids.reshape(-1), torch.ones(T * k, device=dev))
-    aux = E * torch.sum(counts / (T * k) * probs.mean(dim=0))
+    aux = _aux_loss(cfg, counts, probs, ctx)
 
     # --- shard-local build: keep only the slots routed to MY experts
     flat_e = ids.reshape(-1)
@@ -213,26 +257,26 @@ def _moe_apply_ep(cfg: ArchConfig, p: Dict, x: torch.Tensor, ctx: Ctx
                            device=dev)
     token_ids.scatter_(0, pos, st.to(torch.int32))
     token_ids = token_ids[:E_local * C]
-    buf = kops.moe_gather(xt, token_ids, token_ids >= 0).reshape(
-        E_local, C, d)
+    # each token's k slots here in increasing order, the others at
+    # E_local * C, past the buffer: the map the gather's backward reads
+    pos_tok = torch.empty_like(pos).scatter_(0, order, pos).reshape(T, k)
+    buf = kops.moe_gather(xm, token_ids, token_ids >= 0,
+                          slots=pos_tok).reshape(E_local, C, d)
     y_e = _expert_ffn(cfg, p, buf).reshape(E_local * C, d)
 
     # --- combine: each token's kept slots here, weighted, in increasing
     # expert order; then the ranks' partial sums, one all-reduce
-    pos_tok = torch.empty_like(pos).scatter_(0, order, pos).reshape(T, k)
-    w_tok = (weights * (pos_tok < E_local * C)).to(y_e.dtype)
+    w_tok = (to_model(weights, ctx) * (pos_tok < E_local * C)).to(y_e.dtype)
     contrib = (y_e[pos_tok.clamp(max=E_local * C - 1)] * w_tok[..., None]
                ).to(x.dtype)
     y = contrib[:, 0]
     for i in range(1, k):
         y = y + contrib[:, i]
-    shared = None
-    if cfg.n_shared_experts:
-        scfg = _shared_cfg(cfg)
-        shared = ffn_partial(scfg, p["shared"], xt)
-        if held_split(p["shared"]["w_down"].shape[-2], scfg.d_ff, ctx):
-            y, shared = y + shared, None
-    y = model_sum(y, ctx)
-    if shared is not None:
-        y = y + shared
+    if not cfg.n_shared_experts:
+        return model_sum(y, ctx).reshape(B, S, d), aux
+    scfg = _shared_cfg(cfg)
+    if held_split(p["shared"]["w_down"].shape[-2], scfg.d_ff, ctx):
+        y = model_sum(y + ffn_partial(scfg, p["shared"], xm), ctx)
+    else:  # whole on every rank: added after the sum, x's own gradient
+        y = model_sum(y, ctx) + ffn_partial(scfg, p["shared"], xt)
     return y.reshape(B, S, d), aux

@@ -34,9 +34,10 @@ is whole on every rank: each split product ends in one all-reduce over the
 model axis (the embedding, each layer's attention and feed-forward), and
 the logits in one all-gather along the vocab, so every rank holds the same
 logits. A rank's decode state holds the kv heads it computes
-(``attention.attn_heads``). The hybrid, ssm and audio families, the MoE
-"tp" strategy and leaves sharded over the data axis (FSDP) raise
-NotImplementedError on such a mesh (``check_split``).
+(``attention.attn_heads``). The hybrid, ssm and audio families and the
+MoE "tp" strategy raise NotImplementedError on such a mesh, and leaves
+sharded over a data axis (FSDP) on any mesh (``check_split``); on a mesh
+of data shards alone (tp 1) every family runs on its shard of the batch.
 """
 from __future__ import annotations
 
@@ -134,11 +135,17 @@ _SPLIT_ITEMS = {"hybrid": 14, "ssm": 15, "audio": 16}
 
 
 def check_split(cfg: ArchConfig, ctx: Ctx) -> None:
-    """Raise NotImplementedError for what a rank of a mesh with a model
-    axis of tp > 1 cannot run: the hybrid (Mamba's ``inner`` over the
-    model axis), ssm and audio families, the MoE "tp" strategy (experts
-    that do not divide the model axis), and leaves sharded over a data axis
-    of more than one rank (FSDP, which training over the mesh brings)."""
+    """Raise NotImplementedError for what a rank of a mesh cannot run:
+    leaves sharded over a data axis of more than one rank (FSDP, the rest
+    of training over the mesh), and on a model axis of tp > 1 the hybrid
+    (Mamba's ``inner`` over the model axis), ssm and audio families and
+    the MoE "tp" strategy (experts that do not divide the model axis)."""
+    if ctx.mesh is not None and ctx.plan is not None and ctx.plan.fsdp \
+            and ctx.plan.mesh_axes.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: FSDP shards the leaves over the data axis; it "
+            f"waits for the rest of training over the mesh (ROADMAP.md, "
+            f"queue 1, item 11)")
     if ctx.tp == 1:
         return
     if cfg.family in _SPLIT_ITEMS:
@@ -152,11 +159,6 @@ def check_split(cfg: ArchConfig, ctx: Ctx) -> None:
             f"axis ({ctx.tp}); tensor parallelism within the experts (the "
             f"\"tp\" MoE strategy) is not ported (ROADMAP.md, queue 1, item "
             f"17)")
-    if ctx.plan.fsdp and ctx.plan.mesh_axes.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: FSDP shards the leaves over the data axis; it "
-            f"comes with training over the mesh (ROADMAP.md, queue 1, item "
-            f"11)")
 
 
 def _xlstm_period(cfg: ArchConfig) -> int:
@@ -270,14 +272,17 @@ def _channel(cfg: ArchConfig, groups: Dict, layer: _HybridLayer,
 
 # ================================================================== forward
 def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
-            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            last_only: bool = False, gather_logits: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits_f32, aux_loss).
 
     ``batch`` holds ``tokens`` (B, S); a vlm config may add ``patches``
     (B, n_patches, d), which replace the first n_patches positions; an
     audio config needs ``frames`` (B, encoder_len, d).
     last_only=True (prefill): the LM head is applied to the final position
-    only, so no (B, S, V) logits buffer ever materializes."""
+    only, so no (B, S, V) logits buffer ever materializes. With the vocab
+    split over the model axis, ``gather_logits=False`` returns the rank's
+    columns (a loss over the split vocab) instead of all of them."""
     check_split(cfg, ctx)
     if cfg.family == "audio":
         return _whisper_forward(cfg, params, batch, ctx, last_only)
@@ -301,7 +306,7 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
     if last_only:
         x = x[:, -1:]
     x = apply_norm(cfg, params["final_norm"], x)
-    return logits(cfg, params["embed"], x, ctx), aux
+    return logits(cfg, params["embed"], x, ctx, gather_logits), aux
 
 
 def _uniform_stack(cfg, blocks, x, positions, ctx):

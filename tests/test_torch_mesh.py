@@ -337,8 +337,20 @@ def test_ep_capacity_bound_layer_matches_numpy(ep, cf):
         got = res["y"].numpy()
         assert np.abs(got - want[2 * di:2 * di + 2]).max() < 1e-5 * scale
         np.testing.assert_allclose(res["aux"], auxs[di], rtol=1e-5)
-        assert "training over the mesh" in res["grad"]
-        assert "item 11" in res["grad"]
+        # it trains: the gradients of <y, w> + aux (x, the router, the
+        # rank's experts) are finite and not zero
+        for key, g in res["grads"].items():
+            assert np.isfinite(g.numpy()).all() and g.abs().max() > 0, key
+    # x's and the router's gradients are complete on every rank: the two
+    # model ranks of a data shard hold the same bits
+    for key in ("x", "router"):
+        by_shard = {}
+        for r in ep["ranks"]:
+            res = r[f"layer_cf{cf}"]
+            by_shard.setdefault(res["coords"]["data"], []).append(
+                res["grads"][key])
+        for same in by_shard.values():
+            assert all(np.array_equal(same[0], t) for t in same[1:]), key
     # the trap the test pins: capacity comes from the global 64 tokens
     # while a shard routes 32, so the drops are not the single-device
     # path's (cf 1.0: that path drops and EP cannot; cf 0.5: both drop)
@@ -362,8 +374,9 @@ def test_init_shards_draws_the_single_process_weights(ep):
 def test_what_waits_for_later_items_refuses(torch, ep):
     """A rank's slices under ``param_specs`` (the dense layers split over
     the model axis, the experts too) load, and the ranks of ``ep`` ran one
-    forward on them; a train step over a mesh (item 11) raises, naming its
-    ROADMAP item."""
+    forward on them; a train step over the mesh builds on them (it trains
+    in tests/test_torch_mesh_train.py), and FSDP over a data axis, the
+    rest of item 11, raises, naming its ROADMAP item."""
     from repro_torch.configs import get_arch as tget
     from repro_torch.configs import get_shape
     from repro_torch.configs import reduced_config as treduced
@@ -388,5 +401,10 @@ def test_what_waits_for_later_items_refuses(torch, ep):
         res = r["qwen_1x4"]
         assert res["wq_shape"][-1] == q_dim // 4
         assert np.isfinite(res["logits"].numpy()).all()
+    assert callable(make_train_step(model, Ctx(plan=plan, mesh=grid)))
+    fsdp = dataclasses.replace(cfg, fsdp=True)
+    axes = {"data": 2, "model": 2}
     with pytest.raises(NotImplementedError, match="item 11"):
-        make_train_step(model, Ctx(plan=plan, mesh=grid))
+        make_train_step(build_model(fsdp), Ctx(
+            plan=make_plan(fsdp, axes, get_shape("prefill_32k")),
+            mesh=Grid(axes, data=0, model=0)))

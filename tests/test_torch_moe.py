@@ -145,15 +145,25 @@ def test_moe_apply_matches_reference(torch, arch, case):
         assert np.abs(kept.numpy() - got.numpy()).max() > 1e-2
 
 
-def test_moe_ep_shard_map_waits_for_the_parallelism_layer(torch, qwen):
+def test_moe_ep_shard_map_waits_for_the_parallelism_layer(torch, qwen,
+                                                          tmp_path):
     """``Ctx(ep_shard_map=True)`` without a mesh and an "ep" plan takes the
-    single-device path, as the reference's ``moe_apply`` does; with them,
-    the expert-parallel path serves only: a gradient waits for training
-    over the mesh (ROADMAP.md item 11). Its forward is held on four
-    ranks by tests/test_torch_mesh.py."""
+    single-device path, as the reference's ``moe_apply`` does; with them
+    the expert-parallel path trains: on a (data 1, model 2) mesh of two
+    rank processes (tests/torch_mesh_ranks.py, gloo) the gradients of
+    <y, w> + aux with respect to x and the router are the single device's
+    on both ranks, and those of each rank's experts and shared-expert
+    columns its slices of the single device's, within 1e-5 of each
+    gradient's largest value (the same routes: at one data shard the
+    capacity and the drops are the single device's). Its forward is held
+    on four ranks by tests/test_torch_mesh.py."""
+    from torch_mesh_ranks import Grid, run_ranks
+
+    from repro_torch import tree as tr
     from repro_torch.configs import get_shape
-    from repro_torch.core.planner import make_plan
-    from repro_torch.models import Ctx
+    from repro_torch.core.planner import P, make_plan
+    from repro_torch.distributed.elastic import local_slice
+    from repro_torch.models import Ctx, build_model
     from repro_torch.models import moe
     cfg = port_cfg(qwen)
     p, x = _to(torch.from_numpy, _moe_inputs(qwen)[0]), torch.from_numpy(
@@ -161,11 +171,33 @@ def test_moe_ep_shard_map_waits_for_the_parallelism_layer(torch, qwen):
     y, aux = moe.moe_apply(cfg, p, x, Ctx(ep_shard_map=True))
     want, want_aux = moe.moe_apply(cfg, p, x, Ctx())
     assert torch.equal(y, want) and torch.equal(aux, want_aux)
-    plan = make_plan(cfg, {"data": 1, "model": 4}, get_shape("train_4k"))
+    axes = {"data": 1, "model": 2}
+    plan = make_plan(cfg, axes, get_shape("train_4k"))
     assert plan.moe_strategy == "ep"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        moe.moe_apply(cfg, p, x.requires_grad_(True),
-                      Ctx(plan=plan, mesh=object(), ep_shard_map=True))
+    specs = tr.tree_map(lambda s: P(*s[1:]),  # one layer: no layers dim
+                        build_model(cfg).param_specs(plan)["blocks"]["moe"])
+    ranks = run_ranks(tmp_path, {"checks": ["ep"], "ep": [{
+        "name": "layer", "cfg": dataclasses.asdict(cfg), "mesh": (1, 2),
+        "shape": "train_4k", "layer": p, "layer_specs": specs,
+        "x": x.numpy()}]}, world=2)
+    wants = tr.tree_map(lambda t: t.clone().requires_grad_(True), p)
+    xs = x.clone().requires_grad_(True)
+    y, aux = moe.moe_apply(cfg, wants, xs, Ctx())
+    single = torch.autograd.grad((y * x).sum() + aux,
+                                 [xs, *tr.leaves(wants)])
+    paths = ["x"] + [".".join(path) for path, _ in
+                     tr.leaves_with_path(wants)]
+    flat_specs = dict(zip(paths, [P()] + tr.leaves(specs)))
+    for r in ranks:
+        res = r["ep"]["layer"]
+        grid = Grid(axes, **res["coords"])
+        assert sorted(res["grads"]) == sorted(paths)
+        for path, g in zip(paths, single):
+            want = local_slice(g, flat_specs[path], grid)
+            got = res["grads"][path]
+            assert got.shape == want.shape, path
+            assert float((got - want).abs().max()) <= \
+                1e-5 * float(g.abs().max()), path
 
 
 @pytest.mark.parametrize("use_flash", [False, True])

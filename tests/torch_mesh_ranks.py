@@ -1,11 +1,14 @@
-"""The rank side of the port's multi-rank tests (tests/test_torch_mesh.py
-and tests/test_torch_tensor_parallel.py on the CPU, the expert-parallel
-and tensor-parallel cases of tests/test_torch_cuda.py on a card).
+"""The rank side of the port's multi-rank tests (tests/test_torch_mesh.py,
+tests/test_torch_tensor_parallel.py, tests/test_torch_mesh_train.py and
+the expert-parallel gradient of tests/test_torch_moe.py on the CPU, the
+expert-parallel, tensor-parallel and mesh-training cases of
+tests/test_torch_cuda.py on a card).
 
     python tests/torch_mesh_ranks.py JOB RANK WORLD DEVICE
 
 JOB is a ``torch.save``d dict written by the test (``run_ranks``): the
-checks to run (``collectives``, ``ep``, ``tp``) and their inputs. Each rank joins a
+checks to run (``collectives``, ``ep``, ``tp``, ``train``) and their
+inputs. Each rank joins a
 gloo or NCCL group (``launch.mesh.init_ranks``, whose rule picks the
 transport) through a FileStore beside JOB, runs every check, and saves
 what it got to ``rank<RANK>.pt`` beside JOB, for the test to hold against
@@ -131,6 +134,7 @@ def check_collectives(job, dev, device):
 
 
 def check_ep(job, dev, device):
+    from repro_torch import tree as tr
     from repro_torch.configs import ArchConfig, get_shape
     from repro_torch.core.planner import P, make_plan
     from repro_torch.distributed.elastic import reshard_state
@@ -151,21 +155,25 @@ def check_ep(job, dev, device):
         dp, di = mesh.shape["data"], mesh.index("data")
         res = {"coords": mesh.coords}
         if "layer" in case:  # one MoE layer: the rank's experts, router whole
-            p = reshard_state(case["layer"], {
+            p = reshard_state(case["layer"], case.get("layer_specs") or {
                 k: P("model") if k.startswith("w_") else P()
                 for k in case["layer"]}, mesh)
             x = torch.from_numpy(case["x"])
             n = x.shape[0] // dp
+            xs = x[di * n:(di + 1) * n].to(dev)
             with torch.no_grad():
-                y, aux = moe_apply(cfg, p, x[di * n:(di + 1) * n].to(dev),
-                                   ctx)
+                y, aux = moe_apply(cfg, p, xs, ctx)
             res.update(y=y.cpu(), aux=float(aux))
-            wants = dict(p, router=p["router"].clone().requires_grad_(True))
-            try:
-                moe_apply(cfg, wants, x[:n].to(dev), ctx)
-                res["grad"] = "ran"
-            except NotImplementedError as e:
-                res["grad"] = str(e)
+            # the gradient of <y, w> + aux with respect to x and every leaf
+            wants = tr.tree_map(lambda t: t.clone().requires_grad_(True), p)
+            xs.requires_grad_(True)
+            y, aux = moe_apply(cfg, wants, xs, ctx)
+            w = torch.from_numpy(case["x"][di * n:(di + 1) * n]).to(dev)
+            got = torch.autograd.grad((y * w).sum() + aux,
+                                      [xs, *tr.leaves(wants)])
+            res["grads"] = {"x": got[0].cpu(), **{
+                ".".join(path): g.cpu() for (path, _), g in zip(
+                    tr.leaves_with_path(wants), got[1:])}}
         else:
             model = build_model(cfg)
             specs = flatten(model.param_specs(plan))
@@ -283,7 +291,82 @@ def check_tp(job, dev, device):
     return out
 
 
-CHECKS = {"collectives": check_collectives, "ep": check_ep, "tp": check_tp}
+def _cpu_tree(tree):
+    from repro_torch.models.params import flatten
+    return {k: t.detach().cpu().clone() for k, t in flatten(tree).items()}
+
+
+def check_train(job, dev, device):
+    """Training over the mesh: each case's rank loads its slices of the
+    whole state under ``param_specs``, takes its data shard of each global
+    batch (``shard_batch``) and runs ``make_train_step`` under
+    ``Ctx(plan=, mesh=)``; the first batch's gradient (``make_grad_fn``,
+    after the data axes' sum) and the final parameters come back as the
+    rank's slices. A case may save the state after ``save_at`` steps over
+    the mesh (``Checkpointer.save(specs=, mesh=)``), or restore one and
+    step on (``restore``)."""
+    from repro_torch import tree as tr
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ArchConfig, get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.engine import (CompressionConfig, TrainConfig,
+                                    init_error_state, make_grad_fn,
+                                    make_train_step, shard_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models.params import flatten
+    from repro_torch.optim import (AdamWConfig, init_opt_state,
+                                   opt_state_specs, warmup_cosine)
+    out = {}
+    for case in job["train"]:
+        cfg = ArchConfig(**case["cfg"])
+        mesh = make_mesh(case["mesh"], ("data", "model"), device)
+        plan = make_plan(cfg, mesh.shape, get_shape("train_4k"))
+        ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True)
+        model = build_model(cfg)
+        specs = model.param_specs(plan)
+        model.load_shards(reshard_state(case["state"], flatten(specs), mesh))
+        params = tr.tree_map(lambda p: p.detach().clone(), model.params())
+        scheme = case.get("scheme", "none")
+        tcfg = TrainConfig(microbatches=case.get("micro", 1),
+                           opt=AdamWConfig(),
+                           compression=CompressionConfig(scheme, 0.05))
+        step = make_train_step(model, ctx, tcfg, warmup_cosine(*job["lr"]))
+        opt = init_opt_state(params, tcfg.opt)
+        err = init_error_state(params) if scheme != "none" else None
+        state_specs = (specs, opt_state_specs(specs))
+        res = {"coords": mesh.coords, "specs": flatten(specs),
+               "losses": [], "norms": [], "plan": plan.moe_strategy}
+        if "restore" in case:
+            (params, opt), extra = Checkpointer(case["restore"]).restore(
+                (params, opt), specs=state_specs, mesh=mesh)
+            res["restored_step"] = int(opt.step)
+        batches = [{k: t.to(dev) for k, t in shard_batch(
+            {k: torch.from_numpy(v) for k, v in b.items()}, ctx,
+            tcfg.microbatches).items()} for b in case["batches"]]
+        if "restore" not in case:
+            _, met, g = make_grad_fn(model, ctx, tcfg)(params, batches[0])
+            res["grads"] = _cpu_tree(g)
+            res["metrics"] = {k: float(v) for k, v in met.items()}
+        ops.reset_launch_counts()
+        for i, local in enumerate(batches):
+            params, opt, err, met = step(params, opt, err, local)
+            res["losses"].append(float(met["total_loss"]))
+            res["norms"].append(float(met["grad_norm"]))
+            if case.get("save_at") == i + 1:
+                Checkpointer(case["save"]).save(
+                    i + 1, (params, opt), {"step": i + 1}, specs=state_specs,
+                    mesh=mesh)
+        res["launches"] = dict(ops.launch_counts())
+        res["params"] = _cpu_tree(params)
+        out[case["name"]] = res
+    return out
+
+
+CHECKS = {"collectives": check_collectives, "ep": check_ep, "tp": check_tp,
+          "train": check_train}
 
 
 def main(job_path: str, rank: int, world: int, device: str) -> None:
