@@ -109,11 +109,13 @@ final line:
 18a. training at full width: ``train_loop`` on qwen2-moe-a2.7b cut to 4
    of its 24 layers (~2.90 B parameters; float32 weights and AdamW
    moments, 16 bytes a parameter), B=4 x 1,025 tokens, 5 steps on one
-   repeated batch at lr 3e-5: per step its ms, tokens/s, loss and
-   gradient norm; the loss must fall and stay finite; moe_gather and its
-   backward once per layer a step, flash and paged attention never;
-   the peak memory (under 75 GiB); one more step alone, then under the
-   profiler: the device's busy share and its top kernels;
+   repeated batch at lr 3e-5, each layer rematerialized (the config's
+   remat "full"): per step its ms, tokens/s, loss and gradient norm; the
+   loss must fall and stay finite; moe_gather twice per layer a step
+   (the forward and remat's recompute) and its backward once, flash and
+   paged attention never; the peak memory (under 75 GiB); one more step
+   alone, then under the profiler: the device's busy share and its top
+   kernels; its step and peak beside the same run's without remat;
 18b. training at ``reduced_config`` on the card for qwen2-moe, jamba
    (ssm_scan and its backward) and xlstm-125m (no kernel), 8 steps each,
    against the same port run on the CPU from the same weights and
@@ -130,7 +132,7 @@ final line:
    layer and one for the embedding, the logits all-gathered), drawn in
    turns from the seed so that one whole leaf at a time is on the card. First the collective functions and the pipeline
    at 4 stages on the ranks, against the single-process answer; then (a)
-   float32 at every published width, 4 of 24 layers: prefill B=1,
+   float32 at every published width, 2 of 24 layers: prefill B=1,
    S=4096 under ``Ctx(use_flash=True)`` (flash and moe_gather once per
    layer on every rank), every position's log_softmax within 2e-3 of the
    single process's forward on rank 0, every rank's logits the same
@@ -151,7 +153,7 @@ final line:
    first, in this process, then four processes over the same (data 1,
    model 4) mesh, each holding its slices under ``param_specs`` (a
    quarter of the heads, ff and vocab, drawn in turns from the seed): (a)
-   gemma-7b float32 at every published width, 4 of 28 layers (16/16
+   gemma-7b float32 at every published width, 2 of 28 layers (16/16
    heads of 256, geglu, tied embeddings): prefill B=1, S=4096 under
    ``Ctx(use_flash=True)`` on the ranks (flash once per layer, at 4/4
    heads), every position's log_softmax within 2e-3 of the single
@@ -161,7 +163,7 @@ final line:
    step), each step within 2e-3 on log_softmax and the same argmax, and
    the smoke's 8 requests through ``serve_model`` over the paged pool,
    token for token the single process's engine; (b) nemotron-4-340b bf16
-   at every published width, 4 of 96 layers (43.3 GiB, 10.8 GiB a rank;
+   at every published width, 2 of 96 layers (30.4 GiB, 7.6 GiB a rank;
    96/8 heads of 192, 24/2 a rank; relu2): the single process's plain
    last logits, its flash prefill timed, its greedy paged decode and
    paged serving, then freed; on the ranks prefill B=1, S=4096, the
@@ -181,13 +183,15 @@ final line:
    its repeated B=4 x 1,025 batch, 5 steps, learning rate and seed, over
    (data 1, model 4) through ``train_loop(mesh=)``: each step's loss and
    gradient norm within 1e-3 relative of 18a's history, every whole leaf
-   the same bits on every rank after the last step, moe_gather and its
-   backward 4 a step on every rank and no attention kernel; per step its
+   the same bits on every rank after the last step, moe_gather 8 a step
+   (remat's recompute) and its backward 4 on every rank and no attention
+   kernel; per step its
    ms and tokens/s, then one more step with each collective timed alone
    (their share of the wall), one uninstrumented and one under the
    profiler (the ranks' kernels and, apart, their copies against the
    wall), peak memory a rank and in all; (b) gemma-7b float32 at every
-   published width, 1 of 28 layers (``fsdp=False``, its only edit), 3
+   published width, 1 of 28 layers (``fsdp=False``, its only edit: it
+   holds the split path without FSDP; 18f runs the published plan), 3
    steps of 4 x 256 tokens in one process, then 2 steps over (data 2,
    model 2) and a save of whole leaves (the files one process writes),
    and a restart over (data 1, model 4) from that checkpoint for the
@@ -196,6 +200,28 @@ final line:
    1) from the single process's weights, 2 steps within 1e-3 of it,
    ssm_scan and its backward (and moe_gather and its backward) on both
    ranks;
+18f. FSDP over the data axis at the published plans (``fsdp=True``,
+   ``remat="full"``; the leaves' ``embed`` / ``ff`` / ``inner`` /
+   ``vocab`` dim over ``data``, all-gathered where a layer takes them,
+   inside its remat region, the gradients reduce-scattered): the single
+   processes first, then four processes sharing the card: (b)
+   qwen2-moe-a2.7b float32 at every published width, 1 of 24 layers, 18a's
+   batch and learning rate, 2 steps over (data 4, model 1) (the plain MoE
+   path) against a single process at the same depth, within 1e-3, every
+   collective timed alone (the gathers', reduce-scatters' and
+   all-reduces' share of the wall), P3 4 and its backward 2 a rank, peak
+   memory a rank and in all; (a) gemma-7b float32 at its published
+   settings, 1 of 28 layers, 18e (b)'s batch: 2 steps over (data 2,
+   model 2) and a save (every leaf but the norms split over both axes),
+   a restart over (data 4, model 1) for the third under the supervisor,
+   every loss and gradient norm within 1e-3 of 18e (b)'s single process,
+   peak memory a rank beside 18e (b)'s; (d) gemma-7b bf16 at 2 of 28
+   layers at the serve plan over (data 2, model 2): each data rank 2 of
+   4 rows, a 1,024-token prefill through flash (2 a rank) and 4 paged
+   decode steps (P2 2 a step), each step's last logits within LOGITS_TOL
+   of the single process's; then (c) 18e (c)'s reduced jamba with
+   ``fsdp=True`` over (data 2, model 1), 2 steps within 1e-3 of 18e
+   (c)'s single process, P4 and its backward on both ranks;
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -252,7 +278,8 @@ Launch counts are set to 0 just before each main-path run of phases 3-23
 (prefill, paged decode, paged serving, the long-context step, serving,
 the training runs, each rank's EP prefill and serving, each rank's
 tensor-parallel prefill, decode and serving, each rank's training runs
-over the mesh, the timed Q1
+over the mesh and under FSDP, each FSDP rank's prefill and decode, the
+timed Q1
 runs, the workers', the entry points', the service's cold Q1, the
 tools') and read just after it. The last two lines are a JSON object
 with one entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
@@ -366,6 +393,9 @@ SCAN_TOL = 1e-5  # as tests/test_kernels.py holds the Pallas scan
 # 13.02, 12.93 on an H100 80GB HBM3 at 700 W; at TRAIN_LR the loss falls
 # every step after the first.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 1024, 5
+# this run without remat (an H100 80GB HBM3 at 700 W): one step and the
+# peak memory
+NO_REMAT_STEP_MS, NO_REMAT_PEAK_GIB = 646.6, 53.66
 TRAIN_LR = 3e-5
 TRAIN_PEAK_GIB = 75
 TRAIN_TOKENS = TRAIN_BATCH * (TRAIN_SEQ + 1)
@@ -383,28 +413,27 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 4, 6
 # ``Model.param_specs`` (a quarter of the heads, ff and vocab, and 15 of
 # the 60 experts), drawn in turns from SEED (``Model.init_shards``); (a)
 # float32 at every published width
-# and EP_F32_LAYERS of 24 layers (the training phase's cut, ~1.35 B
-# parameters a rank), held within EP_TOL of the single process's
+# and EP_F32_LAYERS of 24 layers (~0.44 B parameters a rank), held within EP_TOL of the single process's
 # log_softmax at every position, and token for token when serving; (b)
 # bf16 at all 24 layers (~4.97 B parameters a rank), timed against the
 # single-process bf16 forward of the same run, its last logits held at
 # LOGITS_TOL of the single process's.
 EP_MESH = (1, 4)
 EP_WORLD = 4
-EP_F32_LAYERS = 4
+EP_F32_LAYERS = 2
 EP_TOL = 2e-3  # tests/test_multidevice.py's bound on log_softmax
 EP_AUX_RTOL = 1e-4  # one aux of (a)'s prefill against the single process's
 EP_WALL_S = 600  # the four ranks' run, and each collective's timeout
 EP_SERVE = {"n_requests": 8, "max_new": 32, "batch_size": 4}
 # The tensor-parallel phase over the same mesh: (a) TP_F32_ARCH float32 at
-# TP_F32_LAYERS of its 28 layers (1.89 B parameters, 7.05 GiB); (b)
-# TP_BF16_ARCH bf16 at TP_BF16_LAYERS of its 96 layers (43.31 GiB, 10.83
-# GiB a rank; the largest whole leaf drawn, the stacked w_up, 10.13 GiB).
+# TP_F32_LAYERS of its 28 layers (1.34 B parameters, 4.99 GiB); (b)
+# TP_BF16_ARCH bf16 at TP_BF16_LAYERS of its 96 layers (30.45 GiB, 7.61
+# GiB a rank; the largest whole leaf drawn, the embedding, 8.79 GiB).
 # Paged decode of TP_DECODE_STEPS steps at TP_DECODE_BATCH rows, the first
 # TP_PROMPT tokens drawn from SEED and the rest the single process's
 # greedy choices; (b)'s prefill timed TP_TIMED times after a warm run.
-TP_F32_ARCH, TP_F32_LAYERS = "gemma_7b", 4
-TP_BF16_ARCH, TP_BF16_LAYERS = "nemotron4_340b", 4
+TP_F32_ARCH, TP_F32_LAYERS = "gemma_7b", 2
+TP_BF16_ARCH, TP_BF16_LAYERS = "nemotron4_340b", 2
 TP_DECODE_BATCH, TP_PROMPT, TP_DECODE_STEPS = 4, 4, 12
 TP_TIMED = 3
 # Training over the mesh (phase 18e), ranks sharing the card as in 18c
@@ -413,8 +442,9 @@ TP_TIMED = 3
 # repeated batch, steps, learning rate and seed) over the (data 1, model
 # 4) mesh, each step's loss and gradient norm held within TRAIN_LOSS_TOL
 # of phase 18a's; (b) MT_B_ARCH at every published width, MT_B_LAYERS of
-# 28 layers, float32, with ``fsdp=False`` (the config's only edit: FSDP
-# waits), MT_B_STEPS steps of MT_B_BATCH x (MT_B_SEQ + 1) tokens in one
+# 28 layers, float32, with ``fsdp=False`` (the config's only edit: it
+# holds the split path without FSDP, 18f runs the published plan),
+# MT_B_STEPS steps of MT_B_BATCH x (MT_B_SEQ + 1) tokens in one
 # process, then MT_B_SAVE steps and a save over (data 2, model 2) and a
 # restart from that checkpoint over (data 1, model 4) for the rest; (c)
 # reduced jamba over (data 2, model 1), MT_C_STEPS steps, the Mamba
@@ -424,6 +454,24 @@ MT_B_ARCH, MT_B_LAYERS = "gemma_7b", 1
 MT_B_BATCH, MT_B_SEQ, MT_B_STEPS, MT_B_SAVE = 4, 255, 3, 2
 MT_B_MESHES = ((2, 2), (1, 4))
 MT_C_ARCH, MT_C_MESH, MT_C_STEPS = "jamba15_large", (2, 1), 2
+# FSDP over the data axis (phase 18f), ranks sharing the card as in 18e,
+# every model at its published plan (``fsdp=True``, ``remat="full"``):
+# (a) MT_B_ARCH as 18e (b) runs it but for its config, MT_B_SAVE steps and
+# a save over FSDP_A_MESHES[0], a restart over FSDP_A_MESHES[1] for the
+# rest, against 18e (b)'s single process; (b) MOE_ARCH float32 at every
+# published width, FSDP_B_LAYERS of 24 layers, 18a's batch and learning
+# rate, FSDP_B_STEPS steps over FSDP_B_MESH (pure FSDP: the plain MoE
+# path) against a single process at the same depth, every collective
+# timed alone; (c) 18e (c)'s reduced jamba with ``fsdp=True`` over
+# MT_C_MESH; (d) serving MT_B_ARCH bf16 at FSDP_D_LAYERS of 28 layers
+# at the serve plan over FSDP_D_MESH: each data rank a row of a
+# FSDP_D_SEQ-token prefill through flash, then FSDP_D_STEPS paged decode
+# steps, each step's logits against the single process's.
+FSDP_A_MESHES = ((2, 2), (4, 1))
+# (b) at 1 layer: at 2 the phase took 256-271 s (an H100 80GB HBM3 at
+# 700 W), the embedding's and head's gathers more than the layers'
+FSDP_B_LAYERS, FSDP_B_STEPS, FSDP_B_MESH = 1, 2, (4, 1)
+FSDP_D_LAYERS, FSDP_D_MESH, FSDP_D_SEQ, FSDP_D_STEPS = 2, (2, 2), 1024, 4
 # moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
 # tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
 GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
@@ -2284,10 +2332,11 @@ def ep_bf16(torch, mesh, ref: dict) -> dict:
 
 
 def run_rank_processes(fn, where: str, ref: dict, label: str,
-                       world: int = EP_WORLD) -> list:
+                       world: int = EP_WORLD, loader=None) -> list:
     """``world`` spawned processes of ``fn(rank, world, where, ref)``,
     waited for at most EP_WALL_S (a rank that fails fails the phase);
-    returns each rank's saved results."""
+    returns each rank's saved results: ``rank<r>.json``, or with
+    ``loader`` (``torch.load``) ``rank<r>.pt``."""
     import torch.multiprocessing as mp
     procs = mp.start_processes(fn, args=(world, where, ref),
                                nprocs=world, join=False,
@@ -2299,6 +2348,9 @@ def run_rank_processes(fn, where: str, ref: dict, label: str,
                 p.kill()
             raise AssertionError(f"[{label}] the ranks did not finish in "
                                  f"{EP_WALL_S} s")
+    if loader is not None:
+        return [loader(os.path.join(where, f"rank{r}.pt"))
+                for r in range(world)]
     ranks = []
     for r in range(world):
         with open(os.path.join(where, f"rank{r}.json")) as f:
@@ -2924,6 +2976,33 @@ def mt_history(out: dict) -> dict:
             "seconds": [h["seconds"] for h in out["history"]]}
 
 
+def timed_collectives(torch, names):
+    """Wrap each of ``collectives``' functions ``names`` to time every
+    call alone (the card synchronised on either side; gloo's own copies
+    inside); returns (the seconds of each call by name, undo)."""
+    from repro_torch.distributed import collectives as coll
+    spent = {name: [] for name in names}
+    real = {name: getattr(coll, name) for name in names}
+
+    def timer(name):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t1)
+            return got
+        return timed
+
+    for name in names:
+        setattr(coll, name, timer(name))
+
+    def undo():
+        for name, fn in real.items():
+            setattr(coll, name, fn)
+    return spent, undo
+
+
 def mt_full_width(torch, mesh) -> dict:
     """(a) on this rank: ``train_loop`` over the mesh (the main path,
     launches counted from 0), then one more step of the same state with
@@ -2939,7 +3018,6 @@ def mt_full_width(torch, mesh) -> dict:
     from repro_torch import tree as tr
     from repro_torch.configs import ShapeConfig
     from repro_torch.core.planner import make_plan
-    from repro_torch.distributed import collectives as coll
     from repro_torch.engine import TrainConfig, make_train_step, shard_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train_loop
@@ -2981,31 +3059,16 @@ def mt_full_width(torch, mesh) -> dict:
         state[0], state[1], _, m = step(state[0], state[1], None, batch)
         return float(m["total_loss"])
 
-    names = ("all_reduce", "all_reduce_max", "all_gather")
-    spent = {name: [] for name in names}
-    real = {name: getattr(coll, name) for name in names}
-
-    def timer(name):
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            got = real[name](*args, **kw)
-            torch.cuda.synchronize()
-            spent[name].append(time.perf_counter() - t1)
-            return got
-        return timed
-
     dist.barrier()
-    for name in names:
-        setattr(coll, name, timer(name))
+    spent, undo = timed_collectives(
+        torch, ("all_reduce", "all_reduce_max", "all_gather"))
     try:
         t0 = time.perf_counter()
         one()
         torch.cuda.synchronize()
         res["timed_wall_s"] = time.perf_counter() - t0
     finally:
-        for name, fn in real.items():
-            setattr(coll, name, fn)
+        undo()
     res["collective_s"] = {k: sum(v) for k, v in spent.items()}
     res["collectives"] = {k: len(v) for k, v in spent.items()}
     dist.barrier()
@@ -3031,14 +3094,16 @@ def mt_full_width(torch, mesh) -> dict:
 
 
 def mt_gemma_config():
-    """MT_B_ARCH with ``fsdp=False``, the only edit."""
+    """MT_B_ARCH with ``fsdp=False``, the only edit: 18e (b) holds the
+    split path without FSDP; 18f (a) runs the published plan."""
     from repro_torch.configs import get_arch
     return dataclasses.replace(get_arch(MT_B_ARCH), fsdp=False)
 
 
-def mt_gemma(torch, mesh, steps: int, ckpt: str) -> dict:
-    """(b) on this rank: ``train_loop`` over ``mesh`` to step ``steps``
-    under the supervisor, saving to (or resuming from) ``ckpt``."""
+def mt_gemma(torch, mesh, steps: int, ckpt: str, cfg=None) -> dict:
+    """(b) on this rank: ``train_loop`` of ``cfg`` (default
+    ``mt_gemma_config()``) over ``mesh`` to step ``steps`` under the
+    supervisor, saving to (or resuming from) ``ckpt``."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import Checkpointer
@@ -3065,7 +3130,7 @@ def mt_gemma(torch, mesh, steps: int, ckpt: str) -> dict:
         setattr(Checkpointer, name, timer(name))
     t0 = time.perf_counter()
     try:
-        out = train_loop(mt_gemma_config(), reduced=False,
+        out = train_loop(cfg or mt_gemma_config(), reduced=False,
                          layers=MT_B_LAYERS, steps=steps, batch=MT_B_BATCH,
                          seq=MT_B_SEQ, lr=TRAIN_LR, seed=SEED, mesh=mesh,
                          ckpt_dir=ckpt, save_every=MT_B_SAVE,
@@ -3115,8 +3180,9 @@ def mt_rank(rank: int, world: int, where: str, ref: dict) -> None:
 
 
 def mt_jamba_rank(rank: int, world: int, where: str, ref: dict) -> None:
-    """One rank of (c), over (data 2, model 1): reduced jamba from the
-    single process's weights; its results to ``where``/rank<rank>.json."""
+    """One rank of 18e (c) (and 18f (c), ``ref["cfg"]`` with FSDP on),
+    over (data 2, model 1): reduced jamba from the single process's
+    weights; its results to ``where``/rank<rank>.json."""
     import torch
     import torch.distributed as dist
 
@@ -3337,8 +3403,365 @@ def phase_mesh_train(torch, smi: str, train: dict) -> dict:
         f"{TRAIN_STEPS} steps, (b)'s {MT_B_STEPS}, (c)'s {MT_C_STEPS} a "
         f"rank): {json.dumps(launches)}")
     return {"launches": launches, "step_ms": step_s * 1e3,
-            "tokens_per_s": tokens / step_s}
+            "tokens_per_s": tokens / step_s, "gemma": gemma,
+            "gemma_peak_gib": max(r["peak_gib"] for r in b1),
+            "jamba": jamba, "jamba_cfg": jcfg, "jamba_weights": weights}
 
+
+# ------------------------------------------------------------ phase 18f
+def fsdp_moe(torch, mesh) -> dict:
+    """(b) on this rank: ``train_loop`` of MOE_ARCH at FSDP_B_LAYERS over
+    ``mesh`` (the main path, launches counted from 0), every collective
+    timed alone in it: the seconds of the gathers (all-gather), the
+    reduce-scatters and the all-reduces over the run, beside its wall."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    names = ("all_gather", "reduce_scatter", "all_reduce", "all_reduce_max")
+    dist.barrier()
+    spent, undo = timed_collectives(torch, names)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_loop(MOE_ARCH, reduced=False, layers=FSDP_B_LAYERS,
+                         steps=FSDP_B_STEPS, batch=TRAIN_BATCH,
+                         seq=TRAIN_SEQ, records=TRAIN_BATCH, lr=TRAIN_LR,
+                         seed=SEED, mesh=mesh, log_every=FSDP_B_STEPS + 1)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    res = {"wall_s": wall, "launches": ops.launch_counts(),
+           **mt_history(out),
+           "collective_s": {k: sum(v) for k, v in spent.items()},
+           "collectives": {k: len(v) for k, v in spent.items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "held": sum(t.numel() for t in tr.leaves(out["params"]))}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fsdp_serve_model(torch, mesh):
+    """(d)'s model on this rank: its blocks of MT_B_ARCH bf16 at
+    FSDP_D_LAYERS under the serve plan's ``param_specs`` (FSDP on), drawn
+    in turns from SEED, and its context."""
+    from repro_torch.configs import get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.models import Ctx, build_model
+
+    model = build_model(MT_B_ARCH, FSDP_D_LAYERS)
+    plan = make_plan(model.cfg, mesh.shape, get_shape("prefill_32k"))
+    if not plan.fsdp:
+        raise AssertionError(f"{MT_B_ARCH}'s serve plan: {plan.decisions}")
+    model.init_shards(torch.Generator(DEVICE).manual_seed(SEED), plan, mesh,
+                      torch.bfloat16)
+    return model, Ctx(plan=plan, mesh=mesh, use_flash=True)
+
+
+def fsdp_serve(torch, model, ctx, rows, tokens, steps) -> dict:
+    """(d) on a model: the prefill of ``tokens``' ``rows`` through flash
+    (its last logits), then paged decode of ``steps``' rows, each step's
+    logits; the launches of each, counted from 0."""
+    from repro_torch.kernels import ops
+
+    B = rows.stop - rows.start
+    out = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model.forward({"tokens": tokens[rows]}, ctx,
+                               last_only=True)[0]
+    torch.cuda.synchronize()
+    out.update(prefill_s=time.perf_counter() - t0,
+               prefill=logits[:, 0].float().cpu(),
+               prefill_launches=ops.launch_counts())
+    state = model.init_decode_state(B, steps.shape[1] + 4, model.dtype,
+                                    kv_layout="paged", page_size=PAGE_SIZE)
+    ops.reset_launch_counts()
+    walls, decode = [], []
+    with torch.no_grad():
+        for t in range(steps.shape[1]):
+            t0 = time.perf_counter()
+            logits, state = model.decode_step(steps[rows, t:t + 1], state,
+                                              ctx)
+            decode.append(logits[:, 0].float().cpu())
+            walls.append(time.perf_counter() - t0)
+    out.update(decode=decode, decode_s=walls,
+               decode_launches=ops.launch_counts())
+    return out
+
+
+def fsdp_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of 18f's four, a process of its own: (b) over
+    FSDP_B_MESH, (a) over FSDP_A_MESHES (a save, then a restart), (d)
+    over FSDP_D_MESH; its results to ``where``/rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import flatten
+
+    mt_start_rank(torch, rank, world, where)
+    axes = ("data", "model")
+    out = {"b": fsdp_moe(torch, make_mesh(FSDP_B_MESH, axes, DEVICE))}
+    ckpt = os.path.join(where, "ckpt")
+    cfg = build_model(MT_B_ARCH).cfg  # the published config
+    out["a_save"] = mt_gemma(torch, make_mesh(FSDP_A_MESHES[0], axes,
+                                              DEVICE), MT_B_SAVE, ckpt, cfg)
+    out["a_restart"] = mt_gemma(torch, make_mesh(FSDP_A_MESHES[1], axes,
+                                                 DEVICE), MT_B_STEPS, ckpt,
+                                cfg)
+    mesh = make_mesh(FSDP_D_MESH, axes, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    model, ctx = fsdp_serve_model(torch, mesh)
+    n = ref["tokens"].shape[0] // FSDP_D_MESH[0]
+    rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
+    dist.barrier()
+    out["d"] = fsdp_serve(torch, model, ctx, rows,
+                          torch.from_numpy(ref["tokens"]).to(DEVICE),
+                          torch.from_numpy(ref["steps"]).to(DEVICE))
+    out["d"].update(rows=(rows.start, rows.stop), coords=mesh.coords,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    specs={k: tuple(v) for k, v in flatten(
+                        model.param_specs(ctx.plan)).items()})
+    del model
+    torch.save(out, os.path.join(where, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
+    """FSDP over the data axis at the published plans: the single
+    processes first, in this process ((a) and (c) reuse 18e's; (b) and
+    (d) run here and are freed), then four spawned processes for (a),
+    (b) and (d) (``fsdp_rank``) and two for (c) (``mt_jamba_rank`` with
+    FSDP on). Returns the ranks' main-path launches summed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+
+    label = "fsdp"
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe = train_loop(MOE_ARCH, reduced=False, layers=FSDP_B_LAYERS,
+                     steps=FSDP_B_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     records=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+                     device=DEVICE, log_every=FSDP_B_STEPS + 1)
+    moe = {**mt_history(moe),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d)'s single process: bf16 from SEED, the prefill's last logits
+    # through flash and each paged decode step's
+    model = build_model(MT_B_ARCH, FSDP_D_LAYERS).init_params(
+        torch.Generator(DEVICE).manual_seed(SEED), torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    rows = 2 * FSDP_D_MESH[0]
+    tokens = rng.integers(0, model.cfg.vocab_size, (rows, FSDP_D_SEQ))
+    steps = rng.integers(0, model.cfg.vocab_size, (rows, FSDP_D_STEPS))
+    from repro_torch.models import Ctx
+    serve = fsdp_serve(torch, model, Ctx(use_flash=True), slice(0, rows),
+                       torch.from_numpy(tokens).to(DEVICE),
+                       torch.from_numpy(steps).to(DEVICE))
+    d_params = model.param_count()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t0
+    jcfg = dataclasses.replace(mesh_train["jamba_cfg"], fsdp=True)
+    where = [tempfile.mkdtemp(prefix="fsdp_ranks_"),
+             tempfile.mkdtemp(prefix="fsdp_jamba_")]
+    try:
+        t0 = time.perf_counter()
+        ranks = run_rank_processes(fsdp_rank, where[0], {
+            "tokens": tokens, "steps": steps}, label, loader=torch.load)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jranks = run_rank_processes(mt_jamba_rank, where[1], {
+            "cfg": jcfg, "weights": mesh_train["jamba_weights"]}, label,
+            world=2)
+        jranks_s = time.perf_counter() - t0
+    finally:
+        for d in where:
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"[{label}] {EP_WORLD} ranks, one process each, sharing the card "
+        f"(gloo on CUDA tensors), every model at its published plan "
+        f"(fsdp=True, remat=\"full\"); the single processes ((b), (d)) "
+        f"{single_s:.1f} s, the ranks' run for (b), (a) and (d) "
+        f"{ranks_s:.1f} s, (c)'s two ranks {jranks_s:.1f} s; {smi}")
+
+    # (a) against 18e (b)'s single process
+    gemma = mesh_train["gemma"]
+    a1, a2 = [r["a_save"] for r in ranks], [r["a_restart"] for r in ranks]
+    got = [r1["loss"] + r2["loss"] for r1, r2 in zip(a1, a2)]
+    got_norm = [r1["grad_norm"] + r2["grad_norm"] for r1, r2 in zip(a1, a2)]
+    a_loss = max(mt_within(g, gemma["loss"]) for g in got)
+    a_norm = max(mt_within(g, gemma["grad_norm"]) for g in got_norm)
+    for r in a1 + a2:
+        if any(r["launches"].values()):
+            raise AssertionError(f"[{label} a] launches {r['launches']}")
+    if not (a_loss <= TRAIN_LOSS_TOL and a_norm <= TRAIN_LOSS_TOL
+            and all(r["restored_from"] == [MT_B_SAVE] for r in a2)
+            and all(len(g) == MT_B_STEPS for g in got)):
+        raise AssertionError(
+            f"[{label} a] losses {got} against 18e (b)'s single process's "
+            f"{gemma['loss']}; restored from "
+            f"{[r['restored_from'] for r in a2]}")
+    gtok = MT_B_BATCH * (MT_B_SEQ + 1)
+    log(f"[{label} a] {MT_B_ARCH} float32 at its published settings, "
+        f"{MT_B_LAYERS} of 28 layers, B={MT_B_BATCH} x {MT_B_SEQ + 1} "
+        f"tokens: over {a1[0]['mesh']} {MT_B_SAVE} steps "
+        f"({', '.join(f'{max(r['seconds'][i] for r in a1) * 1e3:.1f}' for i in range(MT_B_SAVE))} "
+        f"ms, {gtok / max(max(r['seconds']) for r in a1):.0f} tokens/s at "
+        f"the slower) and a save in {max(sum(r['save_s']) for r in a1):.1f} "
+        f"s; restarted over {a2[0]['mesh']} from step "
+        f"{a2[0]['restored_from']} (the restore "
+        f"{max(sum(r['restore_s']) for r in a2):.1f} s): "
+        f"{MT_B_STEPS - MT_B_SAVE} step "
+        f"({max(r['seconds'][-1] for r in a2) * 1e3:.1f} ms); losses "
+        f"{[round(x, 6) for x in got[0]]}, 18e (b)'s single process's "
+        f"within {a_loss:.3g}, gradient norms within {a_norm:.3g} (tol "
+        f"{TRAIN_LOSS_TOL}); peak memory a rank over the FSDP mesh "
+        f"{', '.join(f'{r['peak_gib']:.2f}' for r in a1)} GiB, after the "
+        f"restart {', '.join(f'{r['peak_gib']:.2f}' for r in a2)} GiB, "
+        f"beside 18e (b)'s {mesh_train['gemma_peak_gib']:.2f} GiB a rank "
+        f"without FSDP; {smi}")
+
+    # (b) against the single process at the same depth
+    b = [r["b"] for r in ranks]
+    cfg = build_model(MOE_ARCH, FSDP_B_LAYERS).cfg
+    b_loss = max(mt_within(r["loss"], moe["loss"]) for r in b)
+    b_norm = max(mt_within(r["grad_norm"], moe["grad_norm"]) for r in b)
+    b_want = train_launches(cfg, FSDP_B_STEPS)
+    for r in b:
+        full = {**{k: 0 for k in r["launches"]}, **b_want}
+        if r["launches"] != full:
+            raise AssertionError(f"[{label} b] launches {r['launches']}, "
+                                 f"want {full}")
+    if not (b_loss <= TRAIN_LOSS_TOL and b_norm <= TRAIN_LOSS_TOL
+            and all(np.isfinite(r["loss"]).all() for r in b)):
+        raise AssertionError(f"[{label} b] losses {[r['loss'] for r in b]} "
+                             f"against the single process's {moe['loss']}")
+    tokens_b = TRAIN_TOKENS
+    log(f"[{label} b] {cfg.name} float32 at every published width, "
+        f"{cfg.n_layers} of 24 layers, over (data {FSDP_B_MESH[0]}, model "
+        f"{FSDP_B_MESH[1]}): {b[0]['held'] / 1e9:.3f} B parameters a rank "
+        f"(FSDP's blocks); B={TRAIN_BATCH} x {TRAIN_SEQ + 1} tokens, "
+        f"{FSDP_B_STEPS} steps at lr {TRAIN_LR} (warmup-cosine's lr is 0 "
+        f"at step 0, so step 1 repeats step 0's loss): losses "
+        f"{[round(x, 6) for x in b[0]['loss']]}, the single process's "
+        f"{[round(x, 6) for x in moe['loss']]} within {b_loss:.3g} (norms "
+        f"{b_norm:.3g}; tol {TRAIN_LOSS_TOL}); launches a rank "
+        f"{json.dumps(b[0]['launches'])}; train_loop "
+        f"{max(r['wall_s'] for r in b):.1f} s; {smi}")
+    for i in range(FSDP_B_STEPS):
+        s = max(r["seconds"][i] for r in b)
+        log(f"[{label} b] step {i}: {s * 1e3:.1f} ms (ranks "
+            f"{', '.join(f'{r['seconds'][i] * 1e3:.1f}' for r in b)}), "
+            f"{tokens_b / s:.0f} tokens/s (the single process "
+            f"{moe['seconds'][i] * 1e3:.1f} ms); {smi}")
+    walls = [r["wall_s"] for r in b]
+    for name in ("all_gather", "reduce_scatter", "all_reduce",
+                 "all_reduce_max"):
+        log(f"[{label} b] {name}: {b[0]['collectives'][name]} calls a "
+            f"rank, {', '.join(f'{r['collective_s'][name]:.2f}' for r in b)}"
+            f" s of train_loop's "
+            f"{', '.join(f'{w:.1f}' for w in walls)} s "
+            f"({max(r['collective_s'][name] / r['wall_s'] for r in b):.1%} "
+            f"at most); {smi}")
+    log(f"[{label} b] the collectives together "
+        f"{max(sum(r['collective_s'].values()) / r['wall_s'] for r in b):.1%}"
+        f" of the wall at most; peak memory a rank "
+        f"{', '.join(f'{r['peak_gib']:.2f}' for r in b)} GiB, "
+        f"{sum(r['peak_gib'] for r in b):.2f} GiB in all (the single "
+        f"process's {moe['peak_gib']:.2f} GiB); {smi}")
+
+    # (c) against 18e (c)'s single process
+    jamba = mesh_train["jamba"]
+    c_loss = max(mt_within(r["loss"], jamba["loss"]) for r in jranks)
+    c_norm = max(mt_within(r["grad_norm"], jamba["grad_norm"])
+                 for r in jranks)
+    c_want = train_launches(jcfg, MT_C_STEPS)
+    for r in jranks:
+        full = {**{k: 0 for k in r["launches"]}, **c_want}
+        if r["launches"] != full:
+            raise AssertionError(f"[{label} c] launches {r['launches']}, "
+                                 f"want {full}")
+    if not (c_loss <= TRAIN_LOSS_TOL and c_norm <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"[{label} c] losses "
+                             f"{[r['loss'] for r in jranks]} against "
+                             f"{jamba['loss']}")
+    log(f"[{label} c] {MT_C_ARCH} reduced with fsdp=True over "
+        f"{jranks[0]['mesh']}: {MT_C_STEPS} steps, losses "
+        f"{[round(x, 6) for x in jranks[0]['loss']]}, the single process's "
+        f"within {c_loss:.3g} (norms {c_norm:.3g}; tol {TRAIN_LOSS_TOL}); "
+        f"launches on each rank {json.dumps(jranks[0]['launches'])}; {smi}")
+
+    # (d) against the single process
+    d = [r["d"] for r in ranks]
+    dcfg = build_model(MT_B_ARCH, FSDP_D_LAYERS).cfg
+    V = dcfg.vocab_size
+    errs = []
+    for r in d:
+        lo, hi = r["rows"]
+        if r["prefill_launches"] != expected_launches(dcfg):
+            raise AssertionError(f"[{label} d] prefill launches "
+                                 f"{r['prefill_launches']}")
+        if r["decode_launches"] != decode_launches(dcfg, FSDP_D_STEPS):
+            raise AssertionError(f"[{label} d] decode launches "
+                                 f"{r['decode_launches']}")
+        errs.append([rel_err(torch, r["prefill"][:, :V],
+                             serve["prefill"][lo:hi, :V])] + [
+            rel_err(torch, got[:, :V], want[lo:hi, :V])
+            for got, want in zip(r["decode"], serve["decode"])])
+    over = [r["specs"]["embed.tokens"] for r in d][0]
+    worst = max(max(e) for e in errs)
+    if not worst <= LOGITS_TOL or "data" not in over:
+        raise AssertionError(f"[{label} d] last logits off by {errs}; "
+                             f"embed.tokens {over}")
+    log(f"[{label} d] {MT_B_ARCH} bf16 at its serve plan (FSDP on: "
+        f"embed.tokens {over}), {FSDP_D_LAYERS} of 28 layers "
+        f"({d_params / 1e9:.3f} B parameters), over (data "
+        f"{FSDP_D_MESH[0]}, model {FSDP_D_MESH[1]}): each data rank "
+        f"{rows // FSDP_D_MESH[0]} of {rows} rows, a {FSDP_D_SEQ}-token "
+        f"prefill through flash in "
+        f"{max(r['prefill_s'] for r in d) * 1e3:.1f} ms at the slowest "
+        f"(the single process's {rows} rows "
+        f"{serve['prefill_s'] * 1e3:.1f} ms), then {FSDP_D_STEPS} paged "
+        f"decode steps of "
+        f"{', '.join(f'{max(r['decode_s'][i] for r in d) * 1e3:.1f}' for i in range(FSDP_D_STEPS))} "
+        f"ms (the single process "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in serve['decode_s'])} ms); "
+        f"the last logits of each within {worst:.3g} of the single "
+        f"process's (tol {LOGITS_TOL}); launches on each rank "
+        f"{json.dumps(d[0]['prefill_launches'])} and "
+        f"{json.dumps(d[0]['decode_launches'])}; peak memory a rank "
+        f"{', '.join(f'{r['peak_gib']:.2f}' for r in d)} GiB; {smi}")
+    runs = [r[k]["launches"] for r in ranks
+            for k in ("b", "a_save", "a_restart")] + [
+        r["d"][k] for r in ranks
+        for k in ("prefill_launches", "decode_launches")] + [
+        r["launches"] for r in jranks]
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    log(f"[{label}] launches over the ranks' main-path runs ((b)'s "
+        f"{FSDP_B_STEPS} steps, (a)'s {MT_B_STEPS}, (d)'s prefill and "
+        f"{FSDP_D_STEPS} decode steps, (c)'s {MT_C_STEPS} a rank): "
+        f"{json.dumps(launches)}")
+    return {"launches": launches,
+            "b_step_ms": max(max(r["seconds"]) for r in b) * 1e3}
 
 
 # ------------------------------------------------------------- phase 19
@@ -4235,11 +4658,14 @@ def train_launches(cfg, steps: int) -> dict:
     """Launches of each kernel in ``steps`` training steps: moe_gather and
     its backward per MoE layer, ssm_scan and its backward per Mamba layer,
     flash and paged attention none (training runs attention on the plain
-    path)."""
+    path). Under ``cfg.remat`` "full" or "dots" each layer's forward runs
+    again in the backward, its kernels too: two forward launches a layer
+    a step."""
     per = expected_launches(cfg)
-    return {"moe_gather": per["moe_gather"] * steps,
+    again = 2 if cfg.remat in ("full", "dots") else 1
+    return {"moe_gather": per["moe_gather"] * steps * again,
             "moe_gather_bwd": per["moe_gather"] * steps,
-            "ssm_scan": per["ssm_scan"] * steps,
+            "ssm_scan": per["ssm_scan"] * steps * again,
             "ssm_scan_bwd": per["ssm_scan"] * steps}
 
 
@@ -4341,6 +4767,11 @@ def phase_train(torch, smi: str) -> dict:
         f"{flops / step_s / 1e12:.1f} TFLOP/s, "
         f"{flops / step_s / PEAK_FLOPS['float32']:.1%} of the float32 peak "
         f"(TF32 off); {smi}")
+    log(f"[{label}] remat={cfg.remat!r} (the config's; each layer's forward "
+        f"runs again in the backward): {step_s * 1e3:.1f} ms a step and "
+        f"{peak:.2f} GiB peak, beside {NO_REMAT_STEP_MS} ms and "
+        f"{NO_REMAT_PEAK_GIB} GiB for this run without remat; "
+        f"{smi}")
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4494,10 +4925,19 @@ def main() -> int:
         f"single process's {train['step_ms']:.1f} ms/step; {smi}")
     log(f"[timing] training over the mesh: {time.perf_counter() - t0:.1f} s "
         f"(run so far {time.perf_counter() - start:.1f} s)")
+    t0 = time.perf_counter()
+    fsdp = phase_fsdp(torch, smi, train, mesh_train)
+    runs.append(fsdp["launches"])
+    log(f"[summary] {MOE_ARCH} training at full width, {FSDP_B_LAYERS} "
+        f"layers, FSDP over a (data {FSDP_B_MESH[0]}, model "
+        f"{FSDP_B_MESH[1]}) mesh of {EP_WORLD} processes on the card: "
+        f"{fsdp['b_step_ms']:.1f} ms at its slowest step; {smi}")
+    log(f"[timing] FSDP phase: {time.perf_counter() - t0:.1f} s (run so far "
+        f"{time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18, the training phases and "
-        f"the expert-parallel, tensor-parallel and mesh-training phases' "
-        f"ranks: {json.dumps(launches)}")
+        f"the expert-parallel, tensor-parallel, mesh-training and FSDP "
+        f"phases' ranks: {json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)
     q1 = phase_q1(torch, smi, rel)

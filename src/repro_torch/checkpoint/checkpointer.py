@@ -22,9 +22,11 @@ the port restores a checkpoint the reference wrote.
 * **Save over a mesh**: ``save(..., specs=, mesh=)`` writes the same
   mesh-independent files a single process writes, whole leaves under the
   same names: rank 0 alone writes, leaf by leaf, each split leaf's blocks
-  gathered to it through host memory along the one mesh axis that splits
-  it (host memory bounded by about twice the largest leaf), between two
-  barriers so that no rank reads or saves again before the publish.
+  gathered to it through host memory (along the line of the one mesh axis
+  that splits it; from every rank, each block put in place by that rank's
+  coordinates, for a leaf split over two axes under FSDP; host memory
+  bounded by about twice the largest leaf), between two barriers so that
+  no rank reads or saves again before the publish.
 """
 from __future__ import annotations
 
@@ -222,19 +224,35 @@ class Checkpointer:
 def _gather_leaf(leaf: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
     """The whole leaf on mesh rank 0 (on the host where it was split),
     None on the others: a leaf split along one mesh axis has its blocks
-    gathered along the line of that axis through rank 0; a leaf whole on
-    every rank is rank 0's own."""
+    gathered along the line of that axis through rank 0; a leaf split
+    over several (FSDP's data axis and the model axis) has every rank's
+    block gathered to rank 0, each put where ``local_index`` places that
+    rank's; a leaf whole on every rank is rank 0's own."""
+    import types
+
+    import torch.distributed as dist
+
     from repro_torch.distributed import collectives as coll
-    from repro_torch.distributed.elastic import split_axes
-    axes = split_axes(spec)
+    from repro_torch.distributed.elastic import local_index, split_axes
+    from repro_torch.launch.mesh import coords
+    axes = [a for _, names in split_axes(spec) for a in names]
     if not axes:
         return leaf if mesh.rank == 0 else None
-    if len(axes) > 1 or len(axes[0][1]) > 1:
-        raise NotImplementedError(
-            f"a leaf split over {axes}: saving leaves sharded over more "
-            f"than one mesh axis (FSDP) waits for the rest of training "
-            f"over the mesh (ROADMAP.md, queue 1, item 11)")
-    dim, (axis,) = axes[0]
+    if len(axes) > 1:
+        blocks = coll.gather_to_first(leaf, dist.group.WORLD)
+        if not blocks:
+            return None
+        shape = list(leaf.shape)
+        for dim, names in split_axes(spec):
+            for a in names:
+                shape[dim] *= mesh.shape[a]
+        whole = blocks[0].new_empty(shape)
+        for rank, block in enumerate(blocks):
+            at = types.SimpleNamespace(  # rank's place, as local_index reads
+                shape=mesh.shape, index=coords(rank, mesh.shape).__getitem__)
+            whole[local_index(shape, spec, at)] = block
+        return whole
+    (dim, (axis,)), = split_axes(spec)
     if any(mesh.index(a) for a in mesh.shape if a != axis):
         return None  # not on rank 0's line along the axis
     blocks = coll.gather_to_first(leaf, mesh.group(axis))

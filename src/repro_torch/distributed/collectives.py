@@ -14,13 +14,18 @@ other call hands its tensors over as they are, and gloo stages them
 itself. That is the transport of ranks sharing one card
 (``launch.mesh.backend_for``).
 
-Two of them are also autograd functions, the pair of tensor parallelism
-over a group whose ranks all compute the same loss: :func:`sum_forward`
-(an all-reduce forward, the gradient passed as it is) ends a split
-product, and :func:`sum_backward` (the identity forward, the gradient
-all-reduced) starts one. ``torch.distributed.nn.functional`` is not used:
-its all-gather sums the gradient over the ranks, which counts a loss that
-every rank computes the same way once a rank.
+Three of them are also autograd functions. Two are the pair of tensor
+parallelism over a group whose ranks all compute the same loss:
+:func:`sum_forward` (an all-reduce forward, the gradient passed as it is)
+ends a split product, and :func:`sum_backward` (the identity forward, the
+gradient all-reduced) starts one. The third is FSDP's over the data axis,
+whose ranks each compute their own shard's part of the loss:
+:func:`gather_data` all-gathers a leaf's blocks forward and
+reduce-scatters the float32 gradient back to the rank's block, which is
+then the sum of every shard's gradient of it.
+``torch.distributed.nn.functional`` is not used: its all-gather sums the
+gradient over the ranks, which counts a loss that every rank computes the
+same way once a rank.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 
 __all__ = ["all_reduce", "all_reduce_max", "reduce_scatter", "all_gather",
            "all_to_all", "broadcast", "gather_to_first", "ring_shift",
-           "sum_forward", "sum_backward"]
+           "sum_forward", "sum_backward", "gather_data"]
 
 
 def _dist():
@@ -162,3 +167,32 @@ def sum_backward(t: torch.Tensor, group) -> torch.Tensor:
     if torch.is_grad_enabled() and t.requires_grad:
         return _SumBackward.apply(t, group)
     return t
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, summed):
+        ctx.dim, ctx.group, ctx.summed = dim, group, summed
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.summed:  # every rank's gradient is the same: its block
+            n = g.shape[ctx.dim] // _dist().get_world_size(ctx.group)
+            return (g.narrow(ctx.dim, _dist().get_rank(ctx.group) * n, n),
+                    None, None, None)
+        block = reduce_scatter(g.float().movedim(ctx.dim, 0), ctx.group)
+        return block.movedim(0, ctx.dim), None, None, None
+
+
+def gather_data(t: torch.Tensor, dim: int, group,
+                summed: bool = True) -> torch.Tensor:
+    """The group's blocks of a leaf concatenated along ``dim`` (FSDP's
+    all-gather). Its gradient comes back as this rank's block: with
+    ``summed`` (the group's ranks hold different shards of the batch)
+    reduce-scattered in float32, the sum over the group (autograd casts
+    it to ``t``'s type); without, as it is (every rank computed the same
+    batch)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GatherData.apply(t, dim % t.dim(), group, summed)
+    return all_gather(t, group, dim)

@@ -19,7 +19,7 @@ import torch
 from repro_torch import tree as tr
 
 __all__ = ["rebalance_shards", "reshard_state", "local_slice",
-           "local_index", "split_axes"]
+           "local_index", "split_axes", "split_over"]
 
 
 def rebalance_shards(n_pages: int, old_workers: int, new_workers: int,
@@ -53,6 +53,14 @@ def split_axes(spec) -> List[tuple]:
     """[(dim, the mesh axes it is split over)] of a spec's split dims."""
     return [(dim, entry if isinstance(entry, tuple) else (entry,))
             for dim, entry in enumerate(spec) if entry is not None]
+
+
+def split_over(spec, mesh) -> tuple:
+    """The axes of ``mesh`` of more than one rank that split a leaf
+    under ``spec``, in the spec's order: those over which the ranks hold
+    different blocks of it."""
+    return tuple(a for _, axes in split_axes(spec) for a in axes
+                 if mesh.shape[a] > 1)
 
 
 def local_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:

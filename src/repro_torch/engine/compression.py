@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import tree as tr
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.elastic import split_over
 
 __all__ = ["CompressionConfig", "init_error_state", "compress_grads"]
 
@@ -34,13 +35,13 @@ def init_error_state(params) -> Any:
                                              device=p.device), params)
 
 
-def _int8_roundtrip(g: torch.Tensor, err: torch.Tensor, group=None
+def _int8_roundtrip(g: torch.Tensor, err: torch.Tensor, groups=()
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``group``: the model axis's, where ``g`` is this rank's block of a
-    leaf split over it."""
+    """``groups``: the process groups of the mesh axes that split the
+    leaf of which ``g`` is this rank's block (none for a whole leaf)."""
     gf = g.float() + err
     amax = gf.abs().max()
-    if group is not None:
+    for group in groups:
         amax = coll.all_reduce_max(amax.reshape(1), group)[0]
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
@@ -49,40 +50,44 @@ def _int8_roundtrip(g: torch.Tensor, err: torch.Tensor, group=None
 
 
 def _topk_roundtrip(g: torch.Tensor, err: torch.Tensor, frac: float,
-                    group=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``group`` as for :func:`_int8_roundtrip`."""
+                    groups=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``groups`` as for :func:`_int8_roundtrip`."""
     gf = g.float() + err
     flat = gf.reshape(-1)
     n = flat.shape[0]
-    if group is None:
-        k = max(1, int(n * frac))
-        thresh = torch.topk(flat.abs(), k).values[-1]
-    else:  # the whole leaf's k-th largest from each block's top k
-        k = max(1, int(n * torch.distributed.get_world_size(group) * frac))
-        top = torch.topk(flat.abs(), min(k, n)).values
-        thresh = torch.topk(coll.all_gather(top, group), k).values[-1]
+    for group in groups:
+        n *= torch.distributed.get_world_size(group)
+    k = max(1, int(n * frac))  # of the whole leaf
+    top = torch.topk(flat.abs(), min(k, flat.shape[0])).values
+    for group in groups:  # the k largest of the blocks' k largest, per axis
+        top = coll.all_gather(top, group)
+        top = torch.topk(top, min(k, top.shape[0])).values
+    thresh = top[-1]
     mask = (gf.abs() >= thresh).float()
     kept = gf * mask
     return kept.to(g.dtype), gf - kept
 
 
 @torch.no_grad()
-def compress_grads(grads, err_state, cfg: CompressionConfig, split=None,
-                   group=None) -> Tuple[Any, Any]:
+def compress_grads(grads, err_state, cfg: CompressionConfig, specs=None,
+                   mesh=None) -> Tuple[Any, Any]:
     """Returns (decompressed grads as seen post-reduce, new error state).
-    Over a mesh ``split`` is a tree of flags, True where a leaf is this
-    rank's block of one split over ``group`` (the model axis's)."""
+    Over a mesh each gradient is this rank's block of its leaf under
+    ``specs`` (``param_specs``: over the model axis, the data axis under
+    FSDP, or both), and int8's absmax and top-k's threshold are the whole
+    leaf's."""
     if cfg.scheme == "none":
         return grads, err_state
-    if split is None:
-        split = tr.tree_map(lambda g: False, grads)
+    if specs is None:
+        groups = tr.tree_map(lambda g: [], grads)
+    else:
+        groups = tr.tree_map(lambda g, spec: [
+            mesh.group(a) for a in split_over(spec, mesh)], grads, specs)
     if cfg.scheme == "int8":
-        out = tr.tree_map(lambda g, e, f: _int8_roundtrip(
-            g, e, group if f else None), grads, err_state, split)
+        out = tr.tree_map(_int8_roundtrip, grads, err_state, groups)
     elif cfg.scheme == "topk":
-        out = tr.tree_map(lambda g, e, f: _topk_roundtrip(
-            g, e, cfg.topk_frac, group if f else None), grads, err_state,
-            split)
+        out = tr.tree_map(lambda g, e, gs: _topk_roundtrip(
+            g, e, cfg.topk_frac, gs), grads, err_state, groups)
     else:
         raise ValueError(cfg.scheme)
     # out holds a (grad, residual) pair where grads holds a leaf

@@ -24,8 +24,15 @@ on the shard, then stage 2's shuffle: one all-reduce a leaf of its
 float32 gradient over the data axes. Leaves held whole on the model axis
 get the same complete gradient on every rank (``layers.to_model`` /
 ``model_sum``), so nothing is reduced over it; compression and AdamW run
-on the rank's slices with the whole leaf's semantics (``split``: the
-leaves split over the model axis).
+on the rank's blocks with the whole leaf's semantics (``param_specs``
+says which axes split each leaf).
+
+Under FSDP a leaf split over the data axis is all-gathered where the
+model reads it (``collectives.gather_data``), and the gather's backward
+reduce-scatters its float32 gradient over the data axis: each
+microbatch's gradient arrives as the rank's block, summed over the data
+shards, and the blocks are added in microbatch order. Stage 2 then sums
+such a leaf over the other data axes only (``pod``).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch import tree as tr
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.elastic import split_over
 from repro_torch.engine.compression import CompressionConfig, compress_grads
 from repro_torch.models import transformer as tf
 from repro_torch.models.context import Ctx
@@ -76,16 +84,10 @@ def shard_batch(batch: Dict, ctx: Ctx, microbatches: int = 1) -> Dict:
     return {key: rows(x) for key, x in batch.items()}
 
 
-def _split_leaves(model: Model, ctx: Ctx):
-    """A tree of the parameters' structure: True where this rank holds a
-    block of a leaf split over the model axis (``param_specs``); None
-    without one."""
-    if ctx.tp == 1:
-        return None
-    axis = ctx.plan.tp_axis
-    return tr.tree_map(lambda spec: any(
-        e == axis or (isinstance(e, tuple) and axis in e) for e in spec),
-        model.param_specs(ctx.plan))
+def _specs(model: Model, ctx: Ctx):
+    """The parameters' ``param_specs`` over a mesh (each leaf's blocks, by
+    axis), None without one."""
+    return None if ctx.mesh is None else model.param_specs(ctx.plan)
 
 
 def _split_vocab(lg: torch.Tensor, tg: torch.Tensor, ctx: Ctx
@@ -165,9 +167,10 @@ def make_grad_fn(model: Model, ctx: Ctx, tcfg: TrainConfig = TrainConfig()):
     microbatches' float32 gradients added in order and divided by their
     count, then over a mesh stage 2's shuffle, each leaf's gradient summed
     over the data axes by one all-reduce (the loss the global batch's
-    total)."""
+    total; under FSDP a leaf split over the data axis is summed over the
+    other data axes alone: its gather's backward reduce-scattered it)."""
     loss_fn = make_loss_fn(model, ctx, tcfg)
-    groups = ctx.dp_groups
+    specs = _specs(model, ctx)
 
     def grad_fn(params, batch: Dict):
         k = tcfg.microbatches
@@ -193,9 +196,14 @@ def make_grad_fn(model: Model, ctx: Ctx, tcfg: TrainConfig = TrainConfig()):
             loss = loss_sum / k
             metrics = {"loss": loss}
         # -------- stage 2: the shuffle, the data shards' gradients summed
-        for group in groups:
-            grads = tr.tree_map(lambda g: coll.all_reduce(
-                g if g.dtype == torch.float32 else g.float(), group), grads)
+        axes = ([a for a in ctx.plan.dp_axes if ctx.plan.mesh_axes[a] > 1]
+                if ctx.dp > 1 else [])
+        for axis in axes:
+            group = ctx.mesh.group(axis)
+            scattered = axis == "data" and ctx.fsdp > 1  # by the gathers
+            grads = tr.tree_map(lambda g, spec: g.float() if scattered and (
+                "data" in split_over(spec, ctx.mesh)) else coll.all_reduce(
+                g.float(), group), grads, specs)
         return loss, metrics, grads
 
     return grad_fn
@@ -206,26 +214,25 @@ def make_train_step(model: Model, ctx: Ctx,
                     lr_fn: Optional[Callable] = None):
     """Returns train_step(params, opt_state, err_state, batch) ->
     (params, opt_state, err_state, metrics). Over a mesh ``params``,
-    ``opt_state`` and ``err_state`` hold the rank's slices and ``batch``
-    its shard (:func:`shard_batch`); FSDP (leaves over a data axis)
-    raises NotImplementedError."""
+    ``opt_state`` and ``err_state`` hold the rank's blocks under
+    ``param_specs`` (FSDP's over the data axis too) and ``batch`` its
+    shard (:func:`shard_batch`)."""
     if ctx.mesh is not None:
         tf.check_split(model.cfg, ctx)
     grad_fn = make_grad_fn(model, ctx, tcfg)
-    split = _split_leaves(model, ctx)
+    specs = _specs(model, ctx)
     if lr_fn is None:
         lr_fn = constant(3e-4)
 
     def train_step(params, opt_state: OptState, err_state, batch: Dict):
-        group = None if split is None else ctx.tp_group
         loss, metrics, grads = grad_fn(params, batch)
         # -------- optional compression with error feedback (cross-pod)
         grads, err_state = compress_grads(grads, err_state,
-                                          tcfg.compression, split, group)
+                                          tcfg.compression, specs, ctx.mesh)
         # -------- stage 2: the optimizer update (final aggregation)
         lr = lr_fn(opt_state.step)
         params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, lr, tcfg.opt, split, group)
+            grads, opt_state, params, lr, tcfg.opt, specs, ctx.mesh)
         metrics = {**metrics, **opt_metrics, "total_loss": loss}
         return params, opt_state, err_state, metrics
 

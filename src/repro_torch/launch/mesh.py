@@ -43,7 +43,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 __all__ = ["Mesh", "backend_for", "rank_device", "init_ranks", "make_mesh",
-           "make_production_mesh", "mesh_axis_sizes"]
+           "make_production_mesh", "mesh_axis_sizes", "coords"]
 
 
 def backend_for(device, world_size: int) -> str:
@@ -103,7 +103,7 @@ class Mesh:
         self.device = device
         self.backend = backend
         self._groups = groups
-        self.coords = dict(zip(shape, _coords(rank, tuple(shape.values()))))
+        self.coords = coords(rank, shape)
 
     @property
     def size(self) -> int:
@@ -121,17 +121,18 @@ class Mesh:
                 f"{self.backend} on {self.device})")
 
 
-def _coords(rank: int, dims: Tuple[int, ...]) -> Tuple[int, ...]:
-    out = []
-    for n in reversed(dims):
-        out.append(rank % n)
-        rank //= n
-    return tuple(reversed(out))
+def coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate along each axis of a grid of ``shape``
+    (row-major: the last axis varies fastest)."""
+    out = {}
+    for axis, n in reversed(list(shape.items())):
+        out[axis], rank = rank % n, rank // n
+    return {axis: out[axis] for axis in shape}
 
 
-def _rank(coords: Sequence[int], dims: Sequence[int]) -> int:
+def _rank(at: Sequence[int], dims: Sequence[int]) -> int:
     r = 0
-    for c, n in zip(coords, dims):
+    for c, n in zip(at, dims):
         r = r * n + c
     return r
 

@@ -16,7 +16,10 @@ or takes them from ``weights``, draws the same global batch from the same
 loader and keeps its data shard (``engine.train_step.shard_batch``), and
 steps under ``Ctx(plan=, mesh=)``: the losses are the single process's.
 Checkpoints hold whole leaves, as one process writes them, and a job
-restarted on another mesh restores its slices from them.
+restarted on another mesh restores its slices from them. A config that
+sets ``fsdp`` (every published one but phi3-mini, whisper-small and
+xlstm-125m) trains at its FSDP plan, its leaves over the data axis too,
+and every layer is rematerialized as ``cfg.remat`` says.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_moe \\

@@ -15,11 +15,20 @@ partials with one all-reduce over ``tp_group`` (``models.layers``,
 split into ``dp`` shards (``dp_groups``, one group a data axis of more
 than one rank); ``global_aux`` (the train step sets it) takes the MoE
 load-balance loss over the global batch, where serving keeps each
-shard's own."""
+shard's own.
+
+Under FSDP (a plan with ``fsdp`` on a data axis of ``fsdp`` > 1 ranks) a
+rank also holds only its block of each leaf's dim that ``param_specs``
+places on ``data`` (``data_dims``); the model all-gathers a leaf over
+``data_group`` where a layer takes it, inside the layer's remat region,
+and the gather's backward reduce-scatters the leaf's gradient
+(``collectives.gather_data``), so a layer sees the leaf the model axis
+alone would split."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 from repro_torch.core.planner import ShardingPlan
 
@@ -89,3 +98,30 @@ class Ctx:
             return []
         return [self.mesh.group(a) for a in self.plan.dp_axes
                 if self.plan.mesh_axes[a] > 1]
+
+    @property
+    def fsdp(self) -> int:
+        """The ranks of the data axis that split this rank's leaves
+        (FSDP): 1 without a mesh, without ``plan.fsdp`` or without a data
+        axis of more than one rank."""
+        if self.mesh is None or self.plan is None or not self.plan.fsdp:
+            return 1
+        return self.plan.mesh_axes.get("data", 1)
+
+    @property
+    def data_group(self):
+        """The process group of this rank's line along the data axis."""
+        return self.mesh.group("data")
+
+    @functools.cached_property
+    def data_dims(self) -> Dict:
+        """A tree of the parameters' structure (``plan.arch``'s): the dim
+        of each leaf that ``param_specs(plan)`` places on the data axis,
+        None where the leaf is whole over it."""
+        from repro_torch import tree as tr
+        from repro_torch.models import params as pp
+        from repro_torch.models.transformer import model_defs
+        return tr.tree_map(lambda spec: next(
+            (i for i, e in enumerate(spec) if e == "data"
+             or (isinstance(e, tuple) and "data" in e)), None),
+            pp.specs(model_defs(self.plan.arch), self.plan))

@@ -17,10 +17,13 @@ The sharding side is the reference's: ``param_specs(plan)`` and
 A rank of a mesh holds exactly its slice of every leaf under
 ``param_specs(plan)`` (``distributed.elastic.local_slice``): heads, ff and
 vocab split over the model axis, the experts too under expert
-parallelism, norms and positions whole. ``init_shards`` draws those slices
-and ``load_shards`` puts them in place of the parameters; ``forward`` and
-``decode_step`` under ``Ctx(plan=, mesh=)`` compute with them
-(``transformer``).
+parallelism, norms whole; under FSDP (``plan.fsdp`` on a data axis of
+more than one rank) a dim of the larger leaves (``embed``, ``ff``,
+``inner`` or ``vocab``) split over the data axis too, a leaf then a block
+over two axes. ``init_shards`` draws those blocks and ``load_shards``
+puts them in place of the parameters; ``forward`` and ``decode_step``
+under ``Ctx(plan=, mesh=)`` compute with them (``transformer``, which
+all-gathers the data axis's blocks where it reads a leaf).
 """
 from __future__ import annotations
 

@@ -35,17 +35,37 @@ model axis (the embedding, each layer's attention and feed-forward), and
 the logits in one all-gather along the vocab, so every rank holds the same
 logits. A rank's decode state holds the kv heads it computes
 (``attention.attn_heads``). The hybrid, ssm and audio families and the
-MoE "tp" strategy raise NotImplementedError on such a mesh, and leaves
-sharded over a data axis (FSDP) on any mesh (``check_split``); on a mesh
-of data shards alone (tp 1) every family runs on its shard of the batch.
+MoE "tp" strategy raise NotImplementedError on such a mesh
+(``check_split``); on a mesh of data shards alone (tp 1) every family runs
+on its shard of the batch.
+
+Under FSDP (``Ctx.fsdp`` > 1: the plan places a dim of the larger leaves
+on the data axis too) a rank holds only its block of that dim. Each leaf is
+all-gathered over the data axis where the model reads it
+(``collectives.gather_data``): a layer's leaves where the layer takes
+them (``_take``), the embedding's, the head's, the positions' and the
+final norm's where ``forward``, the encoder and ``decode_step`` read
+them (a table tied to the head once a forward, for both reads). The
+gathered leaf is the one the model axis alone splits, so the
+layers run as above; the gather's backward reduce-scatters the leaf's
+gradient.
+
+Training rematerializes each layer as the reference's ``_maybe_remat``
+does (``cfg.remat``, :func:`_remat`): under "full" a layer body keeps
+only its inputs for the backward and runs again there, its gathers too,
+so that nothing gathered outlives its layer; "dots" keeps the outputs of
+the products without batch dims as well. Without grad (serving) the
+layers run as they are.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import (attn_defs, attn_output,
                                           attn_project_qkv, attention_block,
@@ -135,17 +155,10 @@ _SPLIT_ITEMS = {"hybrid": 14, "ssm": 15, "audio": 16}
 
 
 def check_split(cfg: ArchConfig, ctx: Ctx) -> None:
-    """Raise NotImplementedError for what a rank of a mesh cannot run:
-    leaves sharded over a data axis of more than one rank (FSDP, the rest
-    of training over the mesh), and on a model axis of tp > 1 the hybrid
-    (Mamba's ``inner`` over the model axis), ssm and audio families and
-    the MoE "tp" strategy (experts that do not divide the model axis)."""
-    if ctx.mesh is not None and ctx.plan is not None and ctx.plan.fsdp \
-            and ctx.plan.mesh_axes.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: FSDP shards the leaves over the data axis; it "
-            f"waits for the rest of training over the mesh (ROADMAP.md, "
-            f"queue 1, item 11)")
+    """Raise NotImplementedError for what a rank of a mesh cannot run: on
+    a model axis of tp > 1 the hybrid (Mamba's ``inner`` over the model
+    axis), ssm and audio families and the MoE "tp" strategy (experts that
+    do not divide the model axis)."""
     if ctx.tp == 1:
         return
     if cfg.family in _SPLIT_ITEMS:
@@ -216,9 +229,79 @@ def model_defs(cfg: ArchConfig) -> Dict:
     return defs
 
 
-def _take(tree: Dict[str, Any], idx: int) -> Dict[str, Any]:
-    return {k: (_take(v, idx) if isinstance(v, dict) else v[idx])
-            for k, v in tree.items()}
+def _dims(ctx: Optional[Ctx], *path: str) -> Optional[Dict]:
+    """The data-split dims (``Ctx.data_dims``) of the parameters' subtree
+    at ``path`` under FSDP; None without FSDP."""
+    if ctx is None or ctx.fsdp == 1:
+        return None
+    dims = ctx.data_dims
+    for key in path:
+        dims = dims[key]
+    return dims
+
+
+def _take(tree: Dict[str, Any], idx: Optional[int],
+          dims: Optional[Dict] = None, ctx: Optional[Ctx] = None
+          ) -> Dict[str, Any]:
+    """Layer ``idx``'s views of a layer-stacked subtree (``idx`` None: a
+    subtree not stacked, as it is). With ``dims`` (:func:`_dims`) each
+    leaf split over the data axis is all-gathered along its dim (FSDP)."""
+    out = {}
+    for k, v in tree.items():
+        d = None if dims is None else dims[k]
+        if isinstance(v, dict):
+            out[k] = _take(v, idx, d, ctx)
+            continue
+        if idx is not None:
+            v, d = v[idx], None if d is None else d - 1
+        out[k] = v if d is None else coll.gather_data(
+            v, d, ctx.data_group, summed=ctx.dp > 1)
+    return out
+
+
+def _part(params: Dict, ctx: Ctx, key: str, *names: str) -> Dict:
+    """The leaves ``names`` of the parameters' (unstacked) subtree
+    ``key``, each gathered whole over the data axis under FSDP: the
+    embedding's where a function reads them, never all at once."""
+    dims = _dims(ctx, key)
+    return _take({n: params[key][n] for n in names}, None,
+                 None if dims is None else {n: dims[n] for n in names}, ctx)
+
+
+def _tied(cfg: ArchConfig, table: Dict) -> Optional[Dict]:
+    """The table as the lookup read it (under FSDP gathered once a
+    forward) where the head is tied to it; else None, so that a gathered
+    table is freed after the lookup."""
+    return table if cfg.tie_embeddings else None
+
+
+def _head(params: Dict, ctx: Ctx, tied: Optional[Dict]) -> Dict:
+    """What ``layers.logits`` reads of the embedding: the tied table, or
+    the head."""
+    return tied if tied is not None else _part(params, ctx, "embed", "head")
+
+
+# the products without batch dims, whose outputs "dots" keeps (the
+# reference's checkpoint_dots_with_no_batch_dims)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn``, a layer body, under ``cfg.remat`` where autograd records
+    (the reference's ``_maybe_remat``): "full" keeps only its inputs for
+    the backward and runs it again there; "dots" also keeps the outputs
+    of ``aten.mm`` / ``aten.addmm``; anything else, or no grad, runs it as
+    it is. The model draws no random numbers, so no RNG state is kept."""
+    if cfg.remat not in ("full", "dots") or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
 
 
 def _mixer(cfg: ArchConfig, layer_p: Dict, z: torch.Tensor, ctx: Ctx
@@ -264,10 +347,12 @@ def _channel(cfg: ArchConfig, groups: Dict, layer: _HybridLayer,
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A hybrid layer's channel mixer on the residual h: (output, aux loss
     or None)."""
-    i = layer.channel_idx
-    z = apply_norm(cfg, _take(groups[layer.channel + "_ln"], i), h)
-    return _mixer(cfg, {layer.channel: _take(groups[layer.channel], i)}, z,
-                  ctx)
+    i, kind = layer.channel_idx, layer.channel
+    dims = _dims(ctx, "groups") or {}
+    z = apply_norm(cfg, _take(groups[kind + "_ln"], i,
+                              dims.get(kind + "_ln"), ctx), h)
+    return _mixer(cfg, {kind: _take(groups[kind], i, dims.get(kind), ctx)},
+                  z, ctx)
 
 
 # ================================================================== forward
@@ -288,13 +373,16 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
         return _whisper_forward(cfg, params, batch, ctx, last_only)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_lookup(cfg, params["embed"], tokens, ctx)
+    table = _part(params, ctx, "embed", "tokens")
+    x = embed_lookup(cfg, table, tokens, ctx)
+    table = _tied(cfg, table)
     if cfg.family == "vlm" and "patches" in batch:
         P = cfg.n_patches
-        patches = batch["patches"] + params["embed"]["patch_pos"]
+        patches = batch["patches"] + _part(params, ctx, "embed",
+                                           "patch_pos")["patch_pos"]
         x = torch.cat([patches.to(x.dtype), x[:, P:]], dim=1)
     if cfg.pos_embedding == "learned":
-        x = x + params["embed"]["positions"][:S]
+        x = x + _part(params, ctx, "embed", "positions")["positions"][:S]
     x = ctx.constrain(x, "batch", None, None)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     if cfg.family == "hybrid":
@@ -305,16 +393,18 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, ctx: Ctx,
         x, aux = _uniform_stack(cfg, params["blocks"], x, positions, ctx)
     if last_only:
         x = x[:, -1:]
-    x = apply_norm(cfg, params["final_norm"], x)
-    return logits(cfg, params["embed"], x, ctx, gather_logits), aux
+    x = apply_norm(cfg, _take(params["final_norm"], None,
+                              _dims(ctx, "final_norm"), ctx), x)
+    return logits(cfg, _head(params, ctx, table), x, ctx, gather_logits), aux
 
 
 def _uniform_stack(cfg, blocks, x, positions, ctx):
     """Returns (x, aux): aux is the MoE layers' load-balance loss summed
     over layers (zero for a dense stack)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        layer_p = _take(blocks, i)
+    dims = _dims(ctx, "blocks")
+
+    def layer(i, x):
+        layer_p = _take(blocks, i, dims, ctx)
         h = ctx.constrain(x, "batch", None, None)
         a = attention_block(cfg, layer_p["attn"],
                             apply_norm(cfg, layer_p["ln1"], h), positions,
@@ -322,31 +412,42 @@ def _uniform_stack(cfg, blocks, x, positions, ctx):
         h = h + a
         m, layer_aux = _mixer(cfg, layer_p, apply_norm(cfg, layer_p["ln2"], h),
                               ctx)
+        return h + m, layer_aux
+
+    body = _remat(cfg, layer)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, layer_aux = body(i, x)
         if layer_aux is not None:
             aux = aux + layer_aux
-        x = h + m
     return x, aux
 
 
 def _jamba_stack(cfg, groups, x, positions, ctx):
     """Returns (x, aux): aux is the MoE layers' load-balance loss summed
     over layers."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in _hybrid_layers(cfg):
+    dims = _dims(ctx, "groups") or {}
+
+    def body(layer, x):
         h = ctx.constrain(x, "batch", None, None)
-        i = layer.mixer_idx
-        if layer.mixer == "attn":
-            z = apply_norm(cfg, _take(groups["attn_ln"], i), h)
-            h = h + attention_block(cfg, _take(groups["attn"], i), z,
-                                    positions, causal=True,
+        i, kind = layer.mixer_idx, layer.mixer
+        z = apply_norm(cfg, _take(groups[kind + "_ln"], i,
+                                  dims.get(kind + "_ln"), ctx), h)
+        p = _take(groups[kind], i, dims.get(kind), ctx)
+        if kind == "attn":
+            h = h + attention_block(cfg, p, z, positions, causal=True,
                                     use_flash=ctx.use_flash)
         else:
-            z = apply_norm(cfg, _take(groups["mamba_ln"], i), h)
-            h = h + mamba_apply(cfg, _take(groups["mamba"], i), z, ctx)
+            h = h + mamba_apply(cfg, p, z, ctx)
         m, layer_aux = _channel(cfg, groups, layer, h, ctx)
+        return h + m, layer_aux
+
+    body = _remat(cfg, body)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in _hybrid_layers(cfg):
+        x, layer_aux = body(layer, x)
         if layer_aux is not None:
             aux = aux + layer_aux
-        x = h + m
     return x, aux
 
 
@@ -365,10 +466,18 @@ def _xlstm_layers(cfg: ArchConfig) -> List[Tuple[str, int]]:
 
 def _xlstm_stack(cfg, groups, x, ctx):
     """Returns (x, aux): no block has an aux loss (zero)."""
-    for kind, i in _xlstm_layers(cfg):
-        z = apply_norm(cfg, _take(groups[kind + "_ln"], i), x)
+    dims = _dims(ctx, "groups") or {}
+
+    def body(kind, i, x):
+        z = apply_norm(cfg, _take(groups[kind + "_ln"], i,
+                                  dims.get(kind + "_ln"), ctx), x)
         block = xl.mlstm_apply if kind == "mlstm" else xl.slstm_apply
-        x = x + block(cfg, _take(groups[kind], i), z, ctx)
+        return x + block(cfg, _take(groups[kind], i, dims.get(kind), ctx), z,
+                         ctx)
+
+    body = _remat(cfg, body)
+    for kind, i in _xlstm_layers(cfg):
+        x = body(kind, i, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -378,39 +487,56 @@ def encode_whisper(cfg: ArchConfig, params: Dict, frames: torch.Tensor,
     """frames: (B, encoder_len, d) stub embeddings -> the encoder output.
     Self-attention through the plain path (not causal), as the
     reference's encoder runs it whatever ``ctx.use_flash`` says."""
-    x = frames + params["embed"]["enc_positions"][:frames.shape[1]]
+    x = frames + _part(params, ctx, "embed", "enc_positions")[
+        "enc_positions"][:frames.shape[1]]
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for i in range(cfg.encoder_layers):
-        layer_p = _take(params["encoder"], i)
+    dims = _dims(ctx, "encoder")
+
+    def layer(i, x):
+        layer_p = _take(params["encoder"], i, dims, ctx)
         x = x + attention_block(cfg, layer_p["attn"],
                                 apply_norm(cfg, layer_p["ln1"], x), positions,
                                 causal=False, use_flash=False)
-        x = x + ffn_apply(cfg, layer_p["mlp"],
-                          apply_norm(cfg, layer_p["ln2"], x))
-    return apply_norm(cfg, params["enc_final_norm"], x)
+        return x + ffn_apply(cfg, layer_p["mlp"],
+                             apply_norm(cfg, layer_p["ln2"], x))
+
+    body = _remat(cfg, layer)
+    for i in range(cfg.encoder_layers):
+        x = body(i, x)
+    return apply_norm(cfg, _take(params["enc_final_norm"], None,
+                                 _dims(ctx, "enc_final_norm"), ctx), x)
 
 
 def _whisper_forward(cfg, params, batch, ctx, last_only: bool = False):
     enc = encode_whisper(cfg, params, batch["frames"], ctx)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = (embed_lookup(cfg, params["embed"], tokens)
-         + params["embed"]["positions"][:S])
+    table = _part(params, ctx, "embed", "tokens")
+    x = (embed_lookup(cfg, table, tokens)
+         + _part(params, ctx, "embed", "positions")["positions"][:S])
+    table = _tied(cfg, table)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    for i in range(cfg.n_layers):
-        layer_p = _take(params["decoder"], i)
+    dims = _dims(ctx, "decoder")
+
+    def layer(i, x, enc):
+        layer_p = _take(params["decoder"], i, dims, ctx)
         x = x + attention_block(cfg, layer_p["attn"],
                                 apply_norm(cfg, layer_p["ln1"], x), positions,
                                 causal=True, use_flash=ctx.use_flash)
         x = x + cross_attention_block(cfg, layer_p["xattn"],
                                       apply_norm(cfg, layer_p["lnx"], x), enc)
-        x = x + ffn_apply(cfg, layer_p["mlp"],
-                          apply_norm(cfg, layer_p["ln2"], x))
+        return x + ffn_apply(cfg, layer_p["mlp"],
+                             apply_norm(cfg, layer_p["ln2"], x))
+
+    body = _remat(cfg, layer)
+    for i in range(cfg.n_layers):
+        x = body(i, x, enc)
     if last_only:
         x = x[:, -1:]
-    x = apply_norm(cfg, params["final_norm"], x)
-    return (logits(cfg, params["embed"], x),
+    x = apply_norm(cfg, _take(params["final_norm"], None,
+                              _dims(ctx, "final_norm"), ctx), x)
+    return (logits(cfg, _head(params, ctx, table), x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -596,20 +722,23 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
     check_split(cfg, ctx)
     paged = (_paged_step(state) if isinstance(state, PagedDecodeState)
              else None)
-    x = embed_lookup(cfg, params["embed"], token, ctx)
+    table = _part(params, ctx, "embed", "tokens")
+    x = embed_lookup(cfg, table, token, ctx)
+    table = _tied(cfg, table)
     if cfg.pos_embedding == "learned":
-        x = x + position_lookup(params["embed"]["positions"],
-                                state.length)[:, None]
+        x = x + position_lookup(_part(params, ctx, "embed", "positions")[
+            "positions"], state.length)[:, None]
     x = ctx.constrain(x, "batch", None, None)
     if cfg.family == "hybrid":
         x = _hybrid_decode(cfg, params["groups"], x, state, ctx, paged)
     elif cfg.family == "ssm":
-        x = _xlstm_decode(cfg, params["groups"], x, state)
+        x = _xlstm_decode(cfg, params["groups"], x, state, ctx)
     elif cfg.family == "audio":
-        x = _whisper_decode(cfg, params["decoder"], x, state)
+        x = _whisper_decode(cfg, params["decoder"], x, state, ctx)
     else:
+        dims = _dims(ctx, "blocks")
         for i in range(cfg.n_layers):
-            layer_p = _take(params["blocks"], i)
+            layer_p = _take(params["blocks"], i, dims, ctx)
             z = apply_norm(cfg, layer_p["ln1"], x)
             h = x + _attn_decode(cfg, layer_p["attn"], z, state, i, paged,
                                  ctx)
@@ -623,16 +752,18 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
             kv=state.kv._replace(length=paged.lengths),
             tail=tail_pages(paged.tables, paged.lengths,
                             state.kv.k_pages.shape[2]))
-    x = apply_norm(cfg, params["final_norm"], x)
-    return logits(cfg, params["embed"], x, ctx), state
+    x = apply_norm(cfg, _take(params["final_norm"], None,
+                              _dims(ctx, "final_norm"), ctx), x)
+    return logits(cfg, _head(params, ctx, table), x, ctx), state
 
 
 def _whisper_decode(cfg: ArchConfig, decoder: Dict, x: torch.Tensor,
-                    state: DecodeState) -> torch.Tensor:
+                    state: DecodeState, ctx: Ctx) -> torch.Tensor:
     """The decoder stack for one token: self-attention over the dense
     cache (written in place), cross-attention onto ``state.enc_out``."""
+    dims = _dims(ctx, "decoder")
     for i in range(cfg.n_layers):
-        layer_p = _take(decoder, i)
+        layer_p = _take(decoder, i, dims, ctx)
         z = apply_norm(cfg, layer_p["ln1"], x)
         x = x + _attn_decode(cfg, layer_p["attn"], z, state, i)
         x = x + cross_attention_block(cfg, layer_p["xattn"],
@@ -644,19 +775,20 @@ def _whisper_decode(cfg: ArchConfig, decoder: Dict, x: torch.Tensor,
 
 
 def _xlstm_decode(cfg: ArchConfig, groups: Dict, x: torch.Tensor,
-                  state: DecodeState) -> torch.Tensor:
+                  state: DecodeState, ctx: Ctx) -> torch.Tensor:
     """The xLSTM stack for one token; writes each block's new state into
     ``state.mlstm`` / ``state.slstm`` in place."""
+    dims = _dims(ctx, "groups") or {}
     for kind, i in _xlstm_layers(cfg):
-        z = apply_norm(cfg, _take(groups[kind + "_ln"], i), x)
+        z = apply_norm(cfg, _take(groups[kind + "_ln"], i,
+                                  dims.get(kind + "_ln"), ctx), x)
+        p = _take(groups[kind], i, dims.get(kind), ctx)
         if kind == "mlstm":
             mine = xl.MLSTMState(*(t[i] for t in state.mlstm))
-            y, new = xl.mlstm_decode_step(cfg, _take(groups[kind], i), z,
-                                          mine)
+            y, new = xl.mlstm_decode_step(cfg, p, z, mine)
         else:
             mine = xl.SLSTMState(*(t[i] for t in state.slstm))
-            y, new = xl.slstm_decode_step(cfg, _take(groups[kind], i), z,
-                                          mine)
+            y, new = xl.slstm_decode_step(cfg, p, z, mine)
         for old, t in zip(mine, new):
             old.copy_(t)
         x = x + y
@@ -667,17 +799,17 @@ def _hybrid_decode(cfg: ArchConfig, groups: Dict, x: torch.Tensor, state,
                    ctx: Ctx, paged: Optional[_PagedStep]) -> torch.Tensor:
     """The hybrid stack for one token; writes each attention layer's k/v
     and each Mamba layer's new (h, conv window) into ``state`` in place."""
+    dims = _dims(ctx, "groups") or {}
     for layer in _hybrid_layers(cfg):
-        i = layer.mixer_idx
-        if layer.mixer == "attn":
-            z = apply_norm(cfg, _take(groups["attn_ln"], i), x)
-            h = x + _attn_decode(cfg, _take(groups["attn"], i), z, state,
-                                 i, paged)
+        i, kind = layer.mixer_idx, layer.mixer
+        z = apply_norm(cfg, _take(groups[kind + "_ln"], i,
+                                  dims.get(kind + "_ln"), ctx), x)
+        p = _take(groups[kind], i, dims.get(kind), ctx)
+        if kind == "attn":
+            h = x + _attn_decode(cfg, p, z, state, i, paged)
         else:
-            z = apply_norm(cfg, _take(groups["mamba_ln"], i), x)
             mine = MambaState(h=state.mamba.h[i], conv=state.mamba.conv[i])
-            y, new = mamba_decode_step(cfg, _take(groups["mamba"], i), z,
-                                       mine)
+            y, new = mamba_decode_step(cfg, p, z, mine)
             mine.h.copy_(new.h)
             mine.conv.copy_(new.conv)
             h = x + y

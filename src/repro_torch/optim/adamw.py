@@ -13,10 +13,10 @@ moments, in place, and returns them: the reference's train loop donates
 both to its jitted step, and at full width (tens of GB of parameters and
 moments) a second copy does not fit beside the first. The moments mirror
 the parameters' sharding (``opt_state_specs``); ``abstract_opt_state``
-gives them as meta tensors. Over a mesh each rank updates its own slices
-and their moments in place; the global norm sums the squares of the
-leaves split over the model axis over it and counts whole leaves once,
-so every rank gets the same bits for the norm and the clip scale.
+gives them as meta tensors. Over a mesh each rank updates its own blocks
+(over the model axis, the data axis under FSDP, or both) and their
+moments in place; the global norm counts each leaf once over the whole
+mesh, so every rank gets the same bits for the norm and the clip scale.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import torch
 from repro_torch import tree as tr
 from repro_torch.core.planner import P
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.elastic import split_over
 from repro_torch.models.params import torch_dtype
 
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update",
@@ -74,21 +75,21 @@ def opt_state_specs(param_specs) -> OptState:
     return OptState(m=param_specs, v=param_specs, step=P())
 
 
-def global_norm(tree, split=None, group=None) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum over the leaves, in leaf order, of each leaf's sum
-    of squares in float32. Over a mesh (``group`` the model axis's,
-    ``split`` a tree of flags, True where a leaf is this rank's block of
-    one split over it): each leaf's sum over the group, the whole leaves
-    counted from group rank 0 alone, in one all-reduce; the same bits on
-    every rank."""
+    of squares in float32. Over a mesh (each leaf of ``tree`` this rank's
+    block of one under ``specs``, the leaves' ``param_specs``): a rank
+    adds a leaf's sum only where its index is 0 on every axis that does
+    not split the leaf, so each block counts once, and one all-reduce
+    over every rank of the mesh gives the same bits on each."""
     sums = [torch.sum(torch.square(leaf.float())) for leaf in tr.leaves(tree)]
-    if group is not None:
+    if mesh is not None:
         sq = torch.stack(sums)
-        if torch.distributed.get_rank(group) != 0:
-            whole = torch.tensor([not f for f in tr.leaves(split)],
-                                 device=sq.device)
-            sq = sq.masked_fill(whole, 0.0)
-        sums = coll.all_reduce(sq, group).unbind()
+        skip = [any(mesh.index(a) for a in mesh.shape
+                    if a not in split_over(spec, mesh))
+                for spec in tr.leaves(specs)]
+        sq = sq.masked_fill(torch.tensor(skip, device=sq.device), 0.0)
+        sums = coll.all_reduce(sq, None).unbind()
     total = 0
     for s in sums:
         total = total + s
@@ -116,14 +117,14 @@ def _update_leaf(p, g, m, v, scale, lr, c1, c2, cfg: AdamWConfig) -> None:
 
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, lr: torch.Tensor,
-                 cfg: AdamWConfig, split=None, group=None
+                 cfg: AdamWConfig, specs=None, mesh=None
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: params and the moments updated in place and
     returned, the step count advanced; metrics hold the gradient's global
-    norm (before clipping; over a mesh ``split`` and ``group`` as
+    norm (before clipping; over a mesh ``specs`` and ``mesh`` as
     :func:`global_norm` takes them) and the learning rate."""
     step = state.step + 1
-    gnorm = global_norm(grads, split, group)
+    gnorm = global_norm(grads, specs, mesh)
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

@@ -375,8 +375,8 @@ def test_what_waits_for_later_items_refuses(torch, ep):
     """A rank's slices under ``param_specs`` (the dense layers split over
     the model axis, the experts too) load, and the ranks of ``ep`` ran one
     forward on them; a train step over the mesh builds on them (it trains
-    in tests/test_torch_mesh_train.py), and FSDP over a data axis, the
-    rest of item 11, raises, naming its ROADMAP item."""
+    in tests/test_torch_mesh_train.py), and so does one at a plan with
+    FSDP over a data axis (it trains in tests/test_torch_fsdp.py)."""
     from repro_torch.configs import get_arch as tget
     from repro_torch.configs import get_shape
     from repro_torch.configs import reduced_config as treduced
@@ -404,7 +404,7 @@ def test_what_waits_for_later_items_refuses(torch, ep):
     assert callable(make_train_step(model, Ctx(plan=plan, mesh=grid)))
     fsdp = dataclasses.replace(cfg, fsdp=True)
     axes = {"data": 2, "model": 2}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_train_step(build_model(fsdp), Ctx(
-            plan=make_plan(fsdp, axes, get_shape("prefill_32k")),
-            mesh=Grid(axes, data=0, model=0)))
+    plan = make_plan(fsdp, axes, get_shape("prefill_32k"))
+    assert plan.fsdp and "data" in plan.spec("embed", "ff")
+    assert callable(make_train_step(build_model(fsdp), Ctx(
+        plan=plan, mesh=Grid(axes, data=0, model=0))))

@@ -460,23 +460,3 @@ def _port_cfg(arch, **edit):
     from repro_torch.configs import get_arch as tget
     from repro_torch.configs import reduced_config as treduced
     return dataclasses.replace(treduced(tget(arch)), **edit)
-
-
-@pytest.mark.parametrize("mesh", [(2, 1), (2, 2)])
-def test_fsdp_over_a_data_axis_refuses(torch, mesh):
-    """FSDP (leaves sharded over a data axis of more than one rank) is the
-    rest of item 11: the train step refuses it on any such mesh, naming
-    the ROADMAP item, before any collective."""
-    from torch_mesh_ranks import Grid
-
-    from repro_torch.configs import get_shape
-    from repro_torch.core.planner import make_plan
-    from repro_torch.engine import make_train_step
-    from repro_torch.models import Ctx, build_model
-    cfg = _port_cfg("phi3_mini", fsdp=True)
-    axes = {"data": mesh[0], "model": mesh[1]}
-    plan = make_plan(cfg, axes, get_shape("train_4k"))
-    assert plan.fsdp
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_train_step(build_model(cfg), Ctx(
-            plan=plan, mesh=Grid(axes, data=0, model=0)))

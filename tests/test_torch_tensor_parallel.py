@@ -29,9 +29,10 @@ logits' all-gather (``Ctx(plan=, mesh=)``).
   ``init_shards`` draws the very slices of ``init_params``;
   ``Checkpointer.restore(specs=, mesh=)`` onto (1, 2) gives the same
   forward.
-* Refusals: the hybrid, ssm and audio families, the MoE "tp" strategy and
-  FSDP over a data axis raise on a model axis of tp > 1, and so does a
-  q_dim split inside a head, each naming its ROADMAP item.
+* Refusals: the hybrid, ssm and audio families and the MoE "tp"
+  strategy raise on a model axis of tp > 1, and so does a q_dim split
+  inside a head, each naming its ROADMAP item (FSDP over a data axis runs:
+  tests/test_torch_fsdp.py).
 """
 import concurrent.futures
 import dataclasses
@@ -322,13 +323,12 @@ def _refusal_ctx(cfg, model_axis, data_axis=1):
     ("jamba15_large", {}, (1, 2), "item 14"),
     ("xlstm_125m", {}, (1, 2), "item 15"),
     ("whisper_small", {}, (1, 2), "item 16"),
-    ("qwen2_moe", {}, (1, 3), "item 17"),
-    ("nemotron4_340b", {"fsdp": True}, (2, 2), "item 11")])
+    ("qwen2_moe", {}, (1, 3), "item 17")])
 def test_what_the_split_does_not_take_refuses(torch, arch, edit, axes,
                                               item):
-    """On a model axis of tp > 1: the hybrid, ssm and audio families, the
-    MoE "tp" strategy (4 experts over 3 ranks) and FSDP over a data axis
-    raise before any collective, naming their ROADMAP items."""
+    """On a model axis of tp > 1: the hybrid, ssm and audio families and
+    the MoE "tp" strategy (4 experts over 3 ranks) raise before any
+    collective, naming their ROADMAP items."""
     from repro_torch.models import build_model
     cfg = dataclasses.replace(reduced_config(get_arch(arch)), **edit)
     cfg, ctx = _refusal_ctx(cfg, axes[1], axes[0])

@@ -1,18 +1,19 @@
 """The rank side of the port's multi-rank tests (tests/test_torch_mesh.py,
-tests/test_torch_tensor_parallel.py, tests/test_torch_mesh_train.py and
-the expert-parallel gradient of tests/test_torch_moe.py on the CPU, the
-expert-parallel, tensor-parallel and mesh-training cases of
-tests/test_torch_cuda.py on a card).
+tests/test_torch_tensor_parallel.py, tests/test_torch_mesh_train.py,
+tests/test_torch_fsdp.py and the expert-parallel gradient of
+tests/test_torch_moe.py on the CPU, the expert-parallel, tensor-parallel
+and mesh-training cases of tests/test_torch_cuda.py on a card).
 
     python tests/torch_mesh_ranks.py JOB RANK WORLD DEVICE
 
 JOB is a ``torch.save``d dict written by the test (``run_ranks``): the
-checks to run (``collectives``, ``ep``, ``tp``, ``train``) and their
-inputs. Each rank joins a
+checks to run (``collectives``, ``ep``, ``tp``, ``train``, ``loop``,
+``remat``) and their inputs. Each rank joins a
 gloo or NCCL group (``launch.mesh.init_ranks``, whose rule picks the
 transport) through a FileStore beside JOB, runs every check, and saves
 what it got to ``rank<RANK>.pt`` beside JOB, for the test to hold against
 its reference. Nothing here imports JAX."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -304,10 +305,11 @@ def check_train(job, dev, device):
     after the data axes' sum) and the final parameters come back as the
     rank's slices. A case may save the state after ``save_at`` steps over
     the mesh (``Checkpointer.save(specs=, mesh=)``), or restore one and
-    step on (``restore``)."""
+    step on (``restore``), and may plan for a ``shape`` (ShapeConfig's
+    fields) other than train_4k."""
     from repro_torch import tree as tr
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.configs import ArchConfig, get_shape
+    from repro_torch.configs import ArchConfig, ShapeConfig, get_shape
     from repro_torch.core.planner import make_plan
     from repro_torch.distributed.elastic import reshard_state
     from repro_torch.engine import (CompressionConfig, TrainConfig,
@@ -323,7 +325,8 @@ def check_train(job, dev, device):
     for case in job["train"]:
         cfg = ArchConfig(**case["cfg"])
         mesh = make_mesh(case["mesh"], ("data", "model"), device)
-        plan = make_plan(cfg, mesh.shape, get_shape("train_4k"))
+        plan = make_plan(cfg, mesh.shape, ShapeConfig(*case["shape"])
+                         if "shape" in case else get_shape("train_4k"))
         ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True)
         model = build_model(cfg)
         specs = model.param_specs(plan)
@@ -338,7 +341,8 @@ def check_train(job, dev, device):
         err = init_error_state(params) if scheme != "none" else None
         state_specs = (specs, opt_state_specs(specs))
         res = {"coords": mesh.coords, "specs": flatten(specs),
-               "losses": [], "norms": [], "plan": plan.moe_strategy}
+               "losses": [], "norms": [], "plan": plan.moe_strategy,
+               "fsdp": ctx.fsdp, "dp": ctx.dp}
         if "restore" in case:
             (params, opt), extra = Checkpointer(case["restore"]).restore(
                 (params, opt), specs=state_specs, mesh=mesh)
@@ -365,8 +369,105 @@ def check_train(job, dev, device):
     return out
 
 
+def check_loop(job, dev, device):
+    """``train_loop(mesh=)`` under the supervisor: each case trains from
+    the whole state's slices (``weights``) on its mesh to ``steps``,
+    saving every ``save_every`` steps to ``ckpt``, or resuming there from
+    the latest save (a job restarted on another mesh)."""
+    from repro_torch.configs import ArchConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    out = {}
+    for case in job["loop"]:
+        mesh = make_mesh(case["mesh"], ("data", "model"), device)
+        got = train_loop(ArchConfig(**case["cfg"]), reduced=False,
+                         steps=case["steps"], batch=case["batch"],
+                         seq=case["seq"], weights=case["state"], mesh=mesh,
+                         ckpt_dir=case["ckpt"], save_every=case["save_every"],
+                         log_every=case["steps"] + 1)
+        out[case["name"]] = {
+            "coords": mesh.coords, "losses": got["losses"],
+            "norms": [h["grad_norm"] for h in got["history"]],
+            "restored_from": got["report"].restored_from}
+    return out
+
+
+def _gathered(tree, dims, out):
+    """The leaves of ``tree`` (a layer's leaves as ``_take`` gives them)
+    that were gathered over the data axis: those whose ``dims`` entry is
+    not None."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _gathered(v, dims[k], out)
+        elif dims[k] is not None:
+            out.append(v)
+    return out
+
+
+def check_remat(job, dev, device):
+    """FSDP under each remat policy: the forward's loss (the logits'
+    weighted sum and the aux) with grad on, every leaf a layer's
+    ``_take`` gathered over the data axis tracked by a weak reference;
+    after the forward, how many are alive (held for the backward), then
+    the gradient of every leaf of the rank's blocks."""
+    import gc
+    import weakref
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import ArchConfig, get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import flatten
+    real = tf._take
+    out = {}
+    for case in job["remat"]:
+        cfg = ArchConfig(**case["cfg"])
+        mesh = make_mesh(case["mesh"], ("data", "model"), device)
+        plan = make_plan(cfg, mesh.shape, get_shape("train_4k"))
+        ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True)
+        model = build_model(cfg)
+        model.load_shards(reshard_state(
+            case["state"], flatten(model.param_specs(plan)), mesh))
+        n = case["tokens"].shape[0] // mesh.shape["data"]
+        rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
+        batch = {"tokens": torch.from_numpy(case["tokens"][rows]).to(dev)}
+        res = {"coords": mesh.coords}
+        for remat in ("none", "full", "dots"):
+            tracked = []
+
+            def spy(tree, idx, dims=None, ctx=None):
+                got = real(tree, idx, dims, ctx)
+                if idx is not None and dims is not None:
+                    tracked.extend(weakref.ref(t)
+                                   for t in _gathered(got, dims, []))
+                return got
+
+            params = tr.tree_map(lambda p: p.detach().requires_grad_(True),
+                                 model.params())
+            tf._take = spy
+            try:
+                logits, aux = tf.forward(dataclasses.replace(
+                    cfg, remat=remat), params, batch, ctx,
+                    gather_logits=False)
+            finally:
+                tf._take = real
+            w = torch.linspace(-1, 1, logits.shape[-1], device=dev)
+            loss = (logits * w).sum() + aux
+            gc.collect()
+            alive = sum(r() is not None for r in tracked)
+            grads = torch.autograd.grad(loss, tr.leaves(params))
+            res[remat] = {"tracked": len(tracked), "alive": alive,
+                          "grads": [g.cpu() for g in grads]}
+            del logits, aux, loss, params
+        out[case["name"]] = res
+    return out
+
+
 CHECKS = {"collectives": check_collectives, "ep": check_ep, "tp": check_tp,
-          "train": check_train}
+          "train": check_train, "loop": check_loop, "remat": check_remat}
 
 
 def main(job_path: str, rank: int, world: int, device: str) -> None:
