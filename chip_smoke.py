@@ -27,7 +27,8 @@ final line:
    the time by the profiler; at the prefill's and the rank's shapes one
    call with x just written and one after the L2 is flushed, the latter
    also on the device) and ssm_scan within 1e-5 (jamba's
-   prefill shape and a ragged shape; no PyTorch call computes a selective
+   prefill shape, one tensor-parallel rank's quarter of its channels
+   (18g's) and a ragged shape; no PyTorch call computes a selective
    scan, so no yardstick; the inputs copied for TMA; the scan kernels'
    SASS instruction and MUFU.EX2 counts; a spill in the scan or the
    gather, forward or backward, fails the run), moe_gather's backward bit
@@ -37,8 +38,8 @@ final line:
    autograd; ``index_add_`` as yardstick; maps of 10 and ~38 slots a
    token, past the kernel's fan of 8, untimed) and ssm_scan's backward within
    1e-4 of each output's largest value against the plain version's
-   autograd (jamba's full Mamba shape and the reduced training shape, B
-   and C strided; both instances, 4 lanes a channel at 128 and 32
+   autograd (jamba's full Mamba shape, a rank's quarter of its channels
+   and the reduced training shape, B and C strided; both instances, 4 lanes a channel at 128 and 32
    channels a block, given the checkpointing forward's checkpoints and
    without them; the same bits twice; the checkpointing forward's y the
    serving forward's bits, its checkpoints bit-equal through autograd;
@@ -60,8 +61,9 @@ final line:
    path, and the serving decode path checked against prefill: over the
    dense cache, over the paged pool (page 4, through the paged kernel, one
    launch per layer and step) and over the int8 cache; then the
-   continuous-batching engine over the paged pool (page 16): 8 requests,
-   batch 4, one paged-attention launch per layer and decode step, every
+   continuous-batching engine over the paged pool (page 16): 8 requests
+   (``SERVE_MAX_NEW``: 23 tokens each, two pages), batch 4, one
+   paged-attention launch per layer and decode step, every
    request finished and every page released; then a long-context paged
    decode step on the same weights: B=4, 4,000-4,090 cached tokens a row
    (state built directly, random K/V), 5 steps, with the device's busy
@@ -77,7 +79,10 @@ final line:
    moe_gather launch per layer and decode step;
 7. hybrid prefill at full width: jamba-1.5-large cut to one group of 8
    layers (7 Mamba, 1 attention; 4 MoE, 4 dense FFN) and 12 of its 16
-   experts, so that its 66.3 GiB of bf16 weights fit one card; B=1,
+   experts, so that its 66.3 GiB of bf16 weights fit one card (one group
+   at 16 experts is 84.3 GiB and cannot; 18g splits the group over four
+   ranks at 8 experts: at 12 the ranks' contexts, the whole leaf drawn in
+   turns and the activations leave too little room); B=1,
    S=4096, through flash (1 launch), moe_gather (4) and ssm_scan (7;
    the scan inputs copied for TMA printed, none at jamba's layout),
    checked against the plain attention path; decode (the plain one-step
@@ -180,8 +185,9 @@ final line:
    checkpoints of whole leaves): the single processes first, in this
    process, then four processes sharing the card: (a) 18a's run, qwen2-moe-a2.7b at
    every published width, 4 of 24 layers, float32 weights and moments,
-   its repeated B=4 x 1,025 batch, 5 steps, learning rate and seed, over
-   (data 1, model 4) through ``train_loop(mesh=)``: each step's loss and
+   its repeated B=4 x 1,025 batch, learning rate and seed, the first 3
+   of its 5 steps, over (data 1, model 4) through ``train_loop(mesh=)``:
+   each step's loss and
    gradient norm within 1e-3 relative of 18a's history, every whole leaf
    the same bits on every rank after the last step, moe_gather 8 a step
    (remat's recompute) and its backward 4 on every rank and no attention
@@ -192,36 +198,64 @@ final line:
    wall), peak memory a rank and in all; (b) gemma-7b float32 at every
    published width, 1 of 28 layers (``fsdp=False``, its only edit: it
    holds the split path without FSDP; 18f runs the published plan), 3
-   steps of 4 x 256 tokens in one process, then 2 steps over (data 2,
-   model 2) and a save of whole leaves (the files one process writes),
-   and a restart over (data 1, model 4) from that checkpoint for the
-   third step under the supervisor, every loss and gradient norm within
-   1e-3 of the single process's; (c) reduced jamba over (data 2, model
-   1) from the single process's weights, 2 steps within 1e-3 of it,
-   ssm_scan and its backward (and moe_gather and its backward) on both
-   ranks;
+   steps of 4 x 256 tokens in one process and over (data 2, model 2),
+   every loss and gradient norm within 1e-3 of the single process's;
 18f. FSDP over the data axis at the published plans (``fsdp=True``,
    ``remat="full"``; the leaves' ``embed`` / ``ff`` / ``inner`` /
    ``vocab`` dim over ``data``, all-gathered where a layer takes them,
    inside its remat region, the gradients reduce-scattered): the single
    processes first, then four processes sharing the card: (b)
    qwen2-moe-a2.7b float32 at every published width, 1 of 24 layers, 18a's
-   batch and learning rate, 2 steps over (data 4, model 1) (the plain MoE
+   batch and learning rate, 1 step over (data 4, model 1) (the plain MoE
    path) against a single process at the same depth, within 1e-3, every
    collective timed alone (the gathers', reduce-scatters' and
-   all-reduces' share of the wall), P3 4 and its backward 2 a rank, peak
+   all-reduces' share of the wall), P3 2 and its backward 1 a rank, peak
    memory a rank and in all; (a) gemma-7b float32 at its published
    settings, 1 of 28 layers, 18e (b)'s batch: 2 steps over (data 2,
-   model 2) and a save (every leaf but the norms split over both axes),
-   a restart over (data 4, model 1) for the third under the supervisor,
+   model 2) and a save of whole leaves (the files one process writes;
+   every leaf but the norms split over both axes), a restart over (data
+   1, model 4) for the third under the supervisor and its save there,
    every loss and gradient norm within 1e-3 of 18e (b)'s single process,
    peak memory a rank beside 18e (b)'s; (d) gemma-7b bf16 at 2 of 28
    layers at the serve plan over (data 2, model 2): each data rank 2 of
    4 rows, a 1,024-token prefill through flash (2 a rank) and 4 paged
    decode steps (P2 2 a step), each step's last logits within LOGITS_TOL
-   of the single process's; then (c) 18e (c)'s reduced jamba with
-   ``fsdp=True`` over (data 2, model 1), 2 steps within 1e-3 of 18e
-   (c)'s single process, P4 and its backward on both ranks;
+   of the single process's;
+18g. the hybrid family split over the model axis (Mamba's ``inner``:
+   each rank 1/4 of the channels of every Mamba leaf, ``in_proj``'s
+   output handed round by one all-to-all so that a rank holds its
+   channels of ``xb`` and ``z``, ``x_proj``'s partials summed in
+   float32, P4 on the rank's channels; attention and MoE as 18d and
+   18c): the single processes first, in this process, then four
+   processes sharing the card: (a) jamba-1.5-large bf16 at every
+   published width, one group of 8 layers and 8 of its 16 experts (48.3
+   GiB, 12.1 GiB a rank; 2 experts a rank) over (data 1, model 4): the
+   single process's plain last logits, flash prefill, greedy paged
+   decode, dense decode fed its tokens and paged serving, then freed; on
+   the ranks prefill B=1, S=4096 under ``Ctx(use_flash=True)`` (P1 1, P4
+   7, P3 4 a rank) after a warm run, tokens/s beside the single
+   process's, the all-reduces' (bf16 and float32), the redistributions'
+   and the gathers' shares of the wall (each collective timed alone, in
+   the prefill and in one dense decode step, where the conv windows'
+   gathers run), the kernels' busy share, peak memory a rank, the last
+   logits within LOGITS_TOL; dense and paged decode fed the single
+   process's greedy tokens (P3 4 a step, P2 1 on the paged pool), each
+   step's rows within LOGITS_TOL where every rank's MoE routes, at that
+   step and the row's earlier ones, are the single process's (a route
+   that flips on the bf16 sums' order is counted, beside the flips of
+   the single process with its experts reversed; at most half the rows
+   may flip), the conv windows the same bits on every rank;
+   paged serving, the same tokens on every rank, the count that differ
+   from the single process's printed; (b) one Mamba layer at jamba's full
+   width in float32 on (1, 4096, 8192) inputs: forward and backward on
+   the rank's slices against the single process's ``mamba_apply`` and
+   autograd on the whole leaves (each rank computes it), the output
+   within 1e-5 of its largest value and each gradient slice within 1e-4
+   of its leaf's largest; (c) reduced jamba at its published plan
+   (``fsdp``, ``remat="full"``; ``capacity_factor`` 4.0): 2 steps and a
+   save over (data 2, model 2), a restart over (data 1, model 4) for the
+   third under the supervisor, every loss and gradient norm within 1e-3
+   of the single process's, P4, P3 and their backwards on every rank;
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -278,7 +312,8 @@ Launch counts are set to 0 just before each main-path run of phases 3-23
 (prefill, paged decode, paged serving, the long-context step, serving,
 the training runs, each rank's EP prefill and serving, each rank's
 tensor-parallel prefill, decode and serving, each rank's training runs
-over the mesh and under FSDP, each FSDP rank's prefill and decode, the
+over the mesh and under FSDP, each FSDP rank's prefill and decode, each
+hybrid rank's prefill, decode, serving, layer and training runs, the
 timed Q1
 runs, the workers', the entry points', the service's cold Q1, the
 tools') and read just after it. The last two lines are a JSON object
@@ -315,7 +350,12 @@ OTHER_ARCHS = [("gemma_7b", "gemma"), ("phi3_mini", "phi3"),
 OTHER_CUTS = {"xlstm_125m": {"n_layers": 4}}
 # jamba-1.5-large's cuts (its widths are all published values): 72 -> 8
 # layers (one group; the stack runs whole groups) and 16 -> 12 experts.
-# One group at 16 experts is 84.3 GiB of bf16 weights; at 12, 66.3 GiB.
+# One group at 16 experts is 84.3 GiB of bf16 weights: it cannot fit one
+# card; at 12, 66.3 GiB. Phase 18g runs the same group split over four
+# ranks at 8 experts (48.3 GiB, 12.1 GiB a rank): at 12 the four CUDA
+# contexts, the whole leaf that ``init_shards`` draws (the 4 MoE layers'
+# w_up, 19.3 GB at 12 experts) and the prefill's activations leave too
+# little room beside 66.3 GiB on the 80 GB card.
 HYBRID_CUTS = {"n_layers": 8, "n_experts": 12}
 DEVICE = "cuda"
 SEED = 0
@@ -379,6 +419,9 @@ GATHER_CASES = [  # (name, T, d, S, n_kept, dtype)
 SCAN_CASES = [  # (name, Bt, L, di, N)
     ("prefill", 1, PREFILL_SEQ, 16384, 16),
     ("ragged", 2, 1001, 3000, 16),
+    # one rank's channels of jamba's prefill in phase 18g: di 16,384 over
+    # a model axis of 4
+    ("tp_rank", 1, PREFILL_SEQ, 4096, 16),
 ]
 SCAN_TOL = 1e-5  # as tests/test_kernels.py holds the Pallas scan
 # The training phase: qwen2-moe-a2.7b at every published width, cut to
@@ -420,11 +463,16 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 4, 6
 # LOGITS_TOL of the single process's.
 EP_MESH = (1, 4)
 EP_WORLD = 4
+# every serving run: 8 requests of 2-7 prompt tokens at batch 4, each
+# running to max_seq - 1 = SERVE_MAX_NEW + 15 tokens (23, two pages of
+# PAGE_SIZE), so the second four reuse the first four's slots and pages;
+# 46 steps (94 at 32 before the smoke outgrew its time limit)
+SERVE_MAX_NEW = 8
 EP_F32_LAYERS = 2
 EP_TOL = 2e-3  # tests/test_multidevice.py's bound on log_softmax
 EP_AUX_RTOL = 1e-4  # one aux of (a)'s prefill against the single process's
 EP_WALL_S = 600  # the four ranks' run, and each collective's timeout
-EP_SERVE = {"n_requests": 8, "max_new": 32, "batch_size": 4}
+EP_SERVE = {"n_requests": 8, "max_new": SERVE_MAX_NEW, "batch_size": 4}
 # The tensor-parallel phase over the same mesh: (a) TP_F32_ARCH float32 at
 # TP_F32_LAYERS of its 28 layers (1.34 B parameters, 4.99 GiB); (b)
 # TP_BF16_ARCH bf16 at TP_BF16_LAYERS of its 96 layers (30.45 GiB, 7.61
@@ -439,39 +487,70 @@ TP_TIMED = 3
 # Training over the mesh (phase 18e), ranks sharing the card as in 18c
 # and 18d: (a) the training phase's run (MOE_ARCH at every published
 # width, TRAIN_LAYERS layers, float32 weights and moments, the same
-# repeated batch, steps, learning rate and seed) over the (data 1, model
-# 4) mesh, each step's loss and gradient norm held within TRAIN_LOSS_TOL
-# of phase 18a's; (b) MT_B_ARCH at every published width, MT_B_LAYERS of
-# 28 layers, float32, with ``fsdp=False`` (the config's only edit: it
-# holds the split path without FSDP, 18f runs the published plan),
-# MT_B_STEPS steps of MT_B_BATCH x (MT_B_SEQ + 1) tokens in one
-# process, then MT_B_SAVE steps and a save over (data 2, model 2) and a
-# restart from that checkpoint over (data 1, model 4) for the rest; (c)
-# reduced jamba over (data 2, model 1), MT_C_STEPS steps, the Mamba
-# kernels on both ranks.
+# repeated batch, learning rate and seed) over the (data 1, model 4)
+# mesh, each of its MT_A_STEPS steps' loss and gradient norm held within
+# TRAIN_LOSS_TOL of phase 18a's; (b) MT_B_ARCH at every published width,
+# MT_B_LAYERS of 28 layers, float32, with ``fsdp=False`` (the config's
+# only edit: it holds the split path without FSDP, 18f runs the
+# published plan), MT_B_STEPS steps of MT_B_BATCH x (MT_B_SEQ + 1)
+# tokens in one process and over MT_B_MESH. The mesh checkpoint at full
+# width is 18f (a)'s (its save over (data 2, model 2), its restart's
+# over (data 1, model 4)), reduced jamba's over a data axis 18g (c)'s:
+# 18e (b)'s own save and restart (62 s of the smoke's 1,087 s on an H100
+# 80GB HBM3 at 700 W) and the reduced jamba runs over (data 2, model 1)
+# of 18e (c) and 18f (c) went when the smoke outgrew its time limit.
 MT_A_MESH = (1, 4)
+# (a) runs the first MT_A_STEPS of 18a's TRAIN_STEPS (step 2's loss takes
+# in step 1's update; lr is 0 at step 0)
+MT_A_STEPS = 3
 MT_B_ARCH, MT_B_LAYERS = "gemma_7b", 1
 MT_B_BATCH, MT_B_SEQ, MT_B_STEPS, MT_B_SAVE = 4, 255, 3, 2
-MT_B_MESHES = ((2, 2), (1, 4))
-MT_C_ARCH, MT_C_MESH, MT_C_STEPS = "jamba15_large", (2, 1), 2
+MT_B_MESH = (2, 2)
 # FSDP over the data axis (phase 18f), ranks sharing the card as in 18e,
 # every model at its published plan (``fsdp=True``, ``remat="full"``):
 # (a) MT_B_ARCH as 18e (b) runs it but for its config, MT_B_SAVE steps and
 # a save over FSDP_A_MESHES[0], a restart over FSDP_A_MESHES[1] for the
-# rest, against 18e (b)'s single process; (b) MOE_ARCH float32 at every
-# published width, FSDP_B_LAYERS of 24 layers, 18a's batch and learning
-# rate, FSDP_B_STEPS steps over FSDP_B_MESH (pure FSDP: the plain MoE
-# path) against a single process at the same depth, every collective
-# timed alone; (c) 18e (c)'s reduced jamba with ``fsdp=True`` over
-# MT_C_MESH; (d) serving MT_B_ARCH bf16 at FSDP_D_LAYERS of 28 layers
-# at the serve plan over FSDP_D_MESH: each data rank a row of a
-# FSDP_D_SEQ-token prefill through flash, then FSDP_D_STEPS paged decode
-# steps, each step's logits against the single process's.
-FSDP_A_MESHES = ((2, 2), (4, 1))
+# rest (and its save there), against 18e (b)'s single process; (b)
+# MOE_ARCH float32 at every published width, FSDP_B_LAYERS of 24 layers,
+# 18a's batch and learning rate, FSDP_B_STEPS steps over FSDP_B_MESH
+# (pure FSDP: the plain MoE path) against a single process at the same
+# depth, every collective timed alone; (d) serving MT_B_ARCH bf16 at
+# FSDP_D_LAYERS of 28 layers at the serve plan over FSDP_D_MESH: each
+# data rank a row of a FSDP_D_SEQ-token prefill through flash, then
+# FSDP_D_STEPS paged decode steps, each step's logits against the single
+# process's.
+# (a)'s restart over (1, 4), not (4, 1): its step there took 21.4 s of
+# gathers (an H100 80GB HBM3 at 700 W), and pure FSDP is (b)'s
+FSDP_A_MESHES = ((2, 2), (1, 4))
 # (b) at 1 layer: at 2 the phase took 256-271 s (an H100 80GB HBM3 at
-# 700 W), the embedding's and head's gathers more than the layers'
-FSDP_B_LAYERS, FSDP_B_STEPS, FSDP_B_MESH = 1, 2, (4, 1)
+# 700 W), the embedding's and head's gathers more than the layers'; and
+# 1 step since phase 18g came in (the smoke took 1,071 s; the second step
+# took 19.9 s and, warmup-cosine's lr being 0 at step 0, repeated the
+# first's loss)
+FSDP_B_LAYERS, FSDP_B_STEPS, FSDP_B_MESH = 1, 1, (4, 1)
 FSDP_D_LAYERS, FSDP_D_MESH, FSDP_D_SEQ, FSDP_D_STEPS = 2, (2, 2), 1024, 4
+# The hybrid family split over the model axis (phase 18g), ranks sharing
+# the card as in 18c-18f: (a) HYBRID_ARCH bf16 at every published width
+# cut by TPH_CUTS (one group; 8 of 16 experts, 2 a rank under expert
+# parallelism: see HYBRID_CUTS) over EP_MESH, against the single process;
+# (b) one Mamba layer at full width in float32 on (1, PREFILL_SEQ,
+# d_model) inputs, forward and backward on the ranks against the single
+# process's, the output within TPH_OUT_TOL of its largest value and each
+# gradient slice within TPH_GRAD_TOL of its leaf's largest
+# (tests/test_torch_mesh_train.py's bounds); (c) reduced HYBRID_ARCH at
+# its published plan, TPH_C_SAVE steps and a save over TPH_C_MESHES[0],
+# a restart over TPH_C_MESHES[1] to step TPH_C_STEPS.
+TPH_CUTS = {"n_layers": 8, "n_experts": 8}
+# (a)'s decode: a MoE route of a rank may differ from the single
+# process's only where the single process's top_k-th and next router
+# logits lie within TPH_TIE of the logits' standard deviation: the bf16
+# sums' order moves the residual by ~1-2% (the prefill's last logits
+# within 0.024 of the largest); the rows before their first flip are held
+# at LOGITS_TOL
+TPH_TIE = 0.05
+TPH_OUT_TOL, TPH_GRAD_TOL = 1e-5, 1e-4
+TPH_C_MESHES = ((2, 2), (1, 4))
+TPH_C_SAVE, TPH_C_STEPS = 2, 3
 # moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
 # tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
 GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
@@ -490,6 +569,7 @@ GATHER_BWD_WIDE = [  # (T, d, S, n_kept, dtype)
 SCAN_BWD_CASES = [  # (name, Bt, L, di, N)
     ("jamba", 1, PREFILL_SEQ, 16384, 16),
     ("reduced", REDUCED_BATCH, REDUCED_SEQ + 1, 128, 8),
+    ("tp_rank", 1, PREFILL_SEQ, 4096, 16),  # a rank's channels, as above
 ]
 # float32; the kernel decays by ex2 and sums in another order than the
 # plain loop's autograd: max |err| per output within 1e-4 of its largest
@@ -527,13 +607,13 @@ PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes,
     ("long_f32", LONG_BATCH, 40, 8, 128, LONG_PAGE, LONG_SEQ // LONG_PAGE,
      "float32", True, LONG_LENGTHS),
     # a rank's decode heads in the tensor-parallel phase's paged decode and
-    # serving (pages of 16, 3 a 48-token sequence): nemotron-4-340b's 24/2
+    # serving (pages of 16, 2 a 24-token sequence): nemotron-4-340b's 24/2
     # at hd 192 and gemma-7b's float32 4/4 at hd 256
-    ("tp_hd192", 4, 24, 2, 192, 16, 3, "bfloat16", False, None),
-    ("tp_hd256_f32", 4, 4, 4, 256, 16, 3, "float32", False, None),
+    ("tp_hd192", 4, 24, 2, 192, 16, 2, "bfloat16", False, None),
+    ("tp_hd256_f32", 4, 4, 4, 256, 16, 2, "float32", False, None),
 ]
 POOL_LAYERS = {"gemma_pool": 28}
-PAGE_SIZE = 16  # paged serving: a 48-token sequence spans 3 pages
+PAGE_SIZE = 16  # paged serving: a 23-token sequence spans 2 pages
 # the relational kernels launch nowhere on a model's path, the backward
 # kernels nowhere but in training
 NO_RELATIONAL = {"expr_core": 0, "segment_reduce": 0}
@@ -1926,14 +2006,15 @@ def float32_decode_checks(torch, model, tokens, n: int, label: str) -> dict:
 
 def paged_serving(torch, model, label: str) -> tuple:
     """The serving engine over the paged pool on the loaded model: the
-    requests of the dense serving phase, batch 4, max_seq 48, page 16.
+    requests of the dense serving phase, batch 4, max_seq 24, page 16.
     Returns its result and launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_model
     cfg = model.cfg
     ops.reset_launch_counts()
-    out = serve_model(model, n_requests=8, max_new=32, batch_size=4,
-                      seed=SEED, kv_layout="paged", page_size=PAGE_SIZE)
+    out = serve_model(model, n_requests=8, max_new=SERVE_MAX_NEW,
+                      batch_size=4, seed=SEED, kv_layout="paged",
+                      page_size=PAGE_SIZE)
     launches = ops.launch_counts()
     tps = out["tokens"] / out["seconds"]
     log(f"[{label}: paged serve] {out['finished']}/8 requests finished, "
@@ -1966,8 +2047,8 @@ def phase_serving(torch, arch, label: str, paged, summary: dict) -> dict:
     layers = expected_launches(cfg)["moe_gather"]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve_batch(arch, n_requests=8, max_new=32, batch_size=4,
-                      reduced=False, seed=SEED, device=DEVICE)
+    out = serve_batch(arch, n_requests=8, max_new=SERVE_MAX_NEW,
+                      batch_size=4, reduced=False, seed=SEED, device=DEVICE)
     launches = ops.launch_counts()
     tps = out["tokens"] / out["seconds"]
     summary["serve_tps"] = tps
@@ -2522,23 +2603,25 @@ def tp_prompts(torch, cfg):
         1, cfg.vocab_size, (TP_DECODE_BATCH, TP_DECODE_STEPS))).to(DEVICE)
 
 
-def tp_decode(torch, model, tokens, ctx=None, greedy: bool = False):
-    """Decode over the paged pool (page PAGE_SIZE) from an empty state,
-    ``tokens`` (B, n) fed one column a step; with ``greedy``, each column
-    past TP_PROMPT is instead the step before's argmax (the single
-    process's run). Returns the tokens fed and each step's (B, V) float32
-    logits on the host."""
+def tp_decode(torch, model, tokens, ctx=None, greedy: bool = False,
+              kv_layout: str = "paged"):
+    """Decode over the paged pool (page PAGE_SIZE; ``kv_layout="dense"``:
+    the dense cache) from an empty state, ``tokens`` (B, n) fed one column
+    a step; with ``greedy``, each column past TP_PROMPT is instead the
+    step before's argmax (the single process's run). Returns the tokens
+    fed, each step's (B, V) float32 logits on the host and the state
+    after the last step."""
     fed = tokens.clone()
     B, n = fed.shape
     state = model.init_decode_state(B, n + 4, model.dtype,
-                                    kv_layout="paged", page_size=PAGE_SIZE)
+                                    kv_layout=kv_layout, page_size=PAGE_SIZE)
     steps = []
     for t in range(n):
         logits, state = model.decode_step(fed[:, t:t + 1], state, ctx)
         steps.append(logits[:, 0].float().cpu())
         if greedy and TP_PROMPT <= t + 1 < n:
             fed[:, t + 1] = logits[:, 0].argmax(-1)
-    return fed, steps
+    return fed, steps, state
 
 
 def tp_single(torch, arch, layers: int, dtype, where: str, label: str
@@ -2583,8 +2666,8 @@ def tp_single(torch, arch, layers: int, dtype, where: str, label: str
                 walls.append(time.perf_counter() - t0)
             out["prefill_s"] = sorted(walls)[len(walls) // 2]
         del want
-        fed, steps = tp_decode(torch, model, tp_prompts(torch, cfg),
-                               greedy=True)
+        fed, steps, _ = tp_decode(torch, model, tp_prompts(torch, cfg),
+                                  greedy=True)
         out["fed"] = fed.cpu().numpy()
         out["steps"] = [s.numpy() for s in steps]
         ops.reset_launch_counts()
@@ -2632,7 +2715,7 @@ def tp_decode_and_serve(torch, model, ctx, ref: dict) -> dict:
     fed = torch.from_numpy(ref["fed"]).to(DEVICE)
     ops.reset_launch_counts()
     with torch.no_grad():
-        _, steps = tp_decode(torch, model, fed, ctx)
+        _, steps, _ = tp_decode(torch, model, fed, ctx)
     torch.cuda.synchronize()
     decode = ops.launch_counts()
     if decode != decode_launches(cfg, fed.shape[1]):
@@ -2976,21 +3059,23 @@ def mt_history(out: dict) -> dict:
             "seconds": [h["seconds"] for h in out["history"]]}
 
 
-def timed_collectives(torch, names):
+def timed_collectives(torch, names, key=None):
     """Wrap each of ``collectives``' functions ``names`` to time every
     call alone (the card synchronised on either side; gloo's own copies
-    inside); returns (the seconds of each call by name, undo)."""
+    inside); returns (the seconds of each call by name, or by ``key(name,
+    tensor)`` where given, and undo)."""
     from repro_torch.distributed import collectives as coll
-    spent = {name: [] for name in names}
+    spent = {name: [] for name in names} if key is None else {}
     real = {name: getattr(coll, name) for name in names}
 
     def timer(name):
-        def timed(*args, **kw):
+        def timed(t, *args, **kw):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            got = real[name](*args, **kw)
+            got = real[name](t, *args, **kw)
             torch.cuda.synchronize()
-            spent[name].append(time.perf_counter() - t1)
+            spent.setdefault(name if key is None else key(name, t),
+                             []).append(time.perf_counter() - t1)
             return got
         return timed
 
@@ -3030,9 +3115,9 @@ def mt_full_width(torch, mesh) -> dict:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = train_loop(MOE_ARCH, reduced=False, layers=TRAIN_LAYERS,
-                     steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=MT_A_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                      records=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED, mesh=mesh,
-                     log_every=TRAIN_STEPS + 1)
+                     log_every=MT_A_STEPS + 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -3100,10 +3185,11 @@ def mt_gemma_config():
     return dataclasses.replace(get_arch(MT_B_ARCH), fsdp=False)
 
 
-def mt_gemma(torch, mesh, steps: int, ckpt: str, cfg=None) -> dict:
-    """(b) on this rank: ``train_loop`` of ``cfg`` (default
-    ``mt_gemma_config()``) over ``mesh`` to step ``steps`` under the
-    supervisor, saving to (or resuming from) ``ckpt``."""
+def mt_gemma(torch, mesh, steps: int, ckpt: Optional[str] = None,
+             cfg=None) -> dict:
+    """18e (b) and 18f (a) on this rank: ``train_loop`` of ``cfg``
+    (default ``mt_gemma_config()``) over ``mesh`` to step ``steps``; with
+    ``ckpt``, under the supervisor, saving to (or resuming from) it."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import Checkpointer
@@ -3142,7 +3228,8 @@ def mt_gemma(torch, mesh, steps: int, ckpt: str, cfg=None) -> dict:
     res = {"wall_s": time.perf_counter() - t0, "save_s": spent["save"],
            "restore_s": spent["restore"],
            "launches": ops.launch_counts(), **mt_history(out),
-           "restored_from": out["report"].restored_from,
+           "restored_from": (out["report"].restored_from
+                             if out["report"] else []),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "mesh": repr(mesh)}
     del out
@@ -3152,9 +3239,9 @@ def mt_gemma(torch, mesh, steps: int, ckpt: str, cfg=None) -> dict:
 
 
 def mt_rank(rank: int, world: int, where: str, ref: dict) -> None:
-    """One rank of phase 18e's four, a process of its own: (a) over (data
-    1, model 4), then (b) over (data 2, model 2) and its restart over
-    (data 1, model 4); its results go to ``where``/rank<rank>.json."""
+    """One rank of phase 18e's four, a process of its own: (a) over
+    MT_A_MESH, then (b) over MT_B_MESH; its results go to
+    ``where``/rank<rank>.json."""
     import torch
     import torch.distributed as dist
 
@@ -3162,47 +3249,11 @@ def mt_rank(rank: int, world: int, where: str, ref: dict) -> None:
 
     mt_start_rank(torch, rank, world, where)
     out = {"a": mt_full_width(torch, make_mesh(MT_A_MESH, ("data", "model"),
-                                                DEVICE))}
-    ckpt = os.path.join(where, "ckpt")
-    out["b_save"] = mt_gemma(torch, make_mesh(MT_B_MESHES[0], (
-        "data", "model"), DEVICE), MT_B_SAVE, ckpt)
-    if rank == 0:
-        d = os.path.join(ckpt, f"step_{MT_B_SAVE}")
-        out["ckpt_files"] = sorted(os.listdir(d))
-        out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(d, f))
-                                for f in out["ckpt_files"])
-    out["b_restart"] = mt_gemma(torch, make_mesh(MT_B_MESHES[1], (
-        "data", "model"), DEVICE), MT_B_STEPS, ckpt)
+                                                DEVICE)),
+           "b": mt_gemma(torch, make_mesh(MT_B_MESH, ("data", "model"),
+                                          DEVICE), MT_B_STEPS)}
     with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    dist.barrier()
-    dist.destroy_process_group()
-
-
-def mt_jamba_rank(rank: int, world: int, where: str, ref: dict) -> None:
-    """One rank of 18e (c) (and 18f (c), ``ref["cfg"]`` with FSDP on),
-    over (data 2, model 1): reduced jamba from the single process's
-    weights; its results to ``where``/rank<rank>.json."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.train import train_loop
-
-    mt_start_rank(torch, rank, world, where)
-    mesh = make_mesh(MT_C_MESH, ("data", "model"), DEVICE)
-    dist.barrier()
-    ops.reset_launch_counts()
-    out = train_loop(ref["cfg"], reduced=False, steps=MT_C_STEPS,
-                     batch=REDUCED_BATCH, seq=REDUCED_SEQ, seed=SEED,
-                     weights=ref["weights"], mesh=mesh,
-                     log_every=MT_C_STEPS + 1)
-    torch.cuda.synchronize()
-    res = {"launches": ops.launch_counts(), **mt_history(out),
-           "mesh": repr(mesh)}
-    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
-        json.dump(res, f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -3214,16 +3265,15 @@ def mt_within(got: list, want: list) -> float:
 
 def phase_mesh_train(torch, smi: str, train: dict) -> dict:
     """Training over the (data, model) mesh on the split placement: the
-    single processes first, in this process ((a) reuses phase 18a's
-    history; (b) and (c) run here and are freed), then four spawned
-    processes for (a) and (b) (``mt_rank``) and two for (c)
-    (``mt_jamba_rank``). Returns the ranks' main-path launches summed."""
+    single process first, in this process ((a) reuses phase 18a's
+    history; (b) runs here and is freed), then four spawned processes
+    for (a) and (b) (``mt_rank``). Returns the ranks' main-path launches
+    summed."""
     import shutil
     import tempfile
 
     import numpy as np
 
-    from repro_torch.configs import get_arch, reduced_config
     from repro_torch.launch.train import train_loop
     from repro_torch.models import build_model
 
@@ -3238,42 +3288,24 @@ def phase_mesh_train(torch, smi: str, train: dict) -> dict:
     gemma = mt_history(gemma)
     gc.collect()
     torch.cuda.empty_cache()
-    # the published capacity: the plain MoE path ranks each expert's
-    # slots over the global batch, so the ranks drop what one process drops
-    jcfg = reduced_config(get_arch(MT_C_ARCH))
-    weights = build_model(jcfg).init_params(
-        torch.Generator().manual_seed(SEED), "float32").state_dict()
-    jamba = mt_history(train_loop(
-        jcfg, reduced=False, steps=MT_C_STEPS, batch=REDUCED_BATCH,
-        seq=REDUCED_SEQ, seed=SEED, weights=weights, device=DEVICE,
-        log_every=MT_C_STEPS + 1))
-    gc.collect()
-    torch.cuda.empty_cache()
     single_s = time.perf_counter() - t0
-    where = [tempfile.mkdtemp(prefix="mt_ranks_"),
-             tempfile.mkdtemp(prefix="mt_jamba_")]
-    free = shutil.disk_usage(where[0]).free
+    where = tempfile.mkdtemp(prefix="mt_ranks_")
     try:
         t0 = time.perf_counter()
-        ranks = run_rank_processes(mt_rank, where[0], {}, label)
+        ranks = run_rank_processes(mt_rank, where, {}, label)
         ranks_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        jranks = run_rank_processes(mt_jamba_rank, where[1], {
-            "cfg": jcfg, "weights": weights}, label, world=2)
-        jranks_s = time.perf_counter() - t0
     finally:
-        for d in where:
-            shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(where, ignore_errors=True)
 
-    # (a) against phase 18a's history
+    # (a) against the first MT_A_STEPS of phase 18a's history
     cfg = build_model(MOE_ARCH, TRAIN_LAYERS).cfg
     a = [r["a"] for r in ranks]
-    want = train["history"]
+    want = train["history"][:MT_A_STEPS]
     loss_err = max(mt_within(r["loss"], [h["loss"] for h in want])
                    for r in a)
     norm_err = max(mt_within(r["grad_norm"],
                              [h["grad_norm"] for h in want]) for r in a)
-    per_step = train_launches(cfg, TRAIN_STEPS)
+    per_step = train_launches(cfg, MT_A_STEPS)
     for r in a:
         full = {**{k: 0 for k in r["launches"]}, **per_step}
         if r["launches"] != full:
@@ -3290,22 +3322,21 @@ def phase_mesh_train(torch, smi: str, train: dict) -> dict:
             f"{norm_err:.3g}, whole leaves the same bits: {same_bits}")
     tokens = TRAIN_TOKENS
     log(f"[{label}] {EP_WORLD} ranks, one process each, sharing the card "
-        f"(gloo on CUDA tensors); the single processes ((b), (c)) "
-        f"{single_s:.1f} s, the ranks' run for (a) and (b) {ranks_s:.1f} "
-        f"s, (c)'s two ranks {jranks_s:.1f} s; {free / 2**30:.0f} GiB free "
-        f"for the checkpoint; {smi}")
+        f"(gloo on CUDA tensors); the single process (b) {single_s:.1f} s, "
+        f"the ranks' run for (a) and (b) {ranks_s:.1f} s; {smi}")
     log(f"[{label} a] {cfg.name} at every published width, {cfg.n_layers} "
         f"of 24 layers, float32 weights and AdamW moments, over (data "
         f"{MT_A_MESH[0]}, model {MT_A_MESH[1]}): {a[0]['held'] / 1e9:.3f} B "
         f"parameters a rank; B={TRAIN_BATCH} x {TRAIN_SEQ + 1} tokens, one "
-        f"repeated batch, {TRAIN_STEPS} steps at lr {TRAIN_LR}: losses "
+        f"repeated batch, the first {MT_A_STEPS} of its {TRAIN_STEPS} steps "
+        f"at lr {TRAIN_LR}: losses "
         f"{[round(x, 6) for x in a[0]['loss']]}, gradient norms "
         f"{[round(x, 6) for x in a[0]['grad_norm']]}; phase 18a's within "
         f"{loss_err:.3g} (losses) and {norm_err:.3g} (norms) relative (tol "
         f"{TRAIN_LOSS_TOL}); the {len(digests)} whole leaves the same bits "
         f"on every rank; train_loop {max(r['wall_s'] for r in a):.1f} s; "
         f"{smi}")
-    for i in range(TRAIN_STEPS):
+    for i in range(MT_A_STEPS):
         s = max(r["seconds"][i] for r in a)
         log(f"[{label} a] step {i}: {s * 1e3:.1f} ms (ranks "
             f"{', '.join(f'{r['seconds'][i] * 1e3:.1f}' for r in a)}), "
@@ -3337,18 +3368,14 @@ def phase_mesh_train(torch, smi: str, train: dict) -> dict:
         f"{json.dumps(a[0]['launches'])}; {smi}")
 
     # (b) against the single process
-    b1, b2 = [r["b_save"] for r in ranks], [r["b_restart"] for r in ranks]
-    got = [r1["loss"] + r2["loss"] for r1, r2 in zip(b1, b2)]
-    got_norm = [r1["grad_norm"] + r2["grad_norm"] for r1, r2 in zip(b1, b2)]
-    b_loss = max(mt_within(g, gemma["loss"]) for g in got)
-    b_norm = max(mt_within(g, gemma["grad_norm"]) for g in got_norm)
+    b = [r["b"] for r in ranks]
+    b_loss = max(mt_within(r["loss"], gemma["loss"]) for r in b)
+    b_norm = max(mt_within(r["grad_norm"], gemma["grad_norm"]) for r in b)
     if not (b_loss <= TRAIN_LOSS_TOL and b_norm <= TRAIN_LOSS_TOL
-            and all(r["restored_from"] == [MT_B_SAVE] for r in b2)
-            and all(len(g) == MT_B_STEPS for g in got)):
+            and all(len(r["loss"]) == MT_B_STEPS for r in b)):
         raise AssertionError(
-            f"[{label} b] losses {got} against the single process's "
-            f"{gemma['loss']}; restored from "
-            f"{[r['restored_from'] for r in b2]}")
+            f"[{label} b] losses {[r['loss'] for r in b]} against the "
+            f"single process's {gemma['loss']}")
     gtok = MT_B_BATCH * (MT_B_SEQ + 1)
     log(f"[{label} b] {MT_B_ARCH} float32 at every published width, "
         f"{MT_B_LAYERS} of 28 layers ({gemma_params / 1e9:.3f} B "
@@ -3356,56 +3383,22 @@ def phase_mesh_train(torch, smi: str, train: dict) -> dict:
         f"{MT_B_SEQ + 1} tokens: the single process's {MT_B_STEPS} steps "
         f"{[round(x, 6) for x in gemma['loss']]} "
         f"({', '.join(f'{s * 1e3:.1f}' for s in gemma['seconds'])} ms); "
-        f"over {b1[0]['mesh']}: {MT_B_SAVE} steps "
-        f"({', '.join(f'{max(r['seconds'][i] for r in b1) * 1e3:.1f}' for i in range(MT_B_SAVE))} "
-        f"ms, {gtok / max(b1[0]['seconds']):.0f} tokens/s at the slower) "
-        f"and a save of {len(ranks[0]['ckpt_files'])} files, "
-        f"{ranks[0]['ckpt_bytes'] / 2**30:.2f} GiB, in "
-        f"{max(sum(r['save_s']) for r in b1):.1f} s (train_loop "
-        f"{max(r['wall_s'] for r in b1):.1f} s, peak "
-        f"{max(r['peak_gib'] for r in b1):.2f} GiB a rank); restarted over "
-        f"{b2[0]['mesh']} from step {b2[0]['restored_from']} (the restore "
-        f"{max(sum(r['restore_s']) for r in b2):.1f} s): "
-        f"{MT_B_STEPS - MT_B_SAVE} step "
-        f"({max(r['seconds'][-1] for r in b2) * 1e3:.1f} ms; train_loop "
-        f"with the restore and the last save "
-        f"({max(sum(r['save_s']) for r in b2):.1f} s) "
-        f"{max(r['wall_s'] for r in b2):.1f} s, peak "
-        f"{max(r['peak_gib'] for r in b2):.2f} GiB a rank): losses "
-        f"{[round(x, 6) for x in got[0]]}, the single process's within "
-        f"{b_loss:.3g}, gradient norms within {b_norm:.3g} (tol "
+        f"over {b[0]['mesh']}: {MT_B_STEPS} steps "
+        f"({', '.join(f'{max(r['seconds'][i] for r in b) * 1e3:.1f}' for i in range(MT_B_STEPS))} "
+        f"ms, {gtok / max(b[0]['seconds']):.0f} tokens/s at the slowest; "
+        f"train_loop {max(r['wall_s'] for r in b):.1f} s, peak "
+        f"{max(r['peak_gib'] for r in b):.2f} GiB a rank): losses "
+        f"{[round(x, 6) for x in b[0]['loss']]}, the single process's "
+        f"within {b_loss:.3g}, gradient norms within {b_norm:.3g} (tol "
         f"{TRAIN_LOSS_TOL}); {smi}")
-
-    # (c) against the single process
-    c_loss = max(mt_within(r["loss"], jamba["loss"]) for r in jranks)
-    c_norm = max(mt_within(r["grad_norm"], jamba["grad_norm"])
-                 for r in jranks)
-    c_want = train_launches(jcfg, MT_C_STEPS)
-    for r in jranks:
-        full = {**{k: 0 for k in r["launches"]}, **c_want}
-        if r["launches"] != full:
-            raise AssertionError(f"[{label} c] launches {r['launches']}, "
-                                 f"want {full}")
-    if not (c_loss <= TRAIN_LOSS_TOL and c_norm <= TRAIN_LOSS_TOL):
-        raise AssertionError(f"[{label} c] losses {[r['loss'] for r in jranks]}"
-                             f" against {jamba['loss']}")
-    log(f"[{label} c] {MT_C_ARCH} reduced over {jranks[0]['mesh']}: "
-        f"{MT_C_STEPS} steps of B={REDUCED_BATCH} x {REDUCED_SEQ + 1} "
-        f"tokens, losses {[round(x, 6) for x in jranks[0]['loss']]}, the "
-        f"single process's within {c_loss:.3g} (norms {c_norm:.3g}; tol "
-        f"{TRAIN_LOSS_TOL}); launches on each rank "
-        f"{json.dumps(jranks[0]['launches'])}; {smi}")
-    runs = [r["a"]["launches"] for r in ranks] + [
-        r[k]["launches"] for r in ranks for k in ("b_save", "b_restart")] + [
-        r["launches"] for r in jranks]
+    runs = [r[k]["launches"] for r in ranks for k in ("a", "b")]
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
     log(f"[{label}] launches over the ranks' main-path runs ((a)'s "
-        f"{TRAIN_STEPS} steps, (b)'s {MT_B_STEPS}, (c)'s {MT_C_STEPS} a "
-        f"rank): {json.dumps(launches)}")
+        f"{MT_A_STEPS} steps, (b)'s {MT_B_STEPS} a rank): "
+        f"{json.dumps(launches)}")
     return {"launches": launches, "step_ms": step_s * 1e3,
             "tokens_per_s": tokens / step_s, "gemma": gemma,
-            "gemma_peak_gib": max(r["peak_gib"] for r in b1),
-            "jamba": jamba, "jamba_cfg": jcfg, "jamba_weights": weights}
+            "gemma_peak_gib": max(r["peak_gib"] for r in b)}
 
 
 # ------------------------------------------------------------ phase 18f
@@ -3516,6 +3509,11 @@ def fsdp_rank(rank: int, world: int, where: str, ref: dict) -> None:
     cfg = build_model(MT_B_ARCH).cfg  # the published config
     out["a_save"] = mt_gemma(torch, make_mesh(FSDP_A_MESHES[0], axes,
                                               DEVICE), MT_B_SAVE, ckpt, cfg)
+    if rank == 0:
+        d = os.path.join(ckpt, f"step_{MT_B_SAVE}")
+        out["ckpt_files"] = sorted(os.listdir(d))
+        out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                                for f in out["ckpt_files"])
     out["a_restart"] = mt_gemma(torch, make_mesh(FSDP_A_MESHES[1], axes,
                                                  DEVICE), MT_B_STEPS, ckpt,
                                 cfg)
@@ -3540,10 +3538,10 @@ def fsdp_rank(rank: int, world: int, where: str, ref: dict) -> None:
 
 def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
     """FSDP over the data axis at the published plans: the single
-    processes first, in this process ((a) and (c) reuse 18e's; (b) and
-    (d) run here and are freed), then four spawned processes for (a),
-    (b) and (d) (``fsdp_rank``) and two for (c) (``mt_jamba_rank`` with
-    FSDP on). Returns the ranks' main-path launches summed."""
+    processes first, in this process ((a) reuses 18e (b)'s; (b) and (d)
+    run here and are freed), then four spawned processes for (a), (b)
+    and (d) (``fsdp_rank``). Returns the ranks' main-path launches
+    summed."""
     import shutil
     import tempfile
 
@@ -3581,27 +3579,19 @@ def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     single_s = time.perf_counter() - t0
-    jcfg = dataclasses.replace(mesh_train["jamba_cfg"], fsdp=True)
-    where = [tempfile.mkdtemp(prefix="fsdp_ranks_"),
-             tempfile.mkdtemp(prefix="fsdp_jamba_")]
+    where = tempfile.mkdtemp(prefix="fsdp_ranks_")
     try:
         t0 = time.perf_counter()
-        ranks = run_rank_processes(fsdp_rank, where[0], {
+        ranks = run_rank_processes(fsdp_rank, where, {
             "tokens": tokens, "steps": steps}, label, loader=torch.load)
         ranks_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        jranks = run_rank_processes(mt_jamba_rank, where[1], {
-            "cfg": jcfg, "weights": mesh_train["jamba_weights"]}, label,
-            world=2)
-        jranks_s = time.perf_counter() - t0
     finally:
-        for d in where:
-            shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(where, ignore_errors=True)
     log(f"[{label}] {EP_WORLD} ranks, one process each, sharing the card "
         f"(gloo on CUDA tensors), every model at its published plan "
         f"(fsdp=True, remat=\"full\"); the single processes ((b), (d)) "
         f"{single_s:.1f} s, the ranks' run for (b), (a) and (d) "
-        f"{ranks_s:.1f} s, (c)'s two ranks {jranks_s:.1f} s; {smi}")
+        f"{ranks_s:.1f} s; {smi}")
 
     # (a) against 18e (b)'s single process
     gemma = mesh_train["gemma"]
@@ -3626,17 +3616,20 @@ def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
         f"tokens: over {a1[0]['mesh']} {MT_B_SAVE} steps "
         f"({', '.join(f'{max(r['seconds'][i] for r in a1) * 1e3:.1f}' for i in range(MT_B_SAVE))} "
         f"ms, {gtok / max(max(r['seconds']) for r in a1):.0f} tokens/s at "
-        f"the slower) and a save in {max(sum(r['save_s']) for r in a1):.1f} "
-        f"s; restarted over {a2[0]['mesh']} from step "
-        f"{a2[0]['restored_from']} (the restore "
+        f"the slower) and a save of {len(ranks[0]['ckpt_files'])} files, "
+        f"{ranks[0]['ckpt_bytes'] / 2**30:.2f} GiB, in "
+        f"{max(sum(r['save_s']) for r in a1):.1f} s; restarted over "
+        f"{a2[0]['mesh']} from step {a2[0]['restored_from']} (the restore "
         f"{max(sum(r['restore_s']) for r in a2):.1f} s): "
         f"{MT_B_STEPS - MT_B_SAVE} step "
-        f"({max(r['seconds'][-1] for r in a2) * 1e3:.1f} ms); losses "
+        f"({max(r['seconds'][-1] for r in a2) * 1e3:.1f} ms) and its save "
+        f"({max(sum(r['save_s']) for r in a2):.1f} s); losses "
         f"{[round(x, 6) for x in got[0]]}, 18e (b)'s single process's "
         f"within {a_loss:.3g}, gradient norms within {a_norm:.3g} (tol "
         f"{TRAIN_LOSS_TOL}); peak memory a rank over the FSDP mesh "
         f"{', '.join(f'{r['peak_gib']:.2f}' for r in a1)} GiB, after the "
-        f"restart {', '.join(f'{r['peak_gib']:.2f}' for r in a2)} GiB, "
+        f"restart (no data axis to split over) "
+        f"{', '.join(f'{r['peak_gib']:.2f}' for r in a2)} GiB, "
         f"beside 18e (b)'s {mesh_train['gemma_peak_gib']:.2f} GiB a rank "
         f"without FSDP; {smi}")
 
@@ -3660,8 +3653,8 @@ def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
         f"{cfg.n_layers} of 24 layers, over (data {FSDP_B_MESH[0]}, model "
         f"{FSDP_B_MESH[1]}): {b[0]['held'] / 1e9:.3f} B parameters a rank "
         f"(FSDP's blocks); B={TRAIN_BATCH} x {TRAIN_SEQ + 1} tokens, "
-        f"{FSDP_B_STEPS} steps at lr {TRAIN_LR} (warmup-cosine's lr is 0 "
-        f"at step 0, so step 1 repeats step 0's loss): losses "
+        f"{FSDP_B_STEPS} step(s) at lr {TRAIN_LR} (warmup-cosine's lr is 0 "
+        f"at step 0): losses "
         f"{[round(x, 6) for x in b[0]['loss']]}, the single process's "
         f"{[round(x, 6) for x in moe['loss']]} within {b_loss:.3g} (norms "
         f"{b_norm:.3g}; tol {TRAIN_LOSS_TOL}); launches a rank "
@@ -3689,26 +3682,6 @@ def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
         f"{sum(r['peak_gib'] for r in b):.2f} GiB in all (the single "
         f"process's {moe['peak_gib']:.2f} GiB); {smi}")
 
-    # (c) against 18e (c)'s single process
-    jamba = mesh_train["jamba"]
-    c_loss = max(mt_within(r["loss"], jamba["loss"]) for r in jranks)
-    c_norm = max(mt_within(r["grad_norm"], jamba["grad_norm"])
-                 for r in jranks)
-    c_want = train_launches(jcfg, MT_C_STEPS)
-    for r in jranks:
-        full = {**{k: 0 for k in r["launches"]}, **c_want}
-        if r["launches"] != full:
-            raise AssertionError(f"[{label} c] launches {r['launches']}, "
-                                 f"want {full}")
-    if not (c_loss <= TRAIN_LOSS_TOL and c_norm <= TRAIN_LOSS_TOL):
-        raise AssertionError(f"[{label} c] losses "
-                             f"{[r['loss'] for r in jranks]} against "
-                             f"{jamba['loss']}")
-    log(f"[{label} c] {MT_C_ARCH} reduced with fsdp=True over "
-        f"{jranks[0]['mesh']}: {MT_C_STEPS} steps, losses "
-        f"{[round(x, 6) for x in jranks[0]['loss']]}, the single process's "
-        f"within {c_loss:.3g} (norms {c_norm:.3g}; tol {TRAIN_LOSS_TOL}); "
-        f"launches on each rank {json.dumps(jranks[0]['launches'])}; {smi}")
 
     # (d) against the single process
     d = [r["d"] for r in ranks]
@@ -3753,15 +3726,631 @@ def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
     runs = [r[k]["launches"] for r in ranks
             for k in ("b", "a_save", "a_restart")] + [
         r["d"][k] for r in ranks
-        for k in ("prefill_launches", "decode_launches")] + [
-        r["launches"] for r in jranks]
+        for k in ("prefill_launches", "decode_launches")]
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
     log(f"[{label}] launches over the ranks' main-path runs ((b)'s "
-        f"{FSDP_B_STEPS} steps, (a)'s {MT_B_STEPS}, (d)'s prefill and "
-        f"{FSDP_D_STEPS} decode steps, (c)'s {MT_C_STEPS} a rank): "
-        f"{json.dumps(launches)}")
+        f"{FSDP_B_STEPS} step(s), (a)'s {MT_B_STEPS}, (d)'s prefill and "
+        f"{FSDP_D_STEPS} decode steps a rank): {json.dumps(launches)}")
     return {"launches": launches,
             "b_step_ms": max(max(r["seconds"]) for r in b) * 1e3}
+
+
+# ------------------------------------------------------------ phase 18g
+def tph_config():
+    """HYBRID_ARCH at every published width, cut by TPH_CUTS."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(HYBRID_ARCH), **TPH_CUTS)
+
+
+def tph_train_config():
+    """(c)'s config: reduced HYBRID_ARCH at its published plan (``fsdp``,
+    ``remat="full"``) with ``capacity_factor`` 4.0, as the CPU
+    mesh-training tests set it under expert parallelism at dp 2 (a data
+    shard ranks its own tokens: at the published capacity the shards and
+    the single process drop other slots)."""
+    from repro_torch.configs import get_arch, reduced_config
+    return dataclasses.replace(reduced_config(get_arch(HYBRID_ARCH)),
+                               fsdp=True, remat="full", capacity_factor=4.0)
+
+
+def tph_routes(ids, B: int, steps: int, held: int):
+    """The recorded dispatches of ``steps`` decode steps (each MoE layer's
+    token ids over the slots of the ``held`` experts, a step's B tokens
+    the rows 0 .. B-1) as a (steps, MoE layers, B, held) bool array: the
+    experts that take each row."""
+    import numpy as np
+    out = np.zeros((len(ids), B, held), bool)
+    for i, t in enumerate(ids):
+        a = t.cpu().numpy().reshape(held, -1)
+        for e in range(held):
+            out[i, a[e][a[e] >= 0], e] = True
+    return out.reshape(steps, -1, B, held)
+
+
+@contextlib.contextmanager
+def router_margins(torch, record: list):
+    """Record, for every MoE layer call, each token's router margin: the
+    gap between its top_k-th and (top_k + 1)-th router logits over the
+    standard deviation of its logits (float32, as ``moe_apply`` routes);
+    a route that another summation order flips lies within a small one."""
+    from repro_torch.models import transformer as tf
+    real = tf.moe_apply
+
+    def recording(cfg, p, x, ctx):
+        logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
+        top = logits.topk(cfg.top_k + 1, dim=-1).values
+        record.append(((top[:, -2] - top[:, -1])
+                       / logits.std(dim=-1)).cpu().numpy())
+        return real(cfg, p, x, ctx)
+
+    tf.moe_apply = recording
+    try:
+        yield
+    finally:
+        tf.moe_apply = real
+
+
+def tph_decode(torch, model, tokens, ctx, kv_layout: str,
+               greedy: bool = False) -> tuple:
+    """``tp_decode`` with the MoE dispatches recorded: (the tokens fed,
+    each step's logits, the state after, ``tph_routes``, and each MoE
+    layer's router margins (steps, MoE layers, B), ``router_margins``)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    ids, margins = [], []
+    with torch.no_grad(), dispatch_ids(ops, ids), \
+            router_margins(torch, margins):
+        fed, steps, state = tp_decode(torch, model, tokens, ctx, greedy,
+                                      kv_layout)
+    held = model.get_parameter("groups.moe.w_up").shape[1]
+    B, n = fed.shape
+    return (fed, steps, state, tph_routes(ids, B, n, held),
+            np.stack(margins).reshape(n, -1, B))
+
+
+def tph_rows(got: list, want: list):
+    """(steps, B): each row's max |got - want| over its step's largest
+    |want|, over the vocab's columns."""
+    import numpy as np
+    return np.array([(np.abs(np.asarray(g, np.float32) - w).max(-1)
+                      / np.abs(w).max()) for g, w in zip(got, want)])
+
+
+def tph_held(errs, flipped, margins) -> dict:
+    """``flipped`` (steps, MoE layers, B): where some rank's routes are not
+    the single process's. The steps' rows whose routes, at every MoE layer
+    of this step and of the row's earlier steps, are the single
+    process's: the largest error among them and among the others; each
+    row's first flip (step, layer; none: -1) and the single process's
+    router margin there (``margins``, as ``flipped``), whose largest over
+    the rows is ``first_margin``: a flip that the sums' order explains
+    lies at a near-tie."""
+    import numpy as np
+    cum = np.logical_or.accumulate(flipped.any(axis=1), axis=0)
+    first, first_margins = [], []
+    for b in range(flipped.shape[2]):
+        at = np.argwhere(flipped[:, :, b])  # (step, layer), step-major
+        first.append([int(v) for v in at[0]] if len(at) else [-1, -1])
+        if len(at):
+            first_margins.append(float(margins[at[0][0], at[0][1], b]))
+    return {"flipped": int(cum.sum()), "rows": int(cum.size),
+            "held_err": float(errs[~cum].max(initial=0.0)),
+            "flipped_err": float(errs[cum].max(initial=0.0)),
+            "first_flip": first,
+            "first_margin": max(first_margins, default=0.0)}
+
+
+def tph_single(torch) -> dict:
+    """The single process of (a) in the parent, before the ranks: its
+    plain last logits, its flash prefill timed, its greedy paged decode
+    and the dense cache fed the same tokens (each with its MoE routes and
+    router margins recorded) and its paged serving; then freed."""
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(tph_config()).init_params(
+        torch.Generator(DEVICE).manual_seed(SEED), torch.bfloat16)
+    torch.cuda.synchronize()
+    out = {"params": model.param_count(),
+           "draw_s": time.perf_counter() - t0}
+    batch = prefill_batch(torch, model)
+    with torch.no_grad():
+        out["logits"] = model.forward(batch, Ctx(),
+                                      last_only=True)[0].cpu().numpy()
+        model.forward(batch, Ctx(use_flash=True), last_only=True)
+        walls = []
+        for _ in range(TP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward(batch, Ctx(use_flash=True), last_only=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out["prefill_s"] = sorted(walls)[len(walls) // 2]
+        fed, steps, _, routes, margins = tph_decode(
+            torch, model, tp_prompts(torch, model.cfg), None, "paged",
+            greedy=True)
+        out.update(fed=fed.cpu().numpy(), paged_routes=routes,
+                   paged_margins=margins, steps=[t.numpy() for t in steps])
+        _, steps, _, routes, margins = tph_decode(torch, model, fed, None,
+                                                  "dense")
+        out.update(dense_steps=[t.numpy() for t in steps],
+                   dense_routes=routes, dense_margins=margins)
+        served = serve_model(model, kv_layout="paged", page_size=PAGE_SIZE,
+                             **EP_SERVE)
+        out.update(served=served["outputs"], serve_s=served["seconds"],
+                   serve_tokens=served["tokens"],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tph_key(name: str, t) -> str:
+    """What a timed collective of 18g carries: the redistributions, the
+    float32 sums (``x_proj``'s partials), the bf16 ones (each split
+    product's), the conv windows' gathers (bf16) and the logits' (f32)."""
+    if name == "inner_halves":
+        return "redistribute"
+    kind = "sum" if name == "all_reduce" else "gather"
+    return f"{kind} {str(t.dtype).split('.')[-1]}"
+
+
+def tph_prefill(torch, mesh, ref: dict) -> dict:
+    """(a) on this rank: its slices of the cut jamba drawn in turns, a
+    warm prefill, the main path's (launches from 0, timed), one with each
+    collective timed alone and one under the profiler; the last logits
+    against the single process's plain ones; dense decode, then paged
+    decode, fed the single process's tokens, each with its MoE routes
+    recorded (the conv windows' bits gathered from every rank after the
+    dense one, and one more step with each collective timed alone); paged
+    serving."""
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx
+
+    model, ctx, draw_s = tp_rank_model(torch, mesh, tph_config(), None,
+                                       torch.bfloat16)
+    ctx = dataclasses.replace(ctx, ep_shard_map=True)
+    cfg, plan = model.cfg, ctx.plan
+    if plan.moe_strategy != "ep" or plan.kv_strategy != "heads":
+        raise AssertionError(f"18g plan: {plan.decisions}")
+    held = sum(p.numel() for p in model.parameters())
+    shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()
+              if k.startswith("groups.mamba.")}
+    batch = prefill_batch(torch, model)
+
+    def forward():
+        return model.forward(batch, ctx, last_only=True)[0]
+
+    with torch.no_grad():
+        forward()
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        if launches != expected_launches(cfg):
+            raise AssertionError(f"18g prefill launches {launches}")
+        dist.barrier()
+        spent, undo = timed_collectives(
+            torch, ("all_reduce", "inner_halves", "all_gather"), tph_key)
+        try:
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            timed_wall = time.perf_counter() - t0
+        finally:
+            undo()
+        prefill_spent = {k: sum(v) for k, v in spent.items()}
+        prefill_calls = {k: len(v) for k, v in spent.items()}
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if e not in copies]
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa
+                        or getattr(e, "self_cuda_time_total", 0.0))
+    V = cfg.vocab_size
+    err = rel_err(torch, logits[..., :V],
+                  torch.from_numpy(ref["logits"]).to(DEVICE)[..., :V])
+    finite = bool(torch.isfinite(logits[..., :V]).all())
+    del logits
+
+    # decode fed the single process's tokens, dense then paged: launches;
+    # each step's rows against the single process's where every rank's
+    # routes are its (a route that flips on the bf16 sums' order is
+    # counted, ROADMAP.md queue 3); after the dense steps the conv windows'
+    # bits on every rank and one step more with each collective timed alone
+    fed = torch.from_numpy(ref["fed"]).to(DEVICE)
+    n = fed.shape[1]
+    E_local = model.get_parameter("groups.moe.w_up").shape[1]
+    mine = slice(mesh.index("model") * E_local,
+                 (mesh.index("model") + 1) * E_local)
+    errs, flips, runs = {}, {}, []
+    for layout in ("dense", "paged"):
+        ops.reset_launch_counts()
+        _, steps, state, routes, _ = tph_decode(torch, model, fed, ctx,
+                                                layout)
+        torch.cuda.synchronize()
+        runs.append(ops.launch_counts())
+        want = decode_launches(cfg, n)
+        if layout == "dense":
+            want["paged_attention"] = 0
+        if runs[-1] != want:
+            raise AssertionError(f"18g {layout} decode launches {runs[-1]}")
+        key = "dense_steps" if layout == "dense" else "steps"
+        errs[layout] = tph_rows([t[:, :V].numpy() for t in steps],
+                                [w[:, :V] for w in ref[key]])
+        flips[layout] = (routes != ref[f"{layout}_routes"][..., mine]).any(
+            axis=3)  # (steps, MoE layers, B)
+        if layout == "paged":
+            continue
+        conv = hashlib.sha256(state.mamba.conv.float().cpu().numpy()
+                              .tobytes()).hexdigest()
+        h_shape, conv_shape = (tuple(state.mamba.h.shape),
+                               tuple(state.mamba.conv.shape))
+        spent, undo = timed_collectives(
+            torch, ("all_reduce", "inner_halves", "all_gather"), tph_key)
+        try:
+            dist.barrier()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.decode_step(fed[:, -1:], state, ctx)
+            torch.cuda.synchronize()
+            step_wall = time.perf_counter() - t0
+        finally:
+            undo()
+        decode_spent = {k: sum(v) for k, v in spent.items()}
+        decode_calls = {k: len(v) for k, v in spent.items()}
+        del state
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        served = serve_model(model, ctx=Ctx(plan=ctx.plan, mesh=ctx.mesh,
+                                            ep_shard_map=True),
+                             kv_layout="paged", page_size=PAGE_SIZE,
+                             **EP_SERVE)
+    runs.append(ops.launch_counts())
+    if runs[-1] != decode_launches(cfg, served["iters"]):
+        raise AssertionError(f"18g serve launches {runs[-1]}")
+    differ = sum(sum(a != b for a, b in zip(got, want))
+                 + abs(len(got) - len(want))
+                 for got, want in zip(served["outputs"], ref["served"]))
+    every = [None] * mesh.size
+    dist.all_gather_object(every, (conv, served["outputs"], flips))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(e[0] != every[0][0] for e in every):
+        raise AssertionError("18g: the ranks' conv windows differ")
+    if any(e[1] != every[0][1] for e in every):
+        raise AssertionError("18g: the ranks served different tokens")
+    # the rows whose routes every rank found to be the single process's
+    # are held at LOGITS_TOL; each row's first flip must lie at a near-tie
+    # of the single process's router (TPH_TIE)
+    hold = {k: tph_held(errs[k], np.any([e[2][k] for e in every], axis=0),
+                        ref[f"{k}_margins"]) for k in errs}
+    if not (finite and err < LOGITS_TOL and all(
+            h["held_err"] < LOGITS_TOL and h["first_margin"] <= TPH_TIE
+            for h in hold.values())):
+        raise AssertionError(f"18g logits off by {err} (prefill) of the "
+                             f"largest, or not finite; decode {hold}")
+    return {"held": held, "draw_s": draw_s, "shapes": shapes,
+            "wall_s": wall, "timed_wall_s": timed_wall,
+            "prefill_spent": prefill_spent, "prefill_calls": prefill_calls,
+            "busy_s": sum(dev_us(e) for e in kernels) / 1e6,
+            "copy_s": sum(dev_us(e) for e in copies) / 1e6,
+            "top": [(e.key[:60], dev_us(e) / 1e6) for e in
+                    sorted(kernels, key=dev_us, reverse=True)[:4]],
+            "err": err, "decode": hold, "h_shape": h_shape,
+            "conv_shape": conv_shape, "step_wall_s": step_wall,
+            "decode_spent": decode_spent, "decode_calls": decode_calls,
+            "peak_gib": peak, "served_differ": differ,
+            "serve_s": served["seconds"], "serve_tokens": served["tokens"],
+            "iters": served["iters"], "launches": [launches, *runs]}
+
+
+def tph_layer(torch, mesh) -> dict:
+    """(b) on this rank: one Mamba layer at jamba's full width in
+    float32, drawn whole from SEED (the same on every rank), first as the
+    single process runs it (``mamba_apply`` under ``Ctx()`` and its
+    autograd), then on the rank's slices under ``param_specs``; the output
+    and each leaf's gradient slice against the single process's."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core.planner import P, make_plan
+    from repro_torch.distributed.elastic import local_index
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models.params import flatten, initialize
+    from repro_torch.models.ssm import mamba_apply, mamba_defs
+
+    cfg = get_arch(HYBRID_ARCH)
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    whole = initialize(mamba_defs(cfg), gen, torch.float32, DEVICE)
+    x = torch.randn((1, PREFILL_SEQ, cfg.d_model), generator=gen,
+                    device=DEVICE)
+    g = torch.randn((1, PREFILL_SEQ, cfg.d_model), generator=gen,
+                    device=DEVICE)
+
+    def run(p, ctx):
+        leaves = {k: t.requires_grad_(True) for k, t in p.items()}
+        xin = x.clone().requires_grad_(True)
+        y = mamba_apply(cfg, leaves, xin, ctx)
+        grads = torch.autograd.grad(y, [xin, *leaves.values()], g)
+        return y.detach(), dict(zip(["x", *leaves], grads))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    y1, g1 = run({k: t.clone() for k, t in whole.items()}, Ctx())
+    plan = make_plan(cfg, mesh.shape, get_shape("prefill_32k"))
+    specs = flatten(build_model(cfg, 8).param_specs(plan))
+    ctx = Ctx(plan=plan, mesh=mesh)
+    index = {k: local_index(t.shape, P(*tuple(
+        specs[f"groups.mamba.{k}"])[1:]), mesh) for k, t in whole.items()}
+    mine = {k: t[index[k]].contiguous() for k, t in whole.items()}
+    del whole
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, grads = run(mine, ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    out_err = float((y - y1).abs().max() / y1.abs().max())
+    grad_err = {}
+    for k, got in grads.items():
+        want = g1[k] if k == "x" else g1[k][index[k]]
+        grad_err[k] = float((got - want).abs().max() / g1[k].abs().max())
+    shapes = {k: tuple(t.shape) for k, t in mine.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del y1, g1, y, grads, mine, x, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (out_err <= TPH_OUT_TOL
+            and max(grad_err.values()) <= TPH_GRAD_TOL):
+        raise AssertionError(f"18g (b): output {out_err:.3g}, gradients "
+                             f"{grad_err}")
+    want = {**{k: 0 for k in launches}, "ssm_scan": 1, "ssm_scan_bwd": 1}
+    if launches != want:
+        raise AssertionError(f"18g (b) launches {launches}")
+    return {"out_err": out_err, "grad_err": grad_err, "wall_s": wall,
+            "shapes": shapes, "peak_gib": peak, "launches": launches}
+
+
+def tph_train(torch, mesh, steps: int, ckpt: str, weights) -> dict:
+    """(c) on this rank: ``train_loop`` of ``tph_train_config()`` from
+    the single process's weights over ``mesh`` to step ``steps`` under
+    the supervisor, saving to (or resuming from) ``ckpt``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+
+    dist.barrier()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_loop(tph_train_config(), reduced=False, steps=steps,
+                     batch=REDUCED_BATCH, seq=REDUCED_SEQ, seed=SEED,
+                     weights=weights, mesh=mesh, ckpt_dir=ckpt,
+                     save_every=TPH_C_SAVE, log_every=steps + 1)
+    torch.cuda.synchronize()
+    res = {"wall_s": time.perf_counter() - t0,
+           "launches": ops.launch_counts(), **mt_history(out),
+           "restored_from": out["report"].restored_from,
+           "mesh": repr(mesh)}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tph_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of 18g's four, a process of its own: (a) and (b) over
+    (data 1, model 4), then (c) over TPH_C_MESHES (a save, then a
+    restart); its results go to ``where``/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mt_start_rank(torch, rank, world, where)
+    axes = ("data", "model")
+    mesh = make_mesh(EP_MESH, axes, DEVICE)
+    out = {"mesh": repr(mesh), "a": tph_prefill(torch, mesh, ref["a"]),
+           "b": tph_layer(torch, mesh)}
+    ckpt = os.path.join(where, "ckpt")
+    out["c_save"] = tph_train(torch, make_mesh(TPH_C_MESHES[0], axes,
+                                               DEVICE), TPH_C_SAVE, ckpt,
+                              ref["weights"])
+    out["c_restart"] = tph_train(torch, make_mesh(TPH_C_MESHES[1], axes,
+                                                  DEVICE), TPH_C_STEPS, ckpt,
+                                 ref["weights"])
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_hybrid_tp(torch, smi: str) -> dict:
+    """The hybrid family split over the model axis: the single processes
+    first, in this process ((a)'s cut jamba in bf16, then (c)'s reduced
+    training, each freed), then four spawned processes over the card
+    (``tph_rank``). Returns the ranks' main-path launches summed: (a)'s
+    timed prefill, dense and paged decode and serving, (b)'s layer and
+    (c)'s steps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+
+    label = "hybrid tp"
+    where = tempfile.mkdtemp(prefix="tph_ranks_")
+    try:
+        t0 = time.perf_counter()
+        a_ref = tph_single(torch)
+        margins = np.concatenate([a_ref["dense_margins"].ravel(),
+                                  a_ref["paged_margins"].ravel()])
+        log(f"[{label} a] the single process: flash prefill "
+            f"{a_ref['prefill_s'] * 1e3:.1f} ms; its decode's router "
+            f"margins (top-{tph_config().top_k} gap over the logits' std) "
+            f"at the 1st / 5th / 50th percentile "
+            f"{', '.join(f'{np.percentile(margins, q):.4f}' for q in (1, 5, 50))}")
+        tcfg = tph_train_config()
+        weights = build_model(tcfg).init_params(
+            torch.Generator().manual_seed(SEED), "float32").state_dict()
+        c_ref = mt_history(train_loop(
+            tcfg, reduced=False, steps=TPH_C_STEPS, batch=REDUCED_BATCH,
+            seq=REDUCED_SEQ, seed=SEED, weights=weights, device=DEVICE,
+            log_every=TPH_C_STEPS + 1))
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_rank_processes(tph_rank, where, {
+            "a": a_ref, "weights": weights}, label)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    a, b = [r["a"] for r in ranks], [r["b"] for r in ranks]
+    cfg = tph_config()
+    S, di = PREFILL_SEQ, cfg.ssm_expand * cfg.d_model
+    log(f"[{label}] {EP_WORLD} ranks, one process each, on one card as a "
+        f"(data {EP_MESH[0]}, model {EP_MESH[1]}) mesh: {ranks[0]['mesh']}; "
+        f"Mamba's inner ({di}) over the model axis, {di // EP_MESH[1]} "
+        f"channels a rank (in_proj {a[0]['shapes']['groups.mamba.in_proj']}"
+        f", x_proj {a[0]['shapes']['groups.mamba.x_proj']}, out_proj "
+        f"{a[0]['shapes']['groups.mamba.out_proj']} a rank), heads, ff and "
+        f"vocab as 18d, the experts as 18c; the single processes "
+        f"{single_s:.1f} s, the ranks' run {ranks_s:.1f} s")
+    wall = max(r["wall_s"] for r in a)
+    busy = sum(r["busy_s"] for r in a)
+    copied = sum(r["copy_s"] for r in a)
+    shares = {k: max(r["prefill_spent"][k] / r["timed_wall_s"] for r in a)
+              for k in a[0]["prefill_spent"]}
+    dshares = {k: max(r["decode_spent"][k] / r["step_wall_s"] for r in a)
+               for k in a[0]["decode_spent"]}
+    n_attn = n_attention_layers(cfg)
+    n_moe = cfg.n_layers // cfg.moe_period
+    log(f"[{label} a] {cfg.name} bf16, every published width, "
+        f"{cfg.n_layers // cfg.attn_period} group(s) of "
+        f"{cfg.attn_period} layers "
+        f"({cfg.n_layers - n_attn} Mamba, {n_attn} attention; {n_moe} MoE, "
+        f"{cfg.n_layers - n_moe} dense), {cfg.n_experts} of 16 experts "
+        f"({a_ref['params'] / 1e9:.3f} B "
+        f"parameters, {a_ref['params'] * 2 / 2**30:.1f} GiB; the single "
+        f"process's peak {a_ref['peak_gib']:.2f} GiB): "
+        f"{a[0]['held'] / 1e9:.3f} B a rank, drawn in turns in "
+        f"{max(r['draw_s'] for r in a):.1f} s; prefill B=1 S={S} after a "
+        f"warm run: {wall * 1e3:.1f} ms, {S / wall:.0f} tokens/s (ranks "
+        f"{', '.join(f'{r['wall_s'] * 1e3:.1f}' for r in a)} ms), against "
+        f"the single process's flash prefill {a_ref['prefill_s'] * 1e3:.1f}"
+        f" ms, {S / a_ref['prefill_s']:.0f} tokens/s in this run; peak "
+        f"memory a rank {', '.join(f'{r['peak_gib']:.2f}' for r in a)} GiB;"
+        f" the card's kernels {busy / wall:.1%} of the wall (the ranks' "
+        f"kernels, copies not counted: "
+        f"{', '.join(f'{r['busy_s'] * 1e3:.1f}' for r in a)} ms), its "
+        f"copies and memsets {copied / wall:.1%}; {smi}")
+    log(f"[{label} a] prefill with each collective timed alone (rank 0 "
+        f"{a[0]['timed_wall_s'] * 1e3:.1f} ms; calls a rank "
+        f"{json.dumps(a[0]['prefill_calls'])}): shares of the wall at the "
+        f"largest rank {json.dumps({k: round(v, 4) for k, v in shares.items()})}"
+        f" (rank 0's ms "
+        f"{json.dumps({k: round(v * 1e3, 1) for k, v in a[0]['prefill_spent'].items()})}"
+        f"); one dense decode step at B={TP_DECODE_BATCH} timed alike "
+        f"({max(r['step_wall_s'] for r in a) * 1e3:.1f} ms; calls "
+        f"{json.dumps(a[0]['decode_calls'])}): "
+        f"{json.dumps({k: round(v, 4) for k, v in dshares.items()})}; {smi}")
+    log(f"[{label} a] rank 0's top kernels: " + "; ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in a[0]["top"]))
+    dec = a[0]["decode"]  # the ranks hold the same logits and flips
+    log(f"[{label} a] last position's logits against the single process's "
+        f"plain forward: {max(r['err'] for r in a):.3g} of the largest "
+        f"(LOGITS_TOL {LOGITS_TOL}); decode fed the single process's "
+        f"greedy tokens ({TP_DECODE_STEPS} steps at B={TP_DECODE_BATCH}), "
+        f"each step's rows against the single process's: dense "
+        f"{json.dumps(dec['dense'])}, paged {json.dumps(dec['paged'])} "
+        f"(rows whose routes flipped at a MoE layer, then or earlier, on "
+        f"some rank; the others held at LOGITS_TOL; each row's first flip "
+        f"(step, layer) at the single process's router margin within "
+        f"TPH_TIE {TPH_TIE}); a rank's Mamba state h {a[0]['h_shape']} "
+        f"and conv window {a[0]['conv_shape']}, the windows the same bits "
+        f"on every rank; paged serving {a[0]['serve_tokens']} tokens in "
+        f"{a[0]['serve_s']:.1f} s ({a[0]['iters']} steps; the single "
+        f"process {a_ref['serve_tokens']} in {a_ref['serve_s']:.1f} s), the "
+        f"same tokens on every rank, {a[0]['served_differ']} of them differ "
+        f"from the single process's")
+    log(f"[{label} b] one Mamba layer of {HYBRID_ARCH} at full width "
+        f"(d {cfg.d_model}, di {di}, N {cfg.d_state}) in float32, x (1, "
+        f"{S}, {cfg.d_model}): the rank's slices "
+        f"{json.dumps({k: list(v) for k, v in b[0]['shapes'].items()})}; "
+        f"forward and backward {max(r['wall_s'] for r in b) * 1e3:.1f} ms "
+        f"at the slowest rank (P4 and its backward once each on every "
+        f"rank); output within {max(r['out_err'] for r in b):.3g} of its "
+        f"largest value (tol {TPH_OUT_TOL}), each gradient slice within "
+        f"{json.dumps({k: float(f'{max(r['grad_err'][k] for r in b):.3g}') for k in b[0]['grad_err']})}"
+        f" of its leaf's largest (tol {TPH_GRAD_TOL}) of the single "
+        f"process's; peak memory a rank "
+        f"{max(r['peak_gib'] for r in b):.2f} GiB; {smi}")
+    c1, c2 = [r["c_save"] for r in ranks], [r["c_restart"] for r in ranks]
+    got = [r1["loss"] + r2["loss"] for r1, r2 in zip(c1, c2)]
+    got_norm = [r1["grad_norm"] + r2["grad_norm"] for r1, r2 in zip(c1, c2)]
+    c_loss = max(mt_within(x, c_ref["loss"]) for x in got)
+    c_norm = max(mt_within(x, c_ref["grad_norm"]) for x in got_norm)
+    tcfg = tph_train_config()
+    for runs, steps in ((c1, TPH_C_SAVE), (c2, TPH_C_STEPS - TPH_C_SAVE)):
+        want = train_launches(tcfg, steps)
+        for r in runs:
+            full = {**{k: 0 for k in r["launches"]}, **want}
+            if r["launches"] != full:
+                raise AssertionError(f"[{label} c] launches {r['launches']},"
+                                     f" want {full}")
+    if not (c_loss <= TRAIN_LOSS_TOL and c_norm <= TRAIN_LOSS_TOL
+            and all(r["restored_from"] == [TPH_C_SAVE] for r in c2)
+            and all(len(x) == TPH_C_STEPS for x in got)):
+        raise AssertionError(
+            f"[{label} c] losses {got} against the single process's "
+            f"{c_ref['loss']}; restored from "
+            f"{[r['restored_from'] for r in c2]}")
+    log(f"[{label} c] {HYBRID_ARCH} reduced at its published plan (fsdp, "
+        f"remat full; capacity_factor 4.0): {TPH_C_SAVE} steps over "
+        f"{c1[0]['mesh']} and a save, a restart over {c2[0]['mesh']} from "
+        f"step {c2[0]['restored_from']} for step {TPH_C_STEPS}: losses "
+        f"{[round(x, 6) for x in got[0]]}, the single process's within "
+        f"{c_loss:.3g}, gradient norms within {c_norm:.3g} (tol "
+        f"{TRAIN_LOSS_TOL}); launches a rank {json.dumps(c1[0]['launches'])}"
+        f" and {json.dumps(c2[0]['launches'])}; train_loop "
+        f"{max(r['wall_s'] for r in c1):.1f} s and "
+        f"{max(r['wall_s'] for r in c2):.1f} s; {smi}")
+    runs = [run for r in a for run in r["launches"]] + [
+        r["launches"] for r in b] + [r["launches"] for r in c1 + c2]
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    log(f"[{label}] launches over the ranks' main-path runs ((a)'s timed "
+        f"prefill, dense and paged decode and serving, (b)'s layer, (c)'s "
+        f"{TPH_C_STEPS} steps a rank): {json.dumps(launches)}")
+    return {"launches": launches, "tokens_per_s": S / wall,
+            "single_tokens_per_s": S / a_ref["prefill_s"]}
 
 
 # ------------------------------------------------------------- phase 19
@@ -4934,10 +5523,21 @@ def main() -> int:
         f"{fsdp['b_step_ms']:.1f} ms at its slowest step; {smi}")
     log(f"[timing] FSDP phase: {time.perf_counter() - t0:.1f} s (run so far "
         f"{time.perf_counter() - start:.1f} s)")
+    t0 = time.perf_counter()
+    hybrid_tp = phase_hybrid_tp(torch, smi)
+    runs.append(hybrid_tp["launches"])
+    log(f"[summary] {HYBRID_ARCH} bf16, one group of 8 layers at "
+        f"{TPH_CUTS['n_experts']} experts, over a (data {EP_MESH[0]}, model "
+        f"{EP_MESH[1]}) mesh of {EP_WORLD} processes on the card: prefill "
+        f"{hybrid_tp['tokens_per_s']:.0f} tokens/s against the single "
+        f"process's {hybrid_tp['single_tokens_per_s']:.0f}; {smi}")
+    log(f"[timing] hybrid tensor-parallel phase: "
+        f"{time.perf_counter() - t0:.1f} s (run so far "
+        f"{time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18, the training phases and "
-        f"the expert-parallel, tensor-parallel, mesh-training and FSDP "
-        f"phases' ranks: {json.dumps(launches)}")
+        f"the expert-parallel, tensor-parallel, mesh-training, FSDP and "
+        f"hybrid tensor-parallel phases' ranks: {json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)
     q1 = phase_q1(torch, smi, rel)

@@ -14,7 +14,7 @@ other call hands its tensors over as they are, and gloo stages them
 itself. That is the transport of ranks sharing one card
 (``launch.mesh.backend_for``).
 
-Three of them are also autograd functions. Two are the pair of tensor
+Four of them are also autograd functions. Two are the pair of tensor
 parallelism over a group whose ranks all compute the same loss:
 :func:`sum_forward` (an all-reduce forward, the gradient passed as it is)
 ends a split product, and :func:`sum_backward` (the identity forward, the
@@ -22,7 +22,11 @@ gradient all-reduced) starts one. The third is FSDP's over the data axis,
 whose ranks each compute their own shard's part of the loss:
 :func:`gather_data` all-gathers a leaf's blocks forward and
 reduce-scatters the float32 gradient back to the rank's block, which is
-then the sum of every shard's gradient of it.
+then the sum of every shard's gradient of it. The fourth,
+:func:`inner_halves`, hands Mamba's ``in_proj`` output from the
+contiguous column blocks that its spec gives the ranks of the model axis
+to each rank's channels of both halves (``xb`` and ``z``), by one
+``all_to_all`` of uneven splits, and its gradient back the same way.
 ``torch.distributed.nn.functional`` is not used: its all-gather sums the
 gradient over the ranks, which counts a loss that every rank computes the
 same way once a rank.
@@ -33,7 +37,7 @@ import torch
 
 __all__ = ["all_reduce", "all_reduce_max", "reduce_scatter", "all_gather",
            "all_to_all", "broadcast", "gather_to_first", "ring_shift",
-           "sum_forward", "sum_backward", "gather_data"]
+           "sum_forward", "sum_backward", "gather_data", "inner_halves"]
 
 
 def _dist():
@@ -80,12 +84,15 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.view(n, *src.shape).movedim(0, dim).flatten(dim, dim + 1)
 
 
-def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(t: torch.Tensor, group, send=None, recv=None
+               ) -> torch.Tensor:
     """Block j of ``t``'s first dim to group rank j; block j of the result
-    from group rank j (``all_to_all(..., 0, 0, tiled=True)``)."""
+    from group rank j (``all_to_all(..., 0, 0, tiled=True)``). With
+    ``send`` and ``recv`` (rows a group rank, adding up to ``t``'s first
+    dim both) the blocks are those sizes, some of them empty."""
     src = t.contiguous()
     out = torch.empty_like(src)
-    _dist().all_to_all_single(out, src, group=group)
+    _dist().all_to_all_single(out, src, recv, send, group=group)
     return out
 
 
@@ -196,3 +203,67 @@ def gather_data(t: torch.Tensor, dim: int, group,
     if torch.is_grad_enabled() and t.requires_grad:
         return _GatherData.apply(t, dim % t.dim(), group, summed)
     return all_gather(t, group, dim)
+
+
+def _halves_plan(n: int, r: int, w: int):
+    """Group rank r of n holding columns [2rw, 2rw + 2w) of an (.., 2nw)
+    product whose first nw columns are ``xb`` and the rest ``z``: the
+    rows it sends to each rank (its two w-blocks, block b to rank b mod
+    n), whether it sends them swapped (in rank order), and the rows it
+    receives from each (``xb``'s block r from rank r // 2, then ``z``'s
+    from rank (n + r) // 2)."""
+    send, recv = [0] * n, [0] * n
+    dests = [(2 * r) % n, (2 * r + 1) % n]
+    for d in dests:
+        send[d] += w
+    recv[r // 2] += w
+    recv[(n + r) // 2] += w
+    return send, dests[0] > dests[1], recv
+
+
+def _swap(t: torch.Tensor, w: int) -> torch.Tensor:
+    return torch.cat([t[w:], t[:w]])
+
+
+def _to_channels(xz: torch.Tensor, group) -> torch.Tensor:
+    if xz.shape[-1] % 2:
+        raise ValueError(
+            f"a rank's in_proj block of {xz.shape[-1]} columns does not "
+            f"split into its channels of xb and z: the model axis must "
+            f"divide Mamba's inner width")
+    dist = _dist()
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    w = xz.shape[-1] // 2
+    send, swapped, recv = _halves_plan(n, r, w)
+    t = xz.movedim(-1, 0)
+    out = all_to_all(_swap(t, w) if swapped else t, group, send, recv)
+    return out.movedim(0, -1)
+
+
+class _InnerHalves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xz, group):
+        ctx.group = group
+        return _to_channels(xz, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist = _dist()
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        w = g.shape[-1] // 2
+        send, swapped, recv = _halves_plan(n, r, w)
+        out = all_to_all(g.movedim(-1, 0), ctx.group, recv, send)
+        return (_swap(out, w) if swapped else out).movedim(0, -1), None
+
+
+def inner_halves(xz: torch.Tensor, group) -> torch.Tensor:
+    """A rank's block of ``x @ in_proj`` (its 2w contiguous columns of
+    the 2·di, as ``param_specs`` splits the leaf over the model axis) ->
+    ``[xb | z]`` of its w = di/n channels: channels rw .. rw + w - 1 of
+    both halves. One ``all_to_all`` whose every rank sends its two
+    blocks and receives two (an all-gather and a slice would move n/2
+    times the bytes); the gradient goes back by the inverse one. An odd
+    block raises ValueError."""
+    if torch.is_grad_enabled() and xz.requires_grad:
+        return _InnerHalves.apply(xz, group)
+    return _to_channels(xz, group)

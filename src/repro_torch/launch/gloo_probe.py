@@ -36,7 +36,8 @@ WORLD = 2
 WRONG = 3  # a rank's exit code when its values are not the ones wanted
 PROBES = ["all_reduce", "all_reduce_bf16", "broadcast",
           "reduce_scatter_tensor", "all_gather_into_tensor",
-          "all_to_all_single", "batch_isend_irecv"]
+          "all_to_all_single", "all_to_all_single_uneven",
+          "batch_isend_irecv"]
 
 
 def run_probe(name: str, rank: int, dev: torch.device) -> tuple:
@@ -67,6 +68,13 @@ def run_probe(name: str, rank: int, dev: torch.device) -> tuple:
         out = torch.empty(2, device=dev)
         dist.all_to_all_single(out, src)
         return out, [float(rank), 10.0 + rank]
+    if name == "all_to_all_single_uneven":  # split sizes, as inner_halves
+        src = torch.tensor([10.0 * rank, 10.0 * rank + 1, 10.0 * rank + 2],
+                           device=dev)
+        out = torch.empty(3, device=dev)
+        splits = [1, 2] if rank == 0 else [2, 1]
+        dist.all_to_all_single(out, src, splits, splits)
+        return out, [0.0, 10.0, 11.0] if rank == 0 else [1.0, 2.0, 12.0]
     if name == "batch_isend_irecv":
         src = torch.full((4,), float(rank), device=dev)
         out = torch.empty(4, device=dev)

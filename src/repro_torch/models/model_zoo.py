@@ -187,13 +187,14 @@ class Model(nn.Module):
         ``kv_layout="paged"``, the paged pool of ``page_size``-token pages
         (``transformer.init_decode_state``); dtype defaults to the config's
         ``param_dtype`` and device to the parameters' device. The caches
-        hold the kv heads the model computes (``kv_heads_held``)."""
+        hold the kv heads the model computes (``kv_heads_held``), a hybrid
+        model's Mamba states its channels (``inner_held``)."""
         return tf.init_decode_state(
             self.cfg, batch, max_seq,
             pp.torch_dtype(dtype or self.cfg.param_dtype),
             device or self.device, kv_dtype=kv_dtype, kv_layout=kv_layout,
             page_size=page_size, num_pages=num_pages,
-            kv_heads=self.kv_heads_held())
+            kv_heads=self.kv_heads_held(), inner=self.inner_held())
 
     def kv_heads_held(self) -> Optional[int]:
         """The kv heads this model's attention computes, and so its decode
@@ -208,6 +209,15 @@ class Model(nn.Module):
             return attn_heads(self.cfg, attn.wq.shape[-1],
                               attn.wk.shape[-1])[1]
         return None
+
+    def inner_held(self) -> Optional[int]:
+        """The Mamba channels this model computes, and so the width of its
+        decode state's ``h``: di, or on a rank of a mesh the di/tp of its
+        slices of ``inner`` (read from ``D``); None without Mamba."""
+        try:
+            return self.get_submodule("groups.mamba").D.shape[-1]
+        except AttributeError:
+            return None
 
     def decode_state_specs(self, plan: ShardingPlan,
                            kv_dtype: Optional[str] = None):

@@ -26,15 +26,17 @@ vlm and hybrid families) whose every attention layer reads through the
 paged-attention kernel. ``decode_step`` dispatches on the state's type.
 
 Over a mesh (``Ctx(plan=, mesh=)`` with a model axis of tp > 1) a rank
-runs the uniform stacks (dense, MoE, vlm) on the slices of every leaf that
-``Model.param_specs`` places: the embedding's vocab rows, its heads, its
-ff columns and rows, its experts under expert parallelism, the head's
+runs the uniform stacks (dense, MoE, vlm) and the hybrid stack on the
+slices of every leaf that ``Model.param_specs`` places: the embedding's
+vocab rows, its heads, its ff columns and rows, its experts under expert
+parallelism, Mamba's ``inner`` channels (``models.ssm``), the head's
 vocab columns; norms, positions and the router whole. The residual stream
 is whole on every rank: each split product ends in one all-reduce over the
-model axis (the embedding, each layer's attention and feed-forward), and
-the logits in one all-gather along the vocab, so every rank holds the same
-logits. A rank's decode state holds the kv heads it computes
-(``attention.attn_heads``). The hybrid, ssm and audio families and the
+model axis (the embedding, each layer's attention, Mamba block and
+feed-forward), and the logits in one all-gather along the vocab, so every
+rank holds the same logits. A rank's decode state holds the kv heads it
+computes (``attention.attn_heads``) and its channels of each Mamba
+layer's ``h``, the conv windows whole. The ssm and audio families and the
 MoE "tp" strategy raise NotImplementedError on such a mesh
 (``check_split``); on a mesh of data shards alone (tp 1) every family runs
 on its shard of the batch.
@@ -151,14 +153,16 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 # Where the split over the model axis is not ported, the ROADMAP item
 # (queue 1) that takes it up
-_SPLIT_ITEMS = {"hybrid": 14, "ssm": 15, "audio": 16}
+_SPLIT_ITEMS = {"ssm": 15, "audio": 16}
 
 
 def check_split(cfg: ArchConfig, ctx: Ctx) -> None:
     """Raise NotImplementedError for what a rank of a mesh cannot run: on
-    a model axis of tp > 1 the hybrid (Mamba's ``inner`` over the model
-    axis), ssm and audio families and the MoE "tp" strategy (experts that
-    do not divide the model axis)."""
+    a model axis of tp > 1 the ssm and audio families and the MoE "tp"
+    strategy (experts that do not divide the model axis). The hybrid
+    family runs there: Mamba's ``inner`` over the model axis
+    (``models.ssm``), its attention and MoE layers as the uniform
+    stack's."""
     if ctx.tp == 1:
         return
     if cfg.family in _SPLIT_ITEMS:
@@ -436,7 +440,7 @@ def _jamba_stack(cfg, groups, x, positions, ctx):
         p = _take(groups[kind], i, dims.get(kind), ctx)
         if kind == "attn":
             h = h + attention_block(cfg, p, z, positions, causal=True,
-                                    use_flash=ctx.use_flash)
+                                    use_flash=ctx.use_flash, ctx=ctx)
         else:
             h = h + mamba_apply(cfg, p, z, ctx)
         m, layer_aux = _channel(cfg, groups, layer, h, ctx)
@@ -546,10 +550,13 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       kv_dtype: Optional[str] = None,
                       kv_layout: str = "dense", page_size: int = 64,
                       num_pages: Optional[int] = None,
-                      kv_heads: Optional[int] = None):
+                      kv_heads: Optional[int] = None,
+                      inner: Optional[int] = None):
     """The decode state for ``batch`` sequences of up to ``max_seq`` tokens,
     its caches holding ``kv_heads`` kv heads (default the config's; a
-    rank of a mesh, the ones it computes).
+    rank of a mesh, the ones it computes) and a hybrid config's Mamba
+    ``h`` states ``inner`` channels (default all; a rank, its own), the
+    conv windows whole.
 
     ``kv_layout="dense"`` gives a ``DecodeState``. Its caches are in
     ``kv_dtype`` where given, else ``dtype``: ``"int8"`` with float32
@@ -609,7 +616,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
         g = cfg.attn_period
         n_attn = cfg.n_layers // g
         mamba = mamba_init_state(cfg, batch, dtype, device,
-                                 n_attn * (g - 1))
+                                 n_attn * (g - 1), inner)
     K, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     if kv_layout == "paged":
         per_seq = -(-max_seq // page_size)
@@ -806,10 +813,10 @@ def _hybrid_decode(cfg: ArchConfig, groups: Dict, x: torch.Tensor, state,
                                   dims.get(kind + "_ln"), ctx), x)
         p = _take(groups[kind], i, dims.get(kind), ctx)
         if kind == "attn":
-            h = x + _attn_decode(cfg, p, z, state, i, paged)
+            h = x + _attn_decode(cfg, p, z, state, i, paged, ctx)
         else:
             mine = MambaState(h=state.mamba.h[i], conv=state.mamba.conv[i])
-            y, new = mamba_decode_step(cfg, p, z, mine)
+            y, new = mamba_decode_step(cfg, p, z, mine, ctx)
             mine.h.copy_(new.h)
             mine.conv.copy_(new.conv)
             h = x + y

@@ -1272,3 +1272,90 @@ def test_fsdp_training_over_four_ranks_on_the_card(torch, tmp_path):
         assert r["launches"]["moe_gather"] == 2 * 3 * cfg.n_layers
         assert r["launches"]["moe_gather_bwd"] == 3 * cfg.n_layers
         assert r["launches"]["flash_attention"] == 0
+
+
+def test_hybrid_split_over_four_ranks_on_the_card(torch, tmp_path):
+    """The hybrid split at its smallest: reduced jamba (Mamba's ``inner``
+    over the model axis, a quarter of the channels a rank) over a (data
+    1, model 4) mesh of four processes sharing the card, float32: the
+    prefill through flash and P4 on each rank's channels against the
+    single process's plain forward on the card within 2e-3 of
+    log_softmax, its paged decode within 1e-5 of the largest logit and
+    its paged serving the single process's; ``inner_halves`` on CUDA
+    tensors (gloo's all-to-all of uneven splits) exactly the rank's
+    channels, and one Mamba layer's output and gradients (P4 and its
+    backward on the rank's channels) within 1e-5 and 1e-4 of the single
+    process's on the card."""
+    import dataclasses
+
+    from torch_mesh_ranks import Grid, _teacher_forced, run_ranks
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.distributed.elastic import local_index
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models.ssm import mamba_apply
+    cfg = reduced_config(get_arch("jamba15_large"))
+    model = build_model(cfg).init_params(
+        torch.Generator("cuda").manual_seed(0), torch.float32)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 64), dtype=np.int32)
+    dec = rng.integers(0, cfg.vocab_size, (2, 4), dtype=np.int32)
+    serve = {"n_requests": 4, "max_new": 6, "batch_size": 2}
+    di = cfg.ssm_expand * cfg.d_model
+    layer = {k: v[0].detach().cpu().numpy().copy()
+             for k, v in model.params()["groups"]["mamba"].items()}
+    x = rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32)
+    gy = rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32)
+    xz = rng.standard_normal((2, 8, 2 * di)).astype(np.float32)
+    with torch.no_grad():
+        want = model.forward({"tokens": torch.from_numpy(tokens).cuda()},
+                             Ctx())[0]
+        steps = _teacher_forced(model, torch.from_numpy(dec).cuda(), None,
+                                kv_layout="paged", page_size=4)
+        served = serve_model(model, kv_layout="paged", page_size=4,
+                             **serve)["outputs"]
+    p = {k: torch.from_numpy(v).cuda().requires_grad_(True)
+         for k, v in layer.items()}
+    xt = torch.from_numpy(x).cuda().requires_grad_(True)
+    y1 = mamba_apply(cfg, p, xt, Ctx())
+    g1 = dict(zip(["x", *p], torch.autograd.grad(
+        y1, [xt, *p.values()], torch.from_numpy(gy).cuda())))
+    y1 = y1.detach().cpu()
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    ranks = run_ranks(tmp_path, {"checks": ["tp", "hybrid"], "tp": [{
+        "name": "jamba", "cfg": dataclasses.asdict(cfg), "mesh": (1, 4),
+        "shape": "prefill_32k", "use_flash": True, "tokens": tokens,
+        "decode": dec, "serve": serve, "state": state}], "hybrid": [{
+            "name": "jamba", "cfg": dataclasses.asdict(cfg), "mesh": (1, 4),
+            "xz": xz, "g": xz, "layer": layer, "x": x, "gy": gy,
+            "state": state, "decode": dec}]}, device="cuda")
+    want = torch.log_softmax(want.cpu(), dim=-1)
+    w = di // 4
+    for r in ranks:
+        res = r["tp"]["jamba"]
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert res["shapes"]["groups.mamba.D"][-1] == w
+        err = float((torch.log_softmax(res["logits"], dim=-1) - want)
+                    .abs().max())
+        assert err < 2e-3, err
+        assert res["launches"]["ssm_scan"] == cfg.n_layers // 2
+        assert res["launches"]["flash_attention"] == cfg.n_layers // 2
+        for got, ref in zip(res["decode"]["paged"], steps):
+            assert float((got - ref).abs().max()
+                         / ref.abs().max()) < 1e-5
+        assert res["served"]["paged"] == served
+        hy = r["hybrid"]["jamba"]
+        m = hy["coords"]["model"]
+        assert np.array_equal(hy["halves"].numpy(), np.concatenate(
+            [xz[..., m * w:(m + 1) * w], xz[..., di + m * w:di + (m + 1) * w]],
+            -1))
+        assert float((hy["y"] - y1).abs().max()) <= \
+            1e-5 * float(y1.abs().max())
+        grid = Grid({"data": 1, "model": 4}, data=0, model=m)
+        for key, got in hy["grads"].items():
+            full = g1[key].cpu()
+            mine = full if key == "x" else full[local_index(
+                full.shape, hy["layer_specs"][key], grid)]
+            assert float((got - mine).abs().max()) <= \
+                1e-4 * float(full.abs().max()), key

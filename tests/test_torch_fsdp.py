@@ -20,7 +20,9 @@ gemma-7b (tied table over ``(model, data)``) and internvl2-26b (vlm) on
 microbatches, on (2, 1), at the published capacity; phi3.5-moe under
 expert parallelism on (2, 2) (``capacity_factor`` 4.0, as
 tests/test_torch_mesh_train.py sets it there); jamba, xlstm and whisper
-on (2, 1); phi3-mini with int8 and top-k compression on (2, 2); and
+on (2, 1); jamba on (2, 2) (``in_proj`` over ``data`` and ``model``, the
+rest of Mamba's ``inner`` over ``model``, its MoE under expert
+parallelism, ``capacity_factor`` 4.0); phi3-mini with int8 and top-k compression on (2, 2); and
 gemma-7b on (2, 1) at a plan whose global batch (1) does not split over
 the data axis, so every rank steps the whole batch and a gathered leaf's
 gradient comes back as the rank's block without a sum. Held with
@@ -89,6 +91,7 @@ CASES = [
     ("qwen2_moe_2x1_micro2", "qwen2_moe", (2, 1), {"micro": 2}),
     ("phi35_moe_2x2", "phi35_moe", (2, 2), {}),
     ("jamba_2x1", "jamba15_large", (2, 1), {}),
+    ("jamba_2x2", "jamba15_large", (2, 2), {}),
     ("xlstm_2x1", "xlstm_125m", (2, 1), {}),
     ("whisper_2x1", "whisper_small", (2, 1), {}),
     ("phi3_2x2_int8", "phi3_mini", (2, 2), {"scheme": "int8"}),

@@ -18,9 +18,12 @@ internvl2-26b (vlm) on (2, 2), qwen2-moe (expert parallelism, qkv bias,
 "sequence") on (1, 4), phi3.5-moe (expert parallelism, the aux at dp 2)
 on (2, 2) with ``capacity_factor`` 4.0, as tests/test_multidevice.py sets
 it (under expert parallelism a data shard ranks its own tokens, as the
-reference's shard_map does), qwen2-moe on (2, 1) with 2 microbatches and
-jamba, xlstm and whisper on (2, 1): the plain MoE path at the published
-capacity, whose slots are ranked over the global batch, drops included.
+reference's shard_map does), jamba on (1, 2) (Mamba's ``inner`` over
+``model``: the ``in_proj`` redistribution, the partial ``x_proj`` sums
+and P4's backward on the rank's channels; its MoE under expert
+parallelism), qwen2-moe on (2, 1) with 2 microbatches and jamba, xlstm
+and whisper on (2, 1): the plain MoE path at the published capacity,
+whose slots are ranked over the global batch, drops included.
 Labels are masked (-1) unevenly between the data shards.
 
 Held, as tests/test_torch_train.py holds the single process: each step's
@@ -95,6 +98,7 @@ CASES = [
     ("phi35_moe_2x2", "phi35_moe", (2, 2), {}),
     ("qwen2_moe_2x1_micro2", "qwen2_moe", (2, 1), {"micro": 2}),
     ("jamba_2x1", "jamba15_large", (2, 1), {}),
+    ("jamba_1x2", "jamba15_large", (1, 2), {}),
     ("xlstm_2x1", "xlstm_125m", (2, 1), {}),
     ("whisper_2x1", "whisper_small", (2, 1), {}),
 ]

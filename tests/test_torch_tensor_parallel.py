@@ -8,8 +8,9 @@ logits' all-gather (``Ctx(plan=, mesh=)``).
 
 * The forward of reduced qwen2.5-32b (GQA, qkv bias), gemma-7b (tied,
   MHA, hd 256), nemotron-4-340b (relu2, untied), phi3-mini, internvl2-26b
-  (vlm, with patches), qwen2-moe and phi3.5-moe on (1, 2), (1, 4) and
-  (2, 2) meshes, float32, a data shard of the batch a data coordinate:
+  (vlm, with patches), qwen2-moe, phi3.5-moe and jamba-1.5-large (hybrid:
+  Mamba's ``inner`` over ``model``, its attention and MoE layers as the
+  uniform stack's) on (1, 2), (1, 4) and (2, 2) meshes, float32, a data shard of the batch a data coordinate:
   log_softmax within 2e-3 of the reference's single-device forward
   (tests/test_multidevice.py's bound) on the weights carried across by
   ``models/convert.py``, and within 1e-5 of the largest logit of the
@@ -29,8 +30,8 @@ logits' all-gather (``Ctx(plan=, mesh=)``).
   ``init_shards`` draws the very slices of ``init_params``;
   ``Checkpointer.restore(specs=, mesh=)`` onto (1, 2) gives the same
   forward.
-* Refusals: the hybrid, ssm and audio families and the MoE "tp"
-  strategy raise on a model axis of tp > 1, and so does a q_dim split
+* Refusals: the ssm and audio families and the MoE "tp" strategy raise
+  on a model axis of tp > 1, and so does a q_dim split
   inside a head, each naming its ROADMAP item (FSDP over a data axis runs:
   tests/test_torch_fsdp.py).
 """
@@ -50,7 +51,7 @@ from torch_parity import carry
 EP_TOL = 2e-3  # tests/test_multidevice.py's bound on log_softmax
 PORT_TOL = 1e-5  # of the largest logit, against the port's single process
 ARCHS = ["qwen25_32b", "gemma_7b", "nemotron4_340b", "phi3_mini",
-         "internvl2_26b", "qwen2_moe", "phi35_moe"]
+         "internvl2_26b", "qwen2_moe", "phi35_moe", "jamba15_large"]
 MESHES = [(1, 2), (1, 4), (2, 2)]
 B, S, STEPS = 4, 16, 4
 SERVE = {"n_requests": 2, "max_new": 4, "batch_size": 2}  # on (1, 4)
@@ -142,7 +143,7 @@ def tp(torch, tmp_path_factory):
                 "decode": dec}
         if mesh == (1, 4):
             case["serve"] = SERVE
-        if name == "nemotron4_340b_1x4":
+        if name in ("nemotron4_340b_1x4", "jamba15_large_1x4"):
             case.update(init_shards=True, keep_state=True)
         if name == "qwen25_32b_1x2":
             ckpt = where / "ckpt"
@@ -249,7 +250,8 @@ def test_kv_strategies_of_the_cases(tp):
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 def test_every_rank_holds_its_param_specs_slices(tp, case):
     """Every leaf a rank holds has the shape ``local_shape`` gives under
-    ``param_specs``; the dense layers' heads, ff and vocab are split."""
+    ``param_specs``; the dense layers' heads, ff and vocab are split, and
+    Mamba's ``inner``."""
     from repro_torch.models import build_model
     from repro_torch.models.params import local_shape, tree_paths
     from repro_torch.configs import ArchConfig
@@ -265,11 +267,23 @@ def test_every_rank_holds_its_param_specs_slices(tp, case):
                 d.shape, res["specs"][path], axes), path
         shapes = res["shapes"]
         L, V = cfg.n_layers, cfg.padded_vocab
+        stack = "groups" if cfg.family == "hybrid" else "blocks"
         assert shapes["embed.tokens"] == (V // tp_size, cfg.d_model)
-        assert shapes["blocks.attn.wo"][1] == (
+        assert shapes[f"{stack}.attn.wo"][1] == (
             cfg.n_heads * cfg.resolved_head_dim // tp_size)
-        ffn = "moe" if cfg.is_moe else "mlp"
-        if cfg.is_moe:
+        if cfg.family == "hybrid":  # both the moe and the mlp subtrees
+            n_moe, di = L // cfg.moe_period, cfg.ssm_expand * cfg.d_model
+            n_mamba = L - L // cfg.attn_period
+            assert shapes["groups.moe.w_up"][1] == cfg.n_experts // tp_size
+            assert shapes["groups.moe.router"] == (n_moe, cfg.d_model,
+                                                   cfg.n_experts)
+            assert shapes["groups.mlp.w_down"][1] == cfg.d_ff // tp_size
+            assert shapes["groups.mamba.in_proj"] == (
+                n_mamba, cfg.d_model, 2 * di // tp_size)
+            assert shapes["groups.mamba.D"] == (n_mamba, di // tp_size)
+            assert shapes["groups.mamba.x_proj"][1] == di // tp_size
+            assert shapes["groups.mamba_ln.scale"] == (n_mamba, cfg.d_model)
+        elif cfg.is_moe:
             assert shapes["blocks.moe.w_up"][1] == cfg.n_experts // tp_size
             assert shapes["blocks.moe.router"] == (L, cfg.d_model,
                                                    cfg.n_experts)
@@ -277,8 +291,9 @@ def test_every_rank_holds_its_param_specs_slices(tp, case):
                 assert shapes["blocks.moe.shared.w_down"][1] == (
                     cfg.n_shared_experts * cfg.d_ff // tp_size)
         else:
-            assert shapes[f"blocks.{ffn}.w_down"][1] == cfg.d_ff // tp_size
-        assert shapes["blocks.ln1.scale"] == (L, cfg.d_model)
+            assert shapes["blocks.mlp.w_down"][1] == cfg.d_ff // tp_size
+        if stack == "blocks":
+            assert shapes["blocks.ln1.scale"] == (L, cfg.d_model)
 
 
 def test_load_shards_round_trips_the_whole_state(tp):
@@ -301,6 +316,33 @@ def test_init_shards_draws_the_single_process_weights(tp):
                for r in tp["nemotron4_340b_1x4"]["ranks"])
 
 
+def test_a_rank_holds_its_contiguous_block_of_in_proj(tp):
+    """Rank r of (1, 4) holds columns [r, r + 1) x 2·di/4 of ``in_proj``
+    (the spec's contiguous block: ranks 0-1 hold ``xb``'s columns, 2-3
+    ``z``'s), its di/4 channels of the per-channel leaves and its rows of
+    ``x_proj`` / ``out_proj``; ``init_shards`` draws the same slices."""
+    c = tp["jamba15_large_1x4"]
+    whole = c["ref"]["model"].state_dict()
+    di = c["cfg"].ssm_expand * c["cfg"].d_model
+    w = di // 4
+    for res in c["ranks"]:
+        r = res["coords"]["model"]
+        got = res["state"]
+        assert np.array_equal(got["groups.mamba.in_proj"],
+                              whole["groups.mamba.in_proj"][
+                                  ..., 2 * r * w:2 * (r + 1) * w])
+        for key in ("D", "conv_b", "dt_bias"):
+            assert np.array_equal(got[f"groups.mamba.{key}"], whole[
+                f"groups.mamba.{key}"][..., r * w:(r + 1) * w]), key
+        for key in ("conv_w", "dt_proj"):
+            assert np.array_equal(got[f"groups.mamba.{key}"], whole[
+                f"groups.mamba.{key}"][..., r * w:(r + 1) * w]), key
+        for key in ("x_proj", "out_proj", "A_log"):
+            assert np.array_equal(got[f"groups.mamba.{key}"], whole[
+                f"groups.mamba.{key}"][:, r * w:(r + 1) * w]), key
+        assert res["init_shards_equal"]
+
+
 def test_sharded_restore_gives_the_same_forward(tp):
     """``Checkpointer.restore(specs=param_specs, mesh=)`` of the whole
     state onto (1, 2), loaded by ``load_shards``: the same forward."""
@@ -320,15 +362,15 @@ def _refusal_ctx(cfg, model_axis, data_axis=1):
 
 
 @pytest.mark.parametrize("arch,edit,axes,item", [
-    ("jamba15_large", {}, (1, 2), "item 14"),
     ("xlstm_125m", {}, (1, 2), "item 15"),
     ("whisper_small", {}, (1, 2), "item 16"),
     ("qwen2_moe", {}, (1, 3), "item 17")])
 def test_what_the_split_does_not_take_refuses(torch, arch, edit, axes,
                                               item):
-    """On a model axis of tp > 1: the hybrid, ssm and audio families and
-    the MoE "tp" strategy (4 experts over 3 ranks) raise before any
-    collective, naming their ROADMAP items."""
+    """On a model axis of tp > 1: the ssm and audio families and the MoE
+    "tp" strategy (4 experts over 3 ranks) raise before any collective,
+    naming their ROADMAP items (the hybrid family runs there:
+    tests/test_torch_hybrid_split.py and the jamba cases above)."""
     from repro_torch.models import build_model
     cfg = dataclasses.replace(reduced_config(get_arch(arch)), **edit)
     cfg, ctx = _refusal_ctx(cfg, axes[1], axes[0])

@@ -1,6 +1,7 @@
 """The rank side of the port's multi-rank tests (tests/test_torch_mesh.py,
 tests/test_torch_tensor_parallel.py, tests/test_torch_mesh_train.py,
-tests/test_torch_fsdp.py and the expert-parallel gradient of
+tests/test_torch_fsdp.py, tests/test_torch_hybrid_split.py and the
+expert-parallel gradient of
 tests/test_torch_moe.py on the CPU, the expert-parallel, tensor-parallel
 and mesh-training cases of tests/test_torch_cuda.py on a card).
 
@@ -8,7 +9,7 @@ and mesh-training cases of tests/test_torch_cuda.py on a card).
 
 JOB is a ``torch.save``d dict written by the test (``run_ranks``): the
 checks to run (``collectives``, ``ep``, ``tp``, ``train``, ``loop``,
-``remat``) and their inputs. Each rank joins a
+``remat``, ``hybrid``) and their inputs. Each rank joins a
 gloo or NCCL group (``launch.mesh.init_ranks``, whose rule picks the
 transport) through a FileStore beside JOB, runs every check, and saves
 what it got to ``rank<RANK>.pt`` beside JOB, for the test to hold against
@@ -466,8 +467,74 @@ def check_remat(job, dev, device):
     return out
 
 
+def check_hybrid(job, dev, device):
+    """Mamba's ``inner`` over the model axis, piece by piece: the rank's
+    block of a known ``in_proj`` product (``xz``, its columns over
+    ``model``) through ``collectives.inner_halves`` and its gradient for
+    the rank's channels of a cotangent ``g`` of ``[xb | z]``; one Mamba
+    layer (``layer``, whole leaves) on the rank's slices, its output and
+    the gradient of ``<y, gy>`` for ``x`` and each slice; then the model's
+    slices of ``state`` teacher-forced over the dense cache from an empty
+    state (``decode``, the rank's rows), returning the Mamba states and
+    the specs that ``decode_state_specs`` gives them."""
+    from repro_torch.configs import ArchConfig, get_shape
+    from repro_torch.core.planner import P, make_plan
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.elastic import local_slice, reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models.params import flatten
+    from repro_torch.models.ssm import mamba_apply
+    out = {}
+    for case in job["hybrid"]:
+        cfg = ArchConfig(**case["cfg"])
+        mesh = make_mesh(case["mesh"], ("data", "model"), device)
+        plan = make_plan(cfg, mesh.shape, get_shape("decode_32k"))
+        ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=True)
+        res = {"coords": mesh.coords}
+        xz = torch.from_numpy(case["xz"])
+        block = local_slice(xz, P(None, None, "model"), mesh).to(dev)
+        block.requires_grad_(True)
+        halves = coll.inner_halves(block, ctx.tp_group)
+        di, w, r = xz.shape[-1] // 2, block.shape[-1] // 2, ctx.tp_index
+        g = torch.from_numpy(case["g"])
+        mine = torch.cat([g[..., r * w:(r + 1) * w],
+                          g[..., di + r * w:di + (r + 1) * w]], dim=-1)
+        res["halves"] = halves.detach().cpu()
+        res["halves_grad"] = torch.autograd.grad(halves, block,
+                                                 mine.to(dev))[0].cpu()
+        model = build_model(cfg)
+        specs = flatten(model.param_specs(plan))
+        res["layer_specs"] = {k: P(*tuple(specs[f"groups.mamba.{k}"])[1:])
+                              for k in case["layer"]}
+        layer = {k: local_slice(torch.from_numpy(v), res["layer_specs"][k],
+                                mesh).to(dev).requires_grad_(True)
+                 for k, v in case["layer"].items()}
+        x = torch.from_numpy(case["x"]).to(dev).requires_grad_(True)
+        y = mamba_apply(cfg, layer, x, ctx)
+        grads = torch.autograd.grad(y, [x, *layer.values()],
+                                    torch.from_numpy(case["gy"]).to(dev))
+        res["y"] = y.detach().cpu()
+        res["grads"] = {"x": grads[0].cpu(), **{
+            k: t.cpu() for k, t in zip(layer, grads[1:])}}
+        model.load_shards(reshard_state(case["state"], specs, mesh))
+        n = case["decode"].shape[0] // mesh.shape["data"]
+        rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
+        tokens = torch.from_numpy(case["decode"][rows]).to(dev)
+        state = model.init_decode_state(tokens.shape[0], tokens.shape[1] + 4,
+                                        model.dtype)
+        with torch.no_grad():
+            for t in range(tokens.shape[1]):
+                _, state = model.decode_step(tokens[:, t:t + 1], state, ctx)
+        res["h"], res["conv"] = state.mamba.h.cpu(), state.mamba.conv.cpu()
+        res["state_specs"] = build_model(cfg).decode_state_specs(plan).mamba
+        out[case["name"]] = res
+    return out
+
+
 CHECKS = {"collectives": check_collectives, "ep": check_ep, "tp": check_tp,
-          "train": check_train, "loop": check_loop, "remat": check_remat}
+          "train": check_train, "loop": check_loop, "remat": check_remat,
+          "hybrid": check_hybrid}
 
 
 def main(job_path: str, rank: int, world: int, device: str) -> None:
