@@ -54,7 +54,15 @@ final line:
    with holes, and the long-context step's shape in bf16 and in float32
    with holes; the bf16 cases also row by row against the float32 answer;
    SDPA over a dense copy gathered beforehand as yardstick; the device's
-   share of the kernel's time by the profiler);
+   share of the kernel's time by the profiler), and paged_attention's
+   partial mode at one rank's share of a long context split over the
+   sequence (``PARTIAL_CASES``: nemotron-4-340b's 96/8 heads of 192, B=4
+   rows of 4,096 tokens in 64-token pages cut into 16 shards by the
+   round-robin rule; a hole, a short row whose later shards are empty, a
+   row whose pages sit on one shard; bf16 and float32): each shard's
+   partial against its plain version, the 16 merged in shard order
+   against ``paged_attention`` over the whole pool and its plain version,
+   one shard's call timed beside its bound;
 3. dense prefill at full width: qwen2.5-32b, all 64 layers, bf16 random
    weights drawn on the card from a seed, B=1, S=4096, through the flash
    kernel (one launch per layer), checked against the plain attention
@@ -62,7 +70,7 @@ final line:
    dense cache, over the paged pool (page 4, through the paged kernel, one
    launch per layer and step) and over the int8 cache; then the
    continuous-batching engine over the paged pool (page 16): 8 requests
-   (``SERVE_MAX_NEW``: 23 tokens each, two pages), batch 4, one
+   (``SERVE_MAX_NEW``: 19 tokens each, two pages), batch 4, one
    paged-attention launch per layer and decode step, every
    request finished and every page released; then a long-context paged
    decode step on the same weights: B=4, 4,000-4,090 cached tokens a row
@@ -141,9 +149,9 @@ final line:
    S=4096 under ``Ctx(use_flash=True)`` (flash and moe_gather once per
    layer on every rank), every position's log_softmax within 2e-3 of the
    single process's forward on rank 0, every rank's logits the same
-   bits; the smoke's 8 requests served through ``serve_model`` under the
+   bits; 4 requests served through ``serve_model`` under the
    EP context, token for token the single process's engine; (b) bf16 at
-   all 24 layers: prefill B=1, S=4096 timed (tokens/s against the
+   8 of 24 layers: prefill B=1, S=4096 timed (tokens/s against the
    single-process bf16 prefill of the same run), peak memory a rank, the
    card's busy share (the ranks' kernel time over the wall, and apart
    from it their copies' and memsets') and the all-reduce's share (a run
@@ -158,7 +166,7 @@ final line:
    first, in this process, then four processes over the same (data 1,
    model 4) mesh, each holding its slices under ``param_specs`` (a
    quarter of the heads, ff and vocab, drawn in turns from the seed): (a)
-   gemma-7b float32 at every published width, 2 of 28 layers (16/16
+   gemma-7b float32 at every published width, 1 of 28 layers (16/16
    heads of 256, geglu, tied embeddings): prefill B=1, S=4096 under
    ``Ctx(use_flash=True)`` on the ranks (flash once per layer, at 4/4
    heads), every position's log_softmax within 2e-3 of the single
@@ -166,7 +174,7 @@ final line:
    ranks read), every rank's logits the same bits; paged decode fed the
    single process's greedy tokens (paged_attention once per layer and
    step), each step within 2e-3 on log_softmax and the same argmax, and
-   the smoke's 8 requests through ``serve_model`` over the paged pool,
+   4 requests through ``serve_model`` over the paged pool,
    token for token the single process's engine; (b) nemotron-4-340b bf16
    at every published width, 2 of 96 layers (30.4 GiB, 7.6 GiB a rank;
    96/8 heads of 192, 24/2 a rank; relu2): the single process's plain
@@ -197,7 +205,7 @@ final line:
    profiler (the ranks' kernels and, apart, their copies against the
    wall), peak memory a rank and in all; (b) gemma-7b float32 at every
    published width, 1 of 28 layers (``fsdp=False``, its only edit: it
-   holds the split path without FSDP; 18f runs the published plan), 3
+   holds the split path without FSDP; 18f runs the published plan), 2
    steps of 4 x 256 tokens in one process and over (data 2, model 2),
    every loss and gradient norm within 1e-3 of the single process's;
 18f. FSDP over the data axis at the published plans (``fsdp=True``,
@@ -211,14 +219,14 @@ final line:
    collective timed alone (the gathers', reduce-scatters' and
    all-reduces' share of the wall), P3 2 and its backward 1 a rank, peak
    memory a rank and in all; (a) gemma-7b float32 at its published
-   settings, 1 of 28 layers, 18e (b)'s batch: 2 steps over (data 2,
+   settings, 1 of 28 layers, 18e (b)'s batch: 1 step over (data 2,
    model 2) and a save of whole leaves (the files one process writes;
    every leaf but the norms split over both axes), a restart over (data
-   1, model 4) for the third under the supervisor and its save there,
+   1, model 4) under the supervisor that restores it (no step after),
    every loss and gradient norm within 1e-3 of 18e (b)'s single process,
    peak memory a rank beside 18e (b)'s; (d) gemma-7b bf16 at 2 of 28
    layers at the serve plan over (data 2, model 2): each data rank 2 of
-   4 rows, a 1,024-token prefill through flash (2 a rank) and 4 paged
+   4 rows, a 1,024-token prefill through flash (2 a rank) and 2 paged
    decode steps (P2 2 a step), each step's last logits within LOGITS_TOL
    of the single process's;
 18g. the hybrid family split over the model axis (Mamba's ``inner``:
@@ -256,6 +264,23 @@ final line:
    save over (data 2, model 2), a restart over (data 1, model 4) for the
    third under the supervisor, every loss and gradient norm within 1e-3
    of the single process's, P4, P3 and their backwards on every rank;
+18h. decode over the sequence-sharded KV cache: nemotron-4-340b bf16 at
+   every published width, 2 of 96 layers, over (data 1, model 16), the
+   reference's production model axis, where its 8 kv heads do not divide
+   the axis (the plan's "sequence" kv strategy): the single process
+   first, in this process (greedy dense decode of 16 steps at B=4 from a
+   4-token prompt, paged decode of 1-token pages fed its tokens, paged
+   serving), then sixteen processes sharing the card, each holding its
+   slices and its span of the positions for every kv head (dense cache
+   (2, 4, 1, 8, 192)) or its shard of the pool (one page of each row):
+   dense and paged decode fed the single
+   process's tokens, each step's logits within LOGITS_TOL, the paged
+   kernel's partial mode once a layer a paged step on every rank; one
+   dense step with each collective timed alone (the q all-gathers, the
+   partials' all-to-alls, the all-reduces, the logits' gather); paged
+   serving of 2 requests, the same tokens on every rank, those that
+   differ from the single process's counted; start-up, draw, step ms
+   and peak memory a rank beside the card's total;
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -269,8 +294,8 @@ final line:
    FMA in either's SASS but the division routines' own (as many as a
    ``-fmad=false`` build holds); the card's DADD latency (a one-thread
    chain of dependent ``__dadd_rn``) and host link rates (pinned copies
-   each way); then TPC-H Q1 at scale factor 2.5 (14,996,513 lineitems,
-   a quarter of SF 10's, 4 partitions) through ``Session`` /
+   each way); then TPC-H Q1 at scale factor 1.25 (7,498,256 lineitems,
+   an eighth of SF 10's, 4 partitions) through ``Session`` /
    ``q1_pricing_summary``: the numpy
    backend once as the oracle, the torch backend warm and then 3 timed
    runs, every column byte-identical to the oracle's, K1 once per batch
@@ -282,7 +307,7 @@ final line:
    latency) and ``scatter_reduce_``, with its kernels' device split, the
    device's busy share over one query and the peak device memory. Phase
    2 builds K1 and K2 with the other four kernels.
-20. the worker runtime: the same Q1 at SF 2.5 (phase 19's set and its
+20. the worker runtime: the same Q1 at SF 1.25 (phase 19's set and its
    numpy answer as the oracle) through ``Session(backend="workers",
    num_workers=4, worker_kind="thread")`` on ``expr_backend="torch"``,
    the four ranks threads sharing the card: a warm run, then 3 timed
@@ -313,8 +338,8 @@ Launch counts are set to 0 just before each main-path run of phases 3-23
 the training runs, each rank's EP prefill and serving, each rank's
 tensor-parallel prefill, decode and serving, each rank's training runs
 over the mesh and under FSDP, each FSDP rank's prefill and decode, each
-hybrid rank's prefill, decode, serving, layer and training runs, the
-timed Q1
+hybrid rank's prefill, decode, serving, layer and training runs, each
+sequence-sharded rank's decode and serving runs, the timed Q1
 runs, the workers', the entry points', the service's cold Q1, the
 tools') and read just after it. The last two lines are a JSON object
 with one entry per ported kernel and ``{"ok": true, "device": {...}}``. Without a
@@ -464,25 +489,35 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 4, 6
 EP_MESH = (1, 4)
 EP_WORLD = 4
 # every serving run: 8 requests of 2-7 prompt tokens at batch 4, each
-# running to max_seq - 1 = SERVE_MAX_NEW + 15 tokens (23, two pages of
+# running to max_seq - 1 = SERVE_MAX_NEW + 15 tokens (19, two pages of
 # PAGE_SIZE), so the second four reuse the first four's slots and pages;
-# 46 steps (94 at 32 before the smoke outgrew its time limit)
-SERVE_MAX_NEW = 8
+# 38 steps (46 at 8 until phase 18h came in, 94 at 32 before the smoke
+# first outgrew its time limit)
+SERVE_MAX_NEW = 4
 EP_F32_LAYERS = 2
+# (b)'s depth: 8 of 24 layers since phase 18h came in (all 24 before)
+EP_BF16_LAYERS = 8
 EP_TOL = 2e-3  # tests/test_multidevice.py's bound on log_softmax
 EP_AUX_RTOL = 1e-4  # one aux of (a)'s prefill against the single process's
 EP_WALL_S = 600  # the four ranks' run, and each collective's timeout
-EP_SERVE = {"n_requests": 8, "max_new": SERVE_MAX_NEW, "batch_size": 4}
+# the mesh phases' serving runs (18c, 18d, 18g): 4 of those requests, one
+# batch, 19 steps (8 requests and 46 steps until phase 18h came in: the
+# smoke took 1,162 s on an H100 80GB HBM3 at 700 W)
+EP_SERVE = {"n_requests": 4, "max_new": SERVE_MAX_NEW, "batch_size": 4}
 # The tensor-parallel phase over the same mesh: (a) TP_F32_ARCH float32 at
-# TP_F32_LAYERS of its 28 layers (1.34 B parameters, 4.99 GiB); (b)
+# TP_F32_LAYERS of its 28 layers; (b)
 # TP_BF16_ARCH bf16 at TP_BF16_LAYERS of its 96 layers (30.45 GiB, 7.61
 # GiB a rank; the largest whole leaf drawn, the embedding, 8.79 GiB).
 # Paged decode of TP_DECODE_STEPS steps at TP_DECODE_BATCH rows, the first
 # TP_PROMPT tokens drawn from SEED and the rest the single process's
 # greedy choices; (b)'s prefill timed TP_TIMED times after a warm run.
-TP_F32_ARCH, TP_F32_LAYERS = "gemma_7b", 2
+# (a) at 1 layer since phase 18h came in (2 before)
+TP_F32_ARCH, TP_F32_LAYERS = "gemma_7b", 1
 TP_BF16_ARCH, TP_BF16_LAYERS = "nemotron4_340b", 2
-TP_DECODE_BATCH, TP_PROMPT, TP_DECODE_STEPS = 4, 4, 12
+# 8 decode steps (12 until phase 18h came in; at 6 the prompts SEED draws
+# differ and 18g's first route flip fell at 0.057 of the router's std,
+# past TPH_TIE, on an H100 80GB HBM3 at 700 W)
+TP_DECODE_BATCH, TP_PROMPT, TP_DECODE_STEPS = 4, 4, 8
 TP_TIMED = 3
 # Training over the mesh (phase 18e), ranks sharing the card as in 18c
 # and 18d: (a) the training phase's run (MOE_ARCH at every published
@@ -504,7 +539,8 @@ MT_A_MESH = (1, 4)
 # in step 1's update; lr is 0 at step 0)
 MT_A_STEPS = 3
 MT_B_ARCH, MT_B_LAYERS = "gemma_7b", 1
-MT_B_BATCH, MT_B_SEQ, MT_B_STEPS, MT_B_SAVE = 4, 255, 3, 2
+# (2 steps and a save after 1 since phase 18h came in; 3 and 2 before)
+MT_B_BATCH, MT_B_SEQ, MT_B_STEPS, MT_B_SAVE = 4, 255, 2, 1
 MT_B_MESH = (2, 2)
 # FSDP over the data axis (phase 18f), ranks sharing the card as in 18e,
 # every model at its published plan (``fsdp=True``, ``remat="full"``):
@@ -528,7 +564,8 @@ FSDP_A_MESHES = ((2, 2), (1, 4))
 # took 19.9 s and, warmup-cosine's lr being 0 at step 0, repeated the
 # first's loss)
 FSDP_B_LAYERS, FSDP_B_STEPS, FSDP_B_MESH = 1, 1, (4, 1)
-FSDP_D_LAYERS, FSDP_D_MESH, FSDP_D_SEQ, FSDP_D_STEPS = 2, (2, 2), 1024, 4
+# (d) 2 decode steps since phase 18h came in (4 before)
+FSDP_D_LAYERS, FSDP_D_MESH, FSDP_D_SEQ, FSDP_D_STEPS = 2, (2, 2), 1024, 2
 # The hybrid family split over the model axis (phase 18g), ranks sharing
 # the card as in 18c-18f: (a) HYBRID_ARCH bf16 at every published width
 # cut by TPH_CUTS (one group; 8 of 16 experts, 2 a rank under expert
@@ -551,6 +588,22 @@ TPH_TIE = 0.05
 TPH_OUT_TOL, TPH_GRAD_TOL = 1e-5, 1e-4
 TPH_C_MESHES = ((2, 2), (1, 4))
 TPH_C_SAVE, TPH_C_STEPS = 2, 3
+# Decode over the sequence-sharded cache (phase 18h): TP_BF16_ARCH in bf16
+# at every published width, TP_BF16_LAYERS layers (18d (b)'s cut), over
+# (data 1, model KVS_WORLD), the reference's production model axis, whose
+# 16 ranks its 8 kv heads do not divide: the plan's "sequence" kv
+# strategy, each rank caching its span of the positions for every kv head
+# (or its shard of the paged pool). KVS_BATCH rows, a KVS_PROMPT-token
+# prompt drawn from SEED, KVS_STEPS steps over a dense cache of KVS_STEPS
+# positions and over the paged pool of KVS_PAGE-token pages: each of the
+# 16 ranks holds one position of each row in both (64 steps of 4-token
+# pages took 2.6 s a dense step and 0.86 s a paged one over the 16 gloo
+# ranks, 292 s in all: an H100 80GB HBM3 at 700 W); paged serving of
+# KVS_SERVE.
+KVS_MESH = (1, 16)
+KVS_WORLD = 16
+KVS_BATCH, KVS_PROMPT, KVS_STEPS, KVS_PAGE = 4, 4, 16, 1
+KVS_SERVE = {"n_requests": 2, "max_new": SERVE_MAX_NEW, "batch_size": 2}
 # moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
 # tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
 GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
@@ -613,18 +666,30 @@ PAGED_CASES = [  # (name, B, H, K, hd, page, max_pages, dtype, holes,
     ("tp_hd256_f32", 4, 4, 4, 256, 16, 2, "float32", False, None),
 ]
 POOL_LAYERS = {"gemma_pool": 28}
-PAGE_SIZE = 16  # paged serving: a 23-token sequence spans 2 pages
+# the paged kernel's partial mode at one rank's share of a long context
+# split over the sequence: nemotron-4-340b's decode heads (96/8, hd 192),
+# B rows of ``tokens`` in pages of ``page``, cut into ``shards`` shards by
+# the round-robin rule (shard_layout)
+PARTIAL_CASES = [  # (name, B, H, K, hd, page, tokens, shards, dtype)
+    ("shard", 4, 96, 8, 192, 64, 4096, 16, "bfloat16"),
+    ("shard_f32", 4, 96, 8, 192, 64, 4096, 16, "float32"),
+]
+PAGE_SIZE = 16  # paged serving: a 19-token sequence spans 2 pages
 # the relational kernels launch nowhere on a model's path, the backward
 # kernels nowhere but in training
 NO_RELATIONAL = {"expr_core": 0, "segment_reduce": 0}
 NO_BACKWARD = {"moe_gather_bwd": 0, "ssm_scan_bwd": 0}
-# phase 19, the relational engine: TPC-H Q1 at scale factor 2.5 (a quarter
-# of the spec's 59,986,052 lineitem rows at scale factor 10: with the
-# mesh-training phase the whole run came within 72 s of its 1,200 s limit
-# at SF 10 and within 98 s at SF 5 on slow hosts) over the executor's 4
+# the paged kernel's partial mode runs only over a pool split over the
+# sequence (phase 18h)
+NO_PARTIAL = {"paged_attention_partial": 0}
+# phase 19, the relational engine: TPC-H Q1 at scale factor 1.25 (an
+# eighth of the spec's 59,986,052 lineitem rows at scale factor 10: with
+# the mesh-training phase the whole run came within 72 s of its 1,200 s
+# limit at SF 10 and within 98 s at SF 5 on slow hosts; SF 2.5 until phase
+# 18h came in) over the executor's 4
 # partitions; K1's op x dtype matrix at the executor's batch of 8,192
 # rows; K2's cases (name, rows, groups)
-Q1_ROWS = 59_986_052 // 4
+Q1_ROWS = 59_986_052 // 8
 Q1_PARTITIONS = 4
 Q1_TIMED = 3
 EXPR_ROWS = 8192
@@ -734,14 +799,17 @@ def attention_bound_ms(B, S, T, H, K, hd, causal, dtype, elem):
                                        else "bytes")
 
 
-def paged_bound_ms(lengths, tables, page, H, K, hd, dtype, elem):
+def paged_bound_ms(lengths, tables, page, H, K, hd, dtype, elem,
+                   partial: bool = False):
     """(ms, "operations" | "bytes"): the K and V rows of every valid
     position read once (a row with no valid position reads V of each
-    distinct page it gathers, for the reference's uniform mean), q read
-    and the output written once; against 4*hd operations per (query head,
-    valid position) (q.k and p.v)."""
+    distinct page it gathers, for the reference's uniform mean; in the
+    ``partial`` mode nothing), q read and the output written once (in the
+    partial mode float32, with its (max, sum)); against 4*hd operations
+    per (query head, valid position) (q.k and p.v)."""
     row = K * hd * elem  # bytes of one token's K (or V) row, all kv heads
-    nbytes = 2 * len(lengths) * H * hd * elem
+    out_row = 4 * (hd + 2) if partial else hd * elem
+    nbytes = len(lengths) * H * (hd * elem + out_row)
     positions = 0
     for length, ids in zip(lengths, tables):
         held = [j for j in range(min(-(-int(length) // page), len(ids)))
@@ -750,7 +818,7 @@ def paged_bound_ms(lengths, tables, page, H, K, hd, dtype, elem):
         if valid:
             nbytes += 2 * valid * row
             positions += valid
-        else:
+        elif not partial:
             nbytes += len({max(int(i), 0) for i in ids}) * page * row
     t_bytes = nbytes / PEAK_BYTES
     t_ops = 4.0 * hd * H * positions / PEAK_FLOPS[dtype]
@@ -1539,6 +1607,149 @@ def phase_paged(torch) -> dict:
     return results
 
 
+def shard_layout(np, rng, B: int, tokens: int, page: int, shards: int):
+    """A pool of B rows of ``tokens`` cut into ``shards`` shards by the
+    round-robin rule (page k of a row on shard k mod shards, entry k //
+    shards): the local tables and page maps (shards, B, slots), the whole
+    pool's table (B, pages) of global ids and each row's length, with row
+    0 full but for a hole (its page 5), row 1 short (its later shards
+    empty), row 2's pages all on shard 3 (as stolen pages sit) and row 3
+    drawn."""
+    pages = tokens // page
+    slots = -(-pages // shards)
+    pps = B * slots
+    tables = np.full((shards, B, slots), -1, np.int32)
+    seq_pages = np.full_like(tables, -1)
+    lengths = np.array([tokens, 5 * page - 3, 4 * page - 1,
+                        rng.integers(tokens // 2, tokens)], np.int32)[:B]
+    for b in range(B):
+        for k in range(pages if b != 2 else min(slots, pages)):
+            s, j = (k % shards, k // shards) if b != 2 else (3 % shards, k)
+            tables[s, b, j] = b * slots + j
+            seq_pages[s, b, j] = k
+    whole = np.full((B, pages), -1, np.int32)
+    for s in range(shards):
+        for b, j in zip(*np.nonzero(seq_pages[s] >= 0)):
+            whole[b, seq_pages[s, b, j]] = s * pps + tables[s, b, j]
+    hole = (5 % shards, 5 // shards)
+    tables[hole[0], 0, hole[1]] = -1
+    whole[0, 5] = -1
+    return tables, seq_pages, whole, lengths, pps
+
+
+def phase_paged_partial(torch) -> dict:
+    """The paged kernel's partial mode at a rank's share of a long
+    context split over the sequence (PARTIAL_CASES: nemotron-4-340b's
+    96/8 heads of 192 over 4,096-token rows of 64-token pages, 16 shards):
+    each shard's partial against its plain version; the 16 partials
+    merged in shard order (``attention.merge_partials``) against
+    ``ops.paged_attention`` over the whole pool and against
+    ``paged_attention_ref``; one shard's call timed beside its bound, its
+    plain version and SDPA over the shard's pre-gathered dense copy (the
+    normalised output only, not the (max, sum))."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (paged_attention_partial_ref,
+                                         paged_attention_ref)
+    from repro_torch.models.attention import merge_partials
+    from repro_torch.objectmodel.kvcache import shard_lengths
+
+    rng = np.random.default_rng(SEED)
+    results = {}
+    for name, B, H, K, hd, page, tokens, shards, dtype in PARTIAL_CASES:
+        dt = getattr(torch, dtype)
+        tables_np, seq_np, whole_np, lengths_np, pps = shard_layout(
+            np, rng, B, tokens, page, shards)
+
+        def mk(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape, dtype=np.float32)).to(DEVICE, dt)
+
+        q = mk(B, H, hd)
+        k_pool, v_pool = mk(shards * pps, page, K, hd), mk(shards * pps,
+                                                            page, K, hd)
+        lengths = torch.from_numpy(lengths_np).to(DEVICE)
+        tol = KERNEL_TOL[dtype]
+        args, outs, mls, err, ml_err = [], [], [], 0.0, 0.0
+        for sh in range(shards):
+            table = torch.from_numpy(tables_np[sh]).to(DEVICE)
+            held = shard_lengths(table, torch.from_numpy(seq_np[sh]).to(
+                DEVICE), lengths, page)
+            a = (q, k_pool[sh * pps:(sh + 1) * pps],
+                 v_pool[sh * pps:(sh + 1) * pps], table, held)
+            out, ml = ops.paged_attention_partial(*a)
+            want, want_ml = paged_attention_partial_ref(*a)
+            for got, w in ((out, want), (ml, want_ml)):
+                diff = (got - w).abs()
+                if not torch.isfinite(got).all() or \
+                        bool((diff > tol + tol * w.abs()).any()):
+                    raise AssertionError(
+                        f"partial case {name} shard {sh}: max |err| "
+                        f"{float(diff.max()):.3g} outside atol=rtol={tol}")
+            err = max(err, float((out - want).abs().max()))
+            ml_err = max(ml_err, float(((ml - want_ml).abs()
+                                        / want_ml.abs().clamp(min=1)).max()))
+            args.append(a)
+            outs.append(out)
+            mls.append(ml)
+        merged = merge_partials(torch.stack(outs), torch.stack(mls))
+        whole = (q, k_pool, v_pool, torch.from_numpy(whole_np).to(DEVICE),
+                 lengths)
+        merge_err = {}
+        for label, want in (("kernel", ops.paged_attention(*whole)),
+                            ("plain", paged_attention_ref(*whole))):
+            diff = (merged - want.float()).abs()
+            merge_err[label] = float(diff.max())
+            if bool((diff > tol + tol * want.float().abs()).any()):
+                raise AssertionError(
+                    f"partial case {name}: the shards merged against "
+                    f"{label} over the whole pool off by {float(diff.max())}")
+        empty = [int((ml[:, 0, 1] == 0).sum()) for ml in mls]
+        a = args[0]
+        ms = cuda_ms(torch, lambda: ops.paged_attention_partial(*a), 20)
+        dev_ms = device_ms(torch, lambda: ops.paged_attention_partial(*a),
+                           20, "paged_")
+        plain_ms = cuda_ms(torch, lambda: paged_attention_partial_ref(*a),
+                           3, warmup=1)
+        T = tables_np.shape[2] * page
+        ids = a[3].long().clamp(min=0)
+        kd, vd = (x[ids].reshape(B, T, K, hd).transpose(1, 2).contiguous()
+                  for x in a[1:3])
+        pos = torch.arange(T, device=DEVICE)
+        mask = ((pos[None] < a[4][:, None])
+                & (a[3] >= 0).repeat_interleave(page, dim=1))[:, None, None]
+        mask[..., 0] |= ~mask.any(-1)  # SDPA needs one visible key a row
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), 20)
+        bound, bound_by = paged_bound_ms(a[4].cpu().numpy(), tables_np[0],
+                                         page, H, K, hd, dtype,
+                                         q.element_size(), partial=True)
+        results[name] = dict(max_abs_err=max(err, *merge_err.values()),
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound, bound_by=bound_by)
+        log(f"[paged partial] {name}: B={B} H={H} K={K} hd={hd} page={page} "
+            f"{tokens} tokens a row over {shards} shards ({pps} pages a "
+            f"shard, {tables_np.shape[2]} entries a row; row 0 a hole, row "
+            f"1 {int(lengths_np[1])} tokens, row 2's pages on shard 3), "
+            f"{dtype}: each shard's partial within {err:.3g} of its plain "
+            f"version, its (max, sum) within {ml_err:.3g} relative (tol "
+            f"{tol}); the {shards} partials merged in shard "
+            f"order against the whole pool's kernel {merge_err['kernel']:.3g}"
+            f" and plain version {merge_err['plain']:.3g}; rows with an "
+            f"empty partial on each shard {empty}; shard 0's call "
+            f"{ms:.4f} ms by events ({on_device(dev_ms, ms)}), plain "
+            f"{plain_ms:.3f} ms, sdpa over its pre-gathered dense copy "
+            f"(library_ms; the output alone, no (max, sum); gather not "
+            f"timed) {lib_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+            f"(roofline share {bound / ms:.1%})")
+        del q, k_pool, v_pool, args, outs, mls, merged, whole, kd, vd, mask
+        torch.cuda.empty_cache()
+    log(f"[paged partial] kernels: {json.dumps(ops.launch_counts())}")
+    return results
+
+
 # ------------------------------------------------------ phases 3, 5, 7
 @contextlib.contextmanager
 def dispatch_ids(ops, record: list):
@@ -1582,10 +1793,10 @@ def expected_launches(cfg) -> dict:
         return {"flash_attention": n_attn, "paged_attention": 0,
                 "moe_gather": cfg.n_layers // cfg.moe_period,
                 "ssm_scan": cfg.n_layers - n_attn, **NO_RELATIONAL,
-                **NO_BACKWARD}
+                **NO_BACKWARD, **NO_PARTIAL}
     return {"flash_attention": n_attn, "paged_attention": 0,
             "moe_gather": cfg.n_layers if cfg.is_moe else 0, "ssm_scan": 0,
-            **NO_RELATIONAL, **NO_BACKWARD}
+            **NO_RELATIONAL, **NO_BACKWARD, **NO_PARTIAL}
 
 
 def decode_launches(cfg, steps: int) -> dict:
@@ -1594,7 +1805,7 @@ def decode_launches(cfg, steps: int) -> dict:
     moe = expected_launches(cfg)["moe_gather"]
     return {"flash_attention": 0, "paged_attention":
             n_attention_layers(cfg) * steps, "moe_gather": moe * steps,
-            "ssm_scan": 0, **NO_RELATIONAL, **NO_BACKWARD}
+            "ssm_scan": 0, **NO_RELATIONAL, **NO_BACKWARD, **NO_PARTIAL}
 
 
 def hybrid_config():
@@ -2065,7 +2276,7 @@ def phase_serving(torch, arch, label: str, paged, summary: dict) -> dict:
                              f"{ {k: v for k, v in out.items() if k != 'outputs'} }")
     want = {"flash_attention": 0, "paged_attention": 0,
             "moe_gather": layers * out["iters"], "ssm_scan": 0,
-            **NO_RELATIONAL, **NO_BACKWARD}
+            **NO_RELATIONAL, **NO_BACKWARD, **NO_PARTIAL}
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     if paged is None:
@@ -2311,7 +2522,7 @@ def ep_float32(torch, mesh) -> dict:
 
 
 def ep_bf16(torch, mesh, ref: dict) -> dict:
-    """(b): bf16 at all 24 layers; a warm prefill (recording each layer's
+    """(b): bf16 at EP_BF16_LAYERS layers; a warm prefill (recording each layer's
     dispatch), one timed (the main path's), one with every all-reduce
     timed alone, one under the profiler; the last position's logits and
     the routes against the single process's."""
@@ -2326,7 +2537,7 @@ def ep_bf16(torch, mesh, ref: dict) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model = build_model(MOE_ARCH)
+    model = build_model(MOE_ARCH, EP_BF16_LAYERS)
     cfg = model.cfg
     plan = make_plan(cfg, mesh.shape, get_shape("prefill_32k"),
                      hbm_bytes=torch.cuda.get_device_properties(0)
@@ -2446,12 +2657,9 @@ def ep_rank(rank: int, world: int, where: str, ref: dict) -> None:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.mesh import make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    init_ranks(rank, world, device=DEVICE, timeout_s=EP_WALL_S,
-               store=dist.FileStore(os.path.join(where, "store"), world))
+    mt_start_rank(torch, rank, world, where)
     out = {"collectives": ep_collectives(torch)}
     mesh = make_mesh(EP_MESH, ("data", "model"), DEVICE)
     out["mesh"] = repr(mesh)
@@ -2465,7 +2673,7 @@ def ep_rank(rank: int, world: int, where: str, ref: dict) -> None:
 
 def phase_ep(torch, smi: str) -> dict:
     """Explicit expert parallelism on the card: first the single-process
-    bf16 prefill at all 24 layers ((b)'s reference: its last position's
+    bf16 prefill at EP_BF16_LAYERS layers ((b)'s reference: its last position's
     logits, each layer's dispatch, its time) and the same model with its
     experts in reverse order (that comparison's noise floor,
     ``reverse_experts``), then EP_WORLD processes over
@@ -2481,7 +2689,7 @@ def phase_ep(torch, smi: str) -> dict:
 
     label = "ep"
     torch.cuda.empty_cache()
-    model = build_model(MOE_ARCH)
+    model = build_model(MOE_ARCH, EP_BF16_LAYERS)
     model.init_params(torch.Generator(DEVICE).manual_seed(SEED))
     batch = prefill_batch(torch, model)
     S = batch["tokens"].shape[1]
@@ -2550,7 +2758,7 @@ def phase_ep(torch, smi: str) -> dict:
     copied = sum(r["copy_s"] for r in b)
     wall = max(r["wall_s"] for r in b)
     share = max(r["allreduce_s"] / r["timed_wall_s"] for r in b)
-    log(f"[{label} b] {MOE_ARCH} bf16, all {b[0]['layers']} layers: "
+    log(f"[{label} b] {MOE_ARCH} bf16, {b[0]['layers']} of 24 layers: "
         f"{b[0]['held'] / 1e9:.3f} B parameters a rank, drawn in turns in "
         f"{max(r['draw_s'] for r in b):.1f} s; prefill B=1 S={S}: "
         f"{wall * 1e3:.1f} ms, {S / wall:.0f} tokens/s (ranks "
@@ -2614,7 +2822,8 @@ def tp_decode(torch, model, tokens, ctx=None, greedy: bool = False,
     fed = tokens.clone()
     B, n = fed.shape
     state = model.init_decode_state(B, n + 4, model.dtype,
-                                    kv_layout=kv_layout, page_size=PAGE_SIZE)
+                                    kv_layout=kv_layout, page_size=PAGE_SIZE,
+                                    ctx=ctx)
     steps = []
     for t in range(n):
         logits, state = model.decode_step(fed[:, t:t + 1], state, ctx)
@@ -2916,12 +3125,9 @@ def tp_rank(rank: int, world: int, where: str, ref: dict) -> None:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.mesh import make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    init_ranks(rank, world, device=DEVICE, timeout_s=EP_WALL_S,
-               store=dist.FileStore(os.path.join(where, "store"), world))
+    mt_start_rank(torch, rank, world, where)
     mesh = make_mesh(EP_MESH, ("data", "model"), DEVICE)
     out = {"mesh": repr(mesh), "f32": tp_float32(torch, mesh, ref["f32"]),
            "bf16": tp_bf16(torch, mesh, ref["bf16"])}
@@ -3030,11 +3236,15 @@ def phase_tp(torch, smi: str) -> dict:
 # ------------------------------------------------------------ phase 18e
 def mt_start_rank(torch, rank: int, world: int, where: str):
     """Join the ranks' gloo group on the card (TF32 off, as the single
-    process runs)."""
+    process runs), with one intra-op thread: the ranks share the host's
+    cores (sixteen ranks of one thread a core took 2.5-3.0 s a decode step
+    of phase 18h, 0.67 s with one thread each, on an H100 80GB HBM3's
+    host at 700 W)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_ranks
 
+    torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     init_ranks(rank, world, device=DEVICE, timeout_s=EP_WALL_S,
@@ -3476,7 +3686,8 @@ def fsdp_serve(torch, model, ctx, rows, tokens, steps) -> dict:
                prefill=logits[:, 0].float().cpu(),
                prefill_launches=ops.launch_counts())
     state = model.init_decode_state(B, steps.shape[1] + 4, model.dtype,
-                                    kv_layout="paged", page_size=PAGE_SIZE)
+                                    kv_layout="paged", page_size=PAGE_SIZE,
+                                    ctx=ctx)
     ops.reset_launch_counts()
     walls, decode = [], []
     with torch.no_grad():
@@ -3514,8 +3725,11 @@ def fsdp_rank(rank: int, world: int, where: str, ref: dict) -> None:
         out["ckpt_files"] = sorted(os.listdir(d))
         out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(d, f))
                                 for f in out["ckpt_files"])
+    # the restart restores the save over another mesh and stops: a step
+    # more would end in a second 12 GB save (its step and save, 37 s, went
+    # when phase 18h came in)
     out["a_restart"] = mt_gemma(torch, make_mesh(FSDP_A_MESHES[1], axes,
-                                                 DEVICE), MT_B_STEPS, ckpt,
+                                                 DEVICE), MT_B_SAVE, ckpt,
                                 cfg)
     mesh = make_mesh(FSDP_D_MESH, axes, DEVICE)
     torch.cuda.reset_peak_memory_stats()
@@ -3596,16 +3810,16 @@ def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
     # (a) against 18e (b)'s single process
     gemma = mesh_train["gemma"]
     a1, a2 = [r["a_save"] for r in ranks], [r["a_restart"] for r in ranks]
-    got = [r1["loss"] + r2["loss"] for r1, r2 in zip(a1, a2)]
-    got_norm = [r1["grad_norm"] + r2["grad_norm"] for r1, r2 in zip(a1, a2)]
+    got = [r["loss"] for r in a1]
     a_loss = max(mt_within(g, gemma["loss"]) for g in got)
-    a_norm = max(mt_within(g, gemma["grad_norm"]) for g in got_norm)
+    a_norm = max(mt_within(r["grad_norm"], gemma["grad_norm"]) for r in a1)
     for r in a1 + a2:
         if any(r["launches"].values()):
             raise AssertionError(f"[{label} a] launches {r['launches']}")
     if not (a_loss <= TRAIN_LOSS_TOL and a_norm <= TRAIN_LOSS_TOL
             and all(r["restored_from"] == [MT_B_SAVE] for r in a2)
-            and all(len(g) == MT_B_STEPS for g in got)):
+            and all(len(g) == MT_B_SAVE for g in got)
+            and not any(r["loss"] or r["save_s"] for r in a2)):
         raise AssertionError(
             f"[{label} a] losses {got} against 18e (b)'s single process's "
             f"{gemma['loss']}; restored from "
@@ -3620,10 +3834,8 @@ def phase_fsdp(torch, smi: str, train: dict, mesh_train: dict) -> dict:
         f"{ranks[0]['ckpt_bytes'] / 2**30:.2f} GiB, in "
         f"{max(sum(r['save_s']) for r in a1):.1f} s; restarted over "
         f"{a2[0]['mesh']} from step {a2[0]['restored_from']} (the restore "
-        f"{max(sum(r['restore_s']) for r in a2):.1f} s): "
-        f"{MT_B_STEPS - MT_B_SAVE} step "
-        f"({max(r['seconds'][-1] for r in a2) * 1e3:.1f} ms) and its save "
-        f"({max(sum(r['save_s']) for r in a2):.1f} s); losses "
+        f"{max(sum(r['restore_s']) for r in a2):.1f} s, no step after it); "
+        f"losses "
         f"{[round(x, 6) for x in got[0]]}, 18e (b)'s single process's "
         f"within {a_loss:.3g}, gradient norms within {a_norm:.3g} (tol "
         f"{TRAIN_LOSS_TOL}); peak memory a rank over the FSDP mesh "
@@ -4353,6 +4565,264 @@ def phase_hybrid_tp(torch, smi: str) -> dict:
             "single_tokens_per_s": S / a_ref["prefill_s"]}
 
 
+# ------------------------------------------------------------ phase 18h
+def seq_launches(cfg, steps: int, kv_layout: str) -> dict:
+    """Launches of ``steps`` decode steps on a rank of a sequence-sharded
+    cache: the paged kernel's partial mode once per attention layer a step
+    over the pool, nothing over the dense cache (its span's partial is
+    plain torch, as the reference's decode attention)."""
+    paged = n_attention_layers(cfg) * steps if kv_layout == "paged" else 0
+    return {"flash_attention": 0, "paged_attention": 0,
+            "paged_attention_partial": paged, "moe_gather": 0,
+            "ssm_scan": 0, **NO_RELATIONAL, **NO_BACKWARD}
+
+
+def kvs_decode(torch, model, tokens, ctx, kv_layout: str,
+               greedy: bool = False) -> tuple:
+    """Decode of ``tokens`` (B, n) fed one column a step from an empty
+    state of n positions (the dense cache, or the pool of KVS_PAGE-token
+    pages), laid out as ``ctx`` places it; with ``greedy`` each column past
+    KVS_PROMPT is the step before's argmax. Returns the tokens fed, each
+    step's (B, V) float32 logits on the host, each step's wall seconds
+    (its logits copied out) and the state."""
+    fed = tokens.clone()
+    B, n = fed.shape
+    state = model.init_decode_state(B, n, model.dtype,
+                                    kv_layout=kv_layout, page_size=KVS_PAGE,
+                                    ctx=ctx)
+    steps, walls = [], []
+    for t in range(n):
+        t0 = time.perf_counter()
+        logits, state = model.decode_step(fed[:, t:t + 1], state, ctx)
+        steps.append(logits[:, 0].float().cpu())
+        walls.append(time.perf_counter() - t0)
+        if greedy and KVS_PROMPT <= t + 1 < n:
+            fed[:, t + 1] = logits[:, 0].argmax(-1)
+    return fed, steps, walls, state
+
+
+def kvs_single(torch, where: str) -> dict:
+    """The single process of 18h in the parent, before the ranks: greedy
+    dense decode, paged decode fed its tokens (each step's logits written
+    to ``where`` for the ranks to read by memory map), paged serving;
+    then freed."""
+    import numpy as np
+
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import build_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(TP_BF16_ARCH, TP_BF16_LAYERS).init_params(
+        torch.Generator(DEVICE).manual_seed(SEED), torch.bfloat16)
+    torch.cuda.synchronize()
+    out = {"params": model.param_count(),
+           "draw_s": time.perf_counter() - t0}
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, model.cfg.vocab_size, (KVS_BATCH, KVS_STEPS))).to(DEVICE)
+    with torch.no_grad():
+        fed, dense, dense_walls, _ = kvs_decode(torch, model, prompts, None,
+                                                "dense", greedy=True)
+        _, paged, paged_walls, _ = kvs_decode(torch, model, fed, None,
+                                              "paged")
+        served = serve_model(model, kv_layout="paged", page_size=KVS_PAGE,
+                             **KVS_SERVE)
+    for name, steps in (("dense", dense), ("paged", paged)):
+        out[name] = os.path.join(where, f"kvs_{name}.npy")
+        np.save(out[name], np.stack([t.numpy() for t in steps]))
+    out.update(fed=fed.cpu().numpy(),
+               dense_ms=1e3 * float(np.median(dense_walls)),
+               paged_ms=1e3 * float(np.median(paged_walls)),
+               served=served["outputs"], serve_s=served["seconds"],
+               serve_tokens=served["tokens"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, dense, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kvs_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of 18h's sixteen, a process of its own: its slices of the
+    model drawn in turns, dense and paged decode fed the single process's
+    tokens over its span or shard, one more dense step with each
+    collective timed alone, paged serving; its results go to
+    ``where``/rank<rank>.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+
+    mt_start_rank(torch, rank, world, where)
+    mesh = make_mesh(KVS_MESH, ("data", "model"), DEVICE)
+    start_s = time.time() - ref["spawned"]
+    model = build_model(TP_BF16_ARCH, TP_BF16_LAYERS)
+    cfg = model.cfg
+    plan = make_plan(cfg, mesh.shape, get_shape("decode_32k"),
+                     hbm_bytes=torch.cuda.get_device_properties(0)
+                     .total_memory)
+    if plan.kv_strategy != "sequence":
+        raise AssertionError(f"18h: the plan's kv strategy is "
+                             f"{plan.kv_strategy}, not sequence")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.init_shards(torch.Generator(DEVICE).manual_seed(SEED), plan, mesh,
+                      torch.bfloat16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    ctx = Ctx(plan=plan, mesh=mesh)
+    V, hd = cfg.vocab_size, cfg.resolved_head_dim
+    fed = torch.from_numpy(ref["fed"]).to(DEVICE)
+    n = fed.shape[1]
+    out = {"mesh": repr(mesh), "start_s": start_s, "draw_s": draw_s,
+           "span": list(ctx.seq_span),
+           "held": sum(p.numel() for p in model.parameters())}
+    for layout in ("dense", "paged"):
+        dist.barrier()
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            _, steps, walls, state = kvs_decode(torch, model, fed, ctx,
+                                                layout)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if launches != seq_launches(cfg, n, layout):
+            raise AssertionError(f"18h {layout} decode launches {launches}")
+        single = np.load(ref[layout], mmap_mode="r")
+        err = max(rel_err(torch, got[:, :V], torch.from_numpy(
+            np.array(single[t, :, :V]))) for t, got in enumerate(steps))
+        out[layout] = {"err": err, "step_ms": 1e3 * float(np.median(walls)),
+                       "steps_ms": [round(1e3 * w, 1) for w in walls],
+                       "launches": launches}
+        if layout == "paged":
+            out["pool"] = list(state.kv.k_pages.shape)
+            out["seq_pages"] = state.seq_pages[0].tolist()
+            continue
+        out["cache"] = list(state.k_cache.shape)
+        spent, undo = timed_collectives(
+            torch, ("all_gather", "all_to_all", "all_reduce"),
+            lambda name, t: ("q_gather" if name == "all_gather"
+                             and t.shape[-1] == hd else name))
+        try:
+            dist.barrier()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.decode_step(fed[:, -1:], state, ctx)
+            torch.cuda.synchronize()
+            out["timed_step_s"] = time.perf_counter() - t0
+        finally:
+            undo()
+        out["spent"] = {k: sum(v) for k, v in spent.items()}
+        out["calls"] = {k: len(v) for k, v in spent.items()}
+        del state
+    dist.barrier()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        served = serve_model(model, ctx=ctx, kv_layout="paged",
+                             page_size=KVS_PAGE, **KVS_SERVE)
+    out["serve_launches"] = ops.launch_counts()
+    if out["serve_launches"] != seq_launches(cfg, served["iters"], "paged"):
+        raise AssertionError(f"18h serve launches {out['serve_launches']}")
+    every = [None] * mesh.size
+    dist.all_gather_object(every, served["outputs"])
+    if any(e != every[0] for e in every):
+        raise AssertionError("18h: the ranks served different tokens")
+    out.update(served_differ=sum(
+        sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+        for got, want in zip(served["outputs"], ref["served"])),
+        serve_s=served["seconds"], serve_tokens=served["tokens"],
+        iters=served["iters"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not max(out["dense"]["err"], out["paged"]["err"]) < LOGITS_TOL:
+        raise AssertionError(f"18h decode logits off by "
+                             f"{out['dense']['err']} (dense), "
+                             f"{out['paged']['err']} (paged) of the largest")
+    del model
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_kv_seq(torch, smi: str) -> dict:
+    """Decode over the sequence-sharded cache on the card: the single
+    process first, in this process, then KVS_WORLD processes over (data
+    1, model 16) (``kvs_rank``). Returns the ranks' main-path launches
+    summed: dense and paged decode and serving."""
+    import shutil
+    import tempfile
+
+    label = "kv seq"
+    where = tempfile.mkdtemp(prefix="kvs_ranks_")
+    try:
+        t0 = time.perf_counter()
+        ref = kvs_single(torch, where)
+        single_s = time.perf_counter() - t0
+        ref["spawned"] = time.time()
+        t0 = time.perf_counter()
+        ranks = run_rank_processes(kvs_rank, where, ref, label,
+                                   world=KVS_WORLD)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    r0 = ranks[0]
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    shares = {k: max(r["spent"][k] / r["timed_step_s"] for r in ranks)
+              for k in r0["spent"]}
+    log(f"[{label}] {KVS_WORLD} ranks, one process each, on one card as a "
+        f"(data {KVS_MESH[0]}, model {KVS_MESH[1]}) mesh: {r0['mesh']}; "
+        f"{TP_BF16_ARCH}'s 8 kv heads do not divide the model axis: the "
+        f"plan's \"sequence\" kv strategy, a rank's dense cache "
+        f"{r0['cache']} (its span of {KVS_STEPS} positions, every kv head), "
+        f"its pool {r0['pool']} of {KVS_PAGE}-token pages (shard 0's page "
+        f"map, row 0: {r0['seq_pages']}); the single "
+        f"process {single_s:.1f} s, the ranks' run {ranks_s:.1f} s, their "
+        f"start-up (spawn to mesh) {min(r['start_s'] for r in ranks):.1f}-"
+        f"{max(r['start_s'] for r in ranks):.1f} s, the draw in turns "
+        f"{max(r['draw_s'] for r in ranks):.1f} s")
+    log(f"[{label}] {TP_BF16_ARCH} bf16, every published width, "
+        f"{TP_BF16_LAYERS} of 96 layers ({ref['params'] / 1e9:.3f} B "
+        f"parameters, the single process's peak {ref['peak_gib']:.2f} GiB):"
+        f" {r0['held'] / 1e9:.3f} B a rank; peak memory a rank "
+        f"{min(r['peak_gib'] for r in ranks):.2f}-"
+        f"{max(r['peak_gib'] for r in ranks):.2f} GiB of the card's "
+        f"{total:.1f} GiB; decode at B={KVS_BATCH} fed the single process's "
+        f"greedy tokens ({KVS_STEPS} steps): a step's median "
+        f"{max(r['dense']['step_ms'] for r in ranks):.1f} ms dense, "
+        f"{max(r['paged']['step_ms'] for r in ranks):.1f} ms paged (the "
+        f"slowest rank), against the single process's "
+        f"{ref['dense_ms']:.1f} and {ref['paged_ms']:.1f} ms; each step's "
+        f"logits within {max(r['dense']['err'] for r in ranks):.3g} (dense) "
+        f"and {max(r['paged']['err'] for r in ranks):.3g} (paged) of the "
+        f"largest (LOGITS_TOL {LOGITS_TOL}); rank 0's steps (ms) dense "
+        f"{r0['dense']['steps_ms']}, paged {r0['paged']['steps_ms']}; {smi}")
+    log(f"[{label}] one dense step with each collective timed alone (rank "
+        f"0 {r0['timed_step_s'] * 1e3:.1f} ms; calls a rank "
+        f"{json.dumps(r0['calls'])}): shares of the wall at the largest "
+        f"rank {json.dumps({k: round(v, 4) for k, v in shares.items()})} "
+        f"(rank 0's ms "
+        f"{json.dumps({k: round(v * 1e3, 2) for k, v in r0['spent'].items()})}"
+        f"); paged serving {r0['serve_tokens']} tokens in "
+        f"{r0['serve_s']:.1f} s ({r0['iters']} steps; the single process "
+        f"{ref['serve_tokens']} in {ref['serve_s']:.1f} s), the same tokens "
+        f"on every rank, {r0['served_differ']} of them differ from the "
+        f"single process's; {smi}")
+    runs = [run for r in ranks for run in (
+        r["dense"]["launches"], r["paged"]["launches"], r["serve_launches"])]
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    log(f"[{label}] launches over the ranks' main-path runs (dense and "
+        f"paged decode, serving): {json.dumps(launches)}")
+    return {"launches": launches,
+            "step_ms": max(r["paged"]["step_ms"] for r in ranks),
+            "single_ms": ref["paged_ms"]}
+
+
 # ------------------------------------------------------------- phase 19
 def expr_values(np, rng, dt, n: int):
     """n values of numpy dtype dt for the expression matrix: random over
@@ -4680,7 +5150,7 @@ def capture_first_call(ops, name: str, record: dict):
 
 
 def phase_q1(torch, smi: str, probes: dict) -> dict:
-    """TPC-H Q1 at scale factor 2.5 through the Session API: the numpy
+    """TPC-H Q1 at scale factor 1.25 through the Session API: the numpy
     backend once as the oracle, then ``expr_backend="torch"`` on the card
     (one warm run, then Q1_TIMED timed): every output column
     byte-identical to the oracle's, shuffle bytes and elided exchanges
@@ -4926,7 +5396,7 @@ def pinned_host_gib(torch) -> str:
 
 
 def phase_workers_q1(torch, smi: str, q1: dict) -> dict:
-    """Phase 20: TPC-H Q1 at SF 2.5 (phase 19's lineitem set, no cut) over
+    """Phase 20: TPC-H Q1 at SF 1.25 (phase 19's lineitem set, no cut) over
     WORKERS thread workers sharing the card, on ``expr_backend="torch"``:
     one warm run, then WORKERS_TIMED runs; every column byte-identical to
     phase 19's numpy-backend answer, K1 once per batch of every rank and
@@ -5108,7 +5578,7 @@ def dsl_queries(core, ds) -> dict:
 def phase_service(torch, smi: str, q1: dict) -> dict:
     """Phase 22: the query service. A ``QueryService(launch="thread",
     num_workers=WORKERS, expr_backend="torch")`` over phase 19's store: a
-    cold Q1 at SF 2.5 ships the shards (SETUP bytes), then SERVICE_CLIENTS
+    cold Q1 at SF 1.25 ships the shards (SETUP bytes), then SERVICE_CLIENTS
     ``Session.connect`` clients submit Q1 (warm: zero SETUP bytes) and
     the DSL queries at the same time, SERVICE_ADMITTED of them admitted
     at once. Every answer byte-identical to the
@@ -5179,7 +5649,7 @@ def phase_service(torch, smi: str, q1: dict) -> dict:
                                      f"shipped {setup} SETUP bytes")
         runs = svc.queries_run
     log(f"[service] {WORKERS} resident thread workers on the card: Q1 at "
-        f"SF 2.5 cold {cold_s:.2f} s ({cold_setup:,} SETUP bytes); then "
+        f"SF 1.25 cold {cold_s:.2f} s ({cold_setup:,} SETUP bytes); then "
         f"{SERVICE_CLIENTS} clients at once ({SERVICE_ADMITTED} admitted at "
         f"a time), each a warm Q1 (0 SETUP "
         f"bytes) and the DSL queries, in {warm_s:.2f} s wall (Q1 "
@@ -5454,6 +5924,7 @@ def main() -> int:
     gather_bwd = phase_gather_bwd(torch)
     scan_bwd = phase_scan_bwd(torch)
     paged = phase_paged(torch)
+    partial = phase_paged_partial(torch)
     log(f"[timing] phases 1-2: {time.perf_counter() - start:.1f} s")
     runs, summaries = [], []
     models = [(ARCH, "", True), (MOE_ARCH, "moe ", False),
@@ -5534,10 +6005,22 @@ def main() -> int:
     log(f"[timing] hybrid tensor-parallel phase: "
         f"{time.perf_counter() - t0:.1f} s (run so far "
         f"{time.perf_counter() - start:.1f} s)")
+    t0 = time.perf_counter()
+    kv_seq = phase_kv_seq(torch, smi)
+    runs.append(kv_seq["launches"])
+    log(f"[summary] {TP_BF16_ARCH} bf16, {TP_BF16_LAYERS} layers, decode "
+        f"over a sequence-sharded cache on a (data {KVS_MESH[0]}, model "
+        f"{KVS_MESH[1]}) mesh of {KVS_WORLD} processes on the card: a paged "
+        f"step {kv_seq['step_ms']:.1f} ms against the single process's "
+        f"{kv_seq['single_ms']:.1f} ms; {smi}")
+    log(f"[timing] sequence-sharded decode phase: "
+        f"{time.perf_counter() - t0:.1f} s (run so far "
+        f"{time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18, the training phases and "
-        f"the expert-parallel, tensor-parallel, mesh-training, FSDP and "
-        f"hybrid tensor-parallel phases' ranks: {json.dumps(launches)}")
+        f"the expert-parallel, tensor-parallel, mesh-training, FSDP, "
+        f"hybrid tensor-parallel and sequence-sharded phases' ranks: "
+        f"{json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)
     q1 = phase_q1(torch, smi, rel)
@@ -5603,7 +6086,14 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in paged.values()),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"]}] + [{
+        "library_ms": decode["library_ms"]}, {
+        "name": "paged_attention_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:65",
+        "launches": launches["paged_attention_partial"],
+        "max_abs_err": max(c["max_abs_err"] for c in partial.values()),
+        **{k: partial["shard"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}] + [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces,

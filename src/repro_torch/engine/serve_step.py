@@ -71,7 +71,10 @@ class ServingEngine:
     engine over its slices of the model (``Model.param_specs``): the same
     requests, the same page books, its own kv heads in the cache or pool,
     and the same greedy token from the logits that every rank holds
-    whole."""
+    whole. Under the "sequence" kv strategy the books place pages over as
+    many shards as there are spans (``Ctx.seq_span``), and each rank
+    takes its shard's table row and page map, and the global tail page,
+    whose id names the shard that writes."""
 
     def __init__(self, model: Model, batch_size: int, max_seq: int,
                  ctx: Optional[Ctx] = None, eos_id: int = 0,
@@ -85,18 +88,21 @@ class ServingEngine:
         # the reference's books count cfg.n_layers (an ssm config's too)
         n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
                   else cfg.n_layers)
+        seq = self.ctx.kv_seq
+        self.shard, shards = self.ctx.seq_span if seq else (0, 1)
+        pages = batch_size * (-(-max_seq // page_size)) * 2
         self.kv_cfg = KVCacheConfig(
             n_layers=n_attn,
-            n_kv_heads=model.kv_heads_held() or cfg.n_kv_heads,
+            n_kv_heads=model.kv_cache_heads(seq) or cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, max_seq_len=max_seq,
-            page_size=page_size,
-            num_pages=batch_size * (-(-max_seq // page_size)) * 2,
-            num_shards=1)
+            page_size=page_size, num_pages=-(-pages // shards) * shards,
+            num_shards=shards)
         self.pages = KVPageManager(self.kv_cfg)
         self.paged = kv_layout == "paged"
         self.state = model.init_decode_state(
             batch_size, max_seq, model.dtype, kv_layout=kv_layout,
-            page_size=page_size, num_pages=self.kv_cfg.num_pages)
+            page_size=page_size, num_pages=self.kv_cfg.num_pages,
+            ctx=self.ctx)
         self.slots: List[Optional[_Seq]] = [None] * batch_size
         self.queue: List[_Seq] = []
         self.finished: List[_Seq] = []
@@ -165,13 +171,18 @@ class ServingEngine:
 
     def _place_pages(self) -> None:
         """Room for this step's token in every active slot's pages, then
-        the block tables and the tail pages to the card, once per step."""
+        the block tables (a rank split over the sequence: its shard's row
+        and page map) and the tail pages to the card, once per step."""
         sids, tail = [], np.full(self.B, -1, np.int32)
         for i, seq in enumerate(self.slots):
             sids.append(-1 if seq is None else seq.sid)  # -1: owns no page
             if seq is not None:
                 self.pages.allocate(seq.sid, 1)
                 tail[i] = self.pages.tail_physical_page(seq.sid)
+        s = self.shard  # this rank's shard (0 of 1 when not split)
         self.state.kv.block_tables.copy_(
-            torch.from_numpy(self.pages.build_tables(sids)))
+            torch.from_numpy(self.pages.build_tables(sids)[s:s + 1]))
+        if self.state.seq_pages is not None:
+            self.state.seq_pages.copy_(
+                torch.from_numpy(self.pages.build_page_map(sids)[s]))
         self.state.tail.copy_(torch.from_numpy(tail))

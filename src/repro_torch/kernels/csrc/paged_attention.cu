@@ -71,6 +71,13 @@
 //   order): no atomics, the same bytes every run. A row whose every span is empty has no valid position and
 //   gets the uniform mean of V there. With one span the first kernel
 //   writes the output itself and the second is not launched.
+// - The partial mode (a rank's share of a sequence-sharded pool): the same
+//   kernels over the rank's pages and local table, but the row is not
+//   finished. Each (sequence, query head) gives its float32 output
+//   normalised by its own sum and its (max, sum), the max in natural-log
+//   units; a row with no valid position gives the empty partial (zeros,
+//   max -1e30, sum 0) instead of the mean of V. The caller merges the
+//   ranks' partials by the same log-sum-exp rule.
 // The C entry point returns cudaGetLastError() after the launches.
 #include <cuda_bf16.h>
 
@@ -86,6 +93,7 @@ constexpr int kMlRows = 16;  // per-warp (max, sum) slots in shared memory
 constexpr int kCombineThreads = 128;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -93,9 +101,11 @@ struct Params {
   const void* v_pages;
   const int32_t* tables;
   const int32_t* lengths;
-  void* out;        // (B, H, hd) in q's dtype
+  void* out;        // (B, H, hd) in q's dtype; float32 in the partial mode
   float* part_acc;  // (B, K, n_spans, G, hd): when n_spans > 1
   float* part_ml;   // (B, K, n_spans, G, 2): max (log2 units), sum
+  float* out_ml;    // the partial mode: (B, H, 2) max (natural log), sum
+  int partial;      // 1: write the row's partial, not its output
   int64_t B, H, K, G, hd, page, max_pages;
   int64_t sqb, sqh;  // q strides (elements); the head dim is contiguous
   int64_t span_tokens, n_spans;
@@ -464,6 +474,19 @@ __device__ __forceinline__ void write_empty(const Params& p, const Pos& ps) {
   }
 }
 
+// The partial mode, one span: output row `row` of (B, H) is the
+// accumulator over the sum, its (max, sum) the max in natural-log units;
+// or, with no valid position (l = 0), the empty partial.
+__device__ __forceinline__ void write_partial(const Params& p, int64_t row,
+                                              int d, float total, float2 ml) {
+  const bool live = ml.y > 0.f;
+  static_cast<float*>(p.out)[row * p.hd + d] = live ? total / ml.y : 0.f;
+  if (d == 0) {
+    p.out_ml[row * 2] = live ? ml.x * kLn2 : kNeg;
+    p.out_ml[row * 2 + 1] = live ? ml.y : 0.f;
+  }
+}
+
 // The block's end, once every warp wrote its (max, sum) to ml_s and its
 // accumulator, scaled to the block's max, to sums[(warp*16 + g)*hd + d]:
 // sum the warps in order and write the output (one span) or the partial.
@@ -474,10 +497,15 @@ __device__ void finish_block(const Params& p, const Pos& ps,
   const int hd = static_cast<int>(p.hd);
   // validity is per position, shared by the heads: one sum tells
   if (block_ml(ml_s, warps, 0).y == 0.f) {
-    if (p.n_spans == 1)
-      write_mean<T>(p, ps.b, ps.kh, ps.g0, ps.ng, sums);
-    else
+    if (p.n_spans > 1) {
       write_empty(p, ps);
+    } else if (p.partial) {
+      for (int e = tid; e < ps.ng * hd; e += blockDim.x)
+        write_partial(p, ps.b * p.H + ps.kh * p.G + ps.g0 + e / hd, e % hd,
+                      0.f, make_float2(kNeg, 0.f));
+    } else {
+      write_mean<T>(p, ps.b, ps.kh, ps.g0, ps.ng, sums);
+    }
     return;
   }
   for (int e = tid; e < ps.ng * hd; e += blockDim.x) {
@@ -487,8 +515,11 @@ __device__ void finish_block(const Params& p, const Pos& ps,
     float total = 0.f;
     for (int w = 0; w < warps; ++w) total += sums[(w * kMlRows + g) * hd + d];
     if (p.n_spans == 1) {
-      static_cast<T*>(p.out)[(ps.b * p.H + ps.kh * p.G + ps.g0 + g) * p.hd +
-                             d] = from_float<T>(total / ml.y);
+      const int64_t row = ps.b * p.H + ps.kh * p.G + ps.g0 + g;
+      if (p.partial)
+        write_partial(p, row, d, total, ml);
+      else
+        static_cast<T*>(p.out)[row * p.hd + d] = from_float<T>(total / ml.y);
     } else {
       const int64_t row =
           ((ps.b * p.K + ps.kh) * p.n_spans + ps.span) * p.G + ps.g0 + g;
@@ -895,8 +926,14 @@ __global__ void __launch_bounds__(kCombineThreads)
   __syncthreads();
   float L = 0.f;
   for (int w = 0; w < kCombineThreads / 32; ++w) L += warp_red[w];
+  const int64_t row = b * p.H + kh * G + g;  // the output's row
   if (L == 0.f) {  // every span empty (validity is shared by the heads)
-    write_mean<T>(p, b, kh, static_cast<int>(g), 1, red);
+    if (p.partial) {
+      for (int d = tid; d < hd; d += blockDim.x)
+        write_partial(p, row, d, 0.f, make_float2(kNeg, 0.f));
+    } else {
+      write_mean<T>(p, b, kh, static_cast<int>(g), 1, red);
+    }
     return;
   }
   const int cols = hd / 4;          // 4-column slices of the row
@@ -922,11 +959,13 @@ __global__ void __launch_bounds__(kCombineThreads)
     *reinterpret_cast<float4*>(red + r * hd + c * 4) = o;
   }
   __syncthreads();
-  T* out = static_cast<T*>(p.out) + (b * p.H + kh * G + g) * p.hd;
   for (int d = tid; d < hd; d += blockDim.x) {
     float total = 0.f;
     for (int rr = 0; rr < R; ++rr) total += red[rr * hd + d];
-    out[d] = from_float<T>(total / L);
+    if (p.partial)
+      write_partial(p, row, d, total, make_float2(mx, L));
+    else
+      static_cast<T*>(p.out)[row * p.hd + d] = from_float<T>(total / L);
   }
 }
 
@@ -997,12 +1036,14 @@ Kernel split_kernel(int elem, int hd, int cg) {
 // positions (a whole number of pages); with n_spans > 1, part_acc (B, K,
 // n_spans, G, hd) and part_ml (B, K, n_spans, G, 2) float32 are the
 // partials' scratch and a combine kernel follows on the same stream.
+// With `partial` set, out is (B, H, hd) float32 and out_ml (B, H, 2)
+// float32: each row's partial (the header's partial mode).
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* tables, const void* lengths, void* out, void* part_acc,
     void* part_ml, int64_t B, int64_t H, int64_t K, int64_t hd, int64_t page,
     int64_t max_pages, int64_t sqb, int64_t sqh, int64_t span_tokens, int64_t n_spans, int elem_size, float scale,
-    void* stream) {
+    void* stream, void* out_ml, int partial) {
   Params p;
   p.q = q;
   p.k_pages = k_pages;
@@ -1012,6 +1053,8 @@ extern "C" int repro_paged_attention(
   p.out = out;
   p.part_acc = static_cast<float*>(part_acc);
   p.part_ml = static_cast<float*>(part_ml);
+  p.out_ml = static_cast<float*>(out_ml);
+  p.partial = partial;
   p.B = B;
   p.H = H;
   p.K = K;

@@ -27,9 +27,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as _sr
 from repro_torch.kernels import ssm_scan as _ssm
 
-__all__ = ["flash_attention", "paged_attention", "moe_gather", "ssm_scan",
-           "expr_core", "segment_reduce", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["flash_attention", "paged_attention", "paged_attention_partial",
+           "moe_gather", "ssm_scan", "expr_core", "segment_reduce",
+           "launch_counts", "reset_launch_counts"]
 
 _NO_BACKWARD = ("{} has no backward kernel: training runs attention on the "
                 "plain path (Ctx(use_flash=False), as the reference trains); "
@@ -101,6 +101,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return _pa.paged_attention(q, k_pages, v_pages, tables, lengths)  # checks
 
 
+def paged_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, tables: torch.Tensor,
+                            lengths: torch.Tensor) -> tuple:
+    """The paged kernel's partial mode over a rank's share of a pool split
+    over the sequence: inputs as ``paged_attention``'s (its sub-pool, its
+    local table, the valid positions of each local row) -> (out (B,H,hd),
+    ml (B,H,2)) float32, each row's output over its own sum and its (max,
+    sum); a row with no valid position gives zeros and (-1e30, 0)."""
+    _refuse_grad("paged_attention", q, k_pages, v_pages)
+    if q.device.type == "cpu":
+        _pa.check_shapes(q, k_pages, v_pages, tables, lengths)
+        return ref.paged_attention_partial_ref(q, k_pages, v_pages, tables,
+                                               lengths)
+    return _pa.paged_attention_partial(q, k_pages, v_pages, tables,
+                                       lengths)  # checks
+
+
 def moe_gather(x: torch.Tensor, token_ids: torch.Tensor,
                keep: torch.Tensor, slots: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
@@ -169,6 +186,7 @@ def launch_counts() -> dict:
     """Launches of each hand-written kernel since the last reset."""
     return {"flash_attention": _fa.LAUNCHES.count,
             "paged_attention": _pa.LAUNCHES.count,
+            "paged_attention_partial": _pa.LAUNCHES_PARTIAL.count,
             "moe_gather": _moe.LAUNCHES.count,
             "moe_gather_bwd": _moe.LAUNCHES_BWD.count,
             "ssm_scan": _ssm.LAUNCHES.count,
@@ -180,6 +198,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     _fa.LAUNCHES.count = 0
     _pa.LAUNCHES.count = 0
+    _pa.LAUNCHES_PARTIAL.count = 0
     _moe.LAUNCHES.count = 0
     _moe.LAUNCHES_BWD.count = 0
     _ssm.LAUNCHES.count = 0

@@ -22,6 +22,13 @@ merges the spans of each row in span order (no atomics). With one span
 the first kernel writes the output and the second is not launched.
 ``ref.paged_attention_split_ref`` is the same algorithm in plain PyTorch.
 
+The partial mode (``paged_attention_partial``) runs the same kernels over
+one rank's share of a pool split over the sequence (its sub-pool and its
+local table) and returns each row's unfinished result: the float32
+output normalised by its own sum and its (max, sum), which the ranks'
+log-sum-exp combine merges (``models.attention.merge_partials``); its
+plain version is ``ref.paged_attention_partial_ref``.
+
 Head dims: any hd up to 256 whose row is a whole number of 16-byte words
 (bf16: a multiple of 8; float32: of 4).
 
@@ -40,8 +47,8 @@ import torch
 
 from repro_torch.kernels import nvcc
 
-__all__ = ["paged_attention", "check_shapes", "span_plan", "build",
-           "LAUNCHES", "SOURCE"]
+__all__ = ["paged_attention", "paged_attention_partial", "check_shapes",
+           "span_plan", "build", "LAUNCHES", "LAUNCHES_PARTIAL", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -60,6 +67,7 @@ MAX_SPAN_TOKENS = 1024
 MAX_SPANS = 256
 
 LAUNCHES = nvcc.LaunchCounter()
+LAUNCHES_PARTIAL = nvcc.LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,7 +76,8 @@ def build() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE)
     fn = lib.repro_paged_attention
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 10
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     return lib
 
@@ -161,26 +170,17 @@ def _plan(B: int, H: int, hd: int, K: int, page: int,
     return span_tokens, n_spans, rows * hd, rows * 2
 
 
-def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                    v_pages: torch.Tensor, tables: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernels. q: (B, H, hd), head dim contiguous;
-    k_pages, v_pages: contiguous (P, page, K, hd) in q's dtype (float32 or
-    bfloat16); tables: (B, max_pages) int32 global page ids, -1 a hole;
-    lengths: (B,) int32. Returns a new contiguous (B, H, hd) tensor in q's
-    dtype, written on the current stream with no host sync.
-
-    One call is one launch in ``LAUNCHES``, whether it runs the split
-    kernel alone (one span) or the split kernel and the combine pass, so
-    that launches per attention layer and step stay one."""
+def _launch(q, k_pages, v_pages, tables, lengths, out,
+            out_ml=None) -> None:
+    """Check the inputs and launch the kernels into ``out`` (and, in the
+    partial mode, ``out_ml``); raises if the launch fails."""
     check_shapes(q, k_pages, v_pages, tables, lengths)
     _check_kernel_inputs(q, k_pages, v_pages, tables, lengths)
     B, H, hd = q.shape
     _, page, K, _ = k_pages.shape
     max_pages = tables.shape[1]
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if B == 0:
-        return out
+        return
     span_tokens, n_spans, n_acc, n_ml = _plan(B, H, hd, K, page, max_pages)
     lib = build()
     with _on_device(q.device):
@@ -195,9 +195,47 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), acc_ptr,
             ml_ptr, B, H, K, hd, page, max_pages, q.stride(0), q.stride(1),
             span_tokens, n_spans, q.element_size(), hd ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            None if out_ml is None else out_ml.data_ptr(),
+            int(out_ml is not None))
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
                            f"{err}")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, tables: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernels. q: (B, H, hd), head dim contiguous;
+    k_pages, v_pages: contiguous (P, page, K, hd) in q's dtype (float32 or
+    bfloat16); tables: (B, max_pages) int32 global page ids, -1 a hole;
+    lengths: (B,) int32. Returns a new contiguous (B, H, hd) tensor in q's
+    dtype, written on the current stream with no host sync.
+
+    One call is one launch in ``LAUNCHES``, whether it runs the split
+    kernel alone (one span) or the split kernel and the combine pass, so
+    that launches per attention layer and step stay one."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k_pages, v_pages, tables, lengths, out)
     LAUNCHES.add()
     return out
+
+
+def paged_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, tables: torch.Tensor,
+                            lengths: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode: inputs as ``paged_attention``'s, over one rank's
+    sub-pool and local table (lengths: the valid positions of each local
+    row). Returns (out, ml), float32 and contiguous: out (B, H, hd) each
+    row's output normalised by its own sum, ml (B, H, 2) its max score
+    (natural log units, scale included) and its sum of exp(score - max);
+    a row with no valid position gives zeros and (-1e30, 0). One call is
+    one launch in ``LAUNCHES_PARTIAL``."""
+    check_shapes(q, k_pages, v_pages, tables, lengths)
+    B, H, hd = q.shape
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    ml = torch.empty((B, H, 2), dtype=torch.float32, device=q.device)
+    _launch(q, k_pages, v_pages, tables, lengths, out, ml)
+    LAUNCHES_PARTIAL.add()
+    return out, ml

@@ -7,7 +7,8 @@ import torch
 from repro_torch.kernels.ssm_scan import BWD_CHUNK
 
 __all__ = ["attention_ref", "flash_attention_tiled_ref", "paged_attention_ref",
-           "paged_attention_split_ref", "moe_gather_ref", "gather_inverse",
+           "paged_attention_split_ref", "paged_attention_partial_ref",
+           "moe_gather_ref", "gather_inverse",
            "gather_slots", "moe_gather_bwd_ref", "ssm_scan_ref",
            "ssm_scan_checkpointed_ref", "ssm_scan_ex2_ref",
            "ssm_scan_bwd_ref"]
@@ -164,6 +165,38 @@ def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
     none = (l_all == 0)[..., None]
     out = torch.where(none, mean[:, :, None], out)
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_attention_partial_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, tables: torch.Tensor,
+                                lengths: torch.Tensor) -> tuple:
+    """The paged kernel's partial mode in plain PyTorch: over the pages
+    that ``tables`` gives each row (a rank's sub-pool and local table),
+    each (row, head)'s unfinished softmax in float32. Returns (out, ml):
+    out (B,H,hd) float32, the row's p V over its own sum l; ml (B,H,2)
+    float32, its max score m (scale included) and l, the sum of exp(s -
+    m) over the valid positions; a row with no valid position gives zeros
+    and (-1e30, 0), the empty partial. Shapes as ``paged_attention_ref``."""
+    B, H, hd = q.shape
+    P, ps, K, _ = k_pages.shape
+    maxp = tables.shape[1]
+    G = H // K
+    t = tables.long().clamp(min=0)
+    k_seq = k_pages[t].reshape(B, maxp * ps, K, hd).float()
+    v_seq = v_pages[t].reshape(B, maxp * ps, K, hd).float()
+    pos = torch.arange(maxp * ps, device=q.device)
+    page_ok = (tables >= 0).repeat_interleave(ps, dim=1)
+    ok = ((pos[None] < lengths[:, None]) & page_ok)[:, None, None]
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, K, G, hd).float(),
+                     k_seq) * (hd ** -0.5)
+    s = s.masked_fill(~ok, -1e30)
+    m = s.amax(-1)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.)
+    l = p.sum(-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_seq) / l.clamp(
+        min=1e-30)[..., None]
+    ml = torch.stack([torch.where(l > 0, m, -1e30), l], -1)
+    return o.reshape(B, H, hd), ml.reshape(B, H, 2)
 
 
 def moe_gather_ref(x: torch.Tensor, token_ids: torch.Tensor,

@@ -10,14 +10,25 @@ the head counts from their inputs' shapes.
 On a rank of a mesh the projections hold the slices ``Model.param_specs``
 places (``attn_heads``): ``wq``/``bq`` and ``wo`` split by ``q_dim`` give
 the rank H/tp whole heads; ``wk``/``wv``/``bk``/``bv`` split by
-``kv_heads`` (``kv_strategy == "heads"``) give it K/tp. Where they are
-whole (K does not divide the model axis: the "sequence" strategy), the
-rank projects only the kv heads that its q heads read. Its heads'
-attention is the single device's, and the ``wo`` product's partials are
-summed by one all-reduce over the model axis. For the gradient the
-inputs enter the split projections through ``layers.to_model``, and so do
-whole ``wk``/``wv`` (and biases) before a rank slices them: the ranks
-that read one kv head add up its gradient.
+``kv_heads`` (``kv_strategy == "heads"``) give it K/tp, and its decode
+cache holds those K/tp heads over every position. Where they are whole
+(K does not divide the model axis: the "sequence" strategy), prefill
+projects only the kv heads that the rank's q heads read; decode runs over
+a cache split along the sequence, each rank holding its span of the
+positions for every kv head (or its shard of the paged pool), as the
+reference's ``decode_state_specs`` places it. There the rank all-gathers
+q over the model axis (every head), computes each head's partial softmax
+over its span (``decode_partial``; on the pool the paged kernel's partial
+mode), and the partials of its own heads come back from every span by one
+all-to-all, merged in span order by the log-sum-exp rule
+(``combine_spans``, ``merge_partials``). The new token's k and v (all K
+heads: ``wk`` and ``wv`` are whole) are written by the rank whose span
+holds its position. Either way the rank's heads' attention is the single
+device's, and the ``wo`` product's partials are summed by one all-reduce
+over the model axis. For the gradient the inputs enter the split
+projections through ``layers.to_model``, and so do whole ``wk``/``wv``
+(and biases) before a rank slices them: the ranks that read one kv head
+add up its gradient.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kops
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import held_split, model_sum, rope, to_model
@@ -34,6 +46,7 @@ from repro_torch.models.params import ParamDef
 __all__ = ["attn_defs", "attn_heads", "attn_project_qkv", "attn_output",
            "full_attention",
            "chunked_attention", "decode_attention", "paged_decode_attention",
+           "decode_partial", "merge_partials", "combine_spans",
            "attention_block", "cross_attention_block"]
 
 _NEG = -1e30
@@ -60,12 +73,13 @@ def attn_defs(cfg: ArchConfig, stacked: Optional[int] = None) -> Dict:
 
 def attn_heads(cfg: ArchConfig, q_width: int, k_width: int
                ) -> Tuple[int, int]:
-    """(q heads, kv heads) that a rank computes, from the widths of the
-    ``wq`` and ``wk`` it holds: both whole, both split (H/tp, K/tp), or
-    ``wq`` split and ``wk`` whole, where it computes the kv heads its H/tp
-    q heads read: H/tp / G of them, or one where G is a multiple of H/tp.
-    A q_dim split inside a head, and q heads whose kv heads fall unevenly,
-    raise NotImplementedError."""
+    """(q heads, kv heads) that a rank's prefill computes, from the widths
+    of the ``wq`` and ``wk`` it holds: both whole, both split (H/tp,
+    K/tp), or ``wq`` split and ``wk`` whole (the "sequence" strategy),
+    where it computes the kv heads its H/tp q heads read: H/tp / G of
+    them, or one where G is a multiple of H/tp (decode there projects all
+    K for the sequence-sharded cache). A q_dim split inside a head, and q
+    heads whose kv heads fall unevenly, raise NotImplementedError."""
     hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     if q_width % hd:
         raise NotImplementedError(
@@ -218,6 +232,63 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     global page ids, -1 a hole; lengths: (B,) int32 valid prefix."""
     return kops.paged_attention(q[:, 0], k_pages, v_pages, tables,
                                 lengths)[:, None]
+
+
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token attention over a span of a dense cache, unfinished: q
+    (B,H,hd); k/v (B,T,K,hd), the span's positions; valid (B,T) bool.
+    Returns (out (B,H,hd), ml (B,H,2)) float32 as the paged kernel's
+    partial mode gives them: each row's p V over its own sum l, and (max
+    score, l); zeros and (-1e30, 0) for a row with no valid position."""
+    B, H, hd = q.shape
+    K = k.shape[2]
+    s = _scores(q.reshape(B, K, H // K, hd), k, "bkgd,btkd->bkgt") \
+        * hd ** -0.5
+    ok = valid[:, None, None]
+    s.masked_fill_(~ok, _NEG)
+    m = s.amax(-1)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.)
+    l = p.sum(-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float()) / l.clamp(
+        min=1e-30)[..., None]
+    ml = torch.stack([torch.where(l > 0, m, _NEG), l], -1)
+    return out.reshape(B, H, hd), ml.reshape(B, H, 2)
+
+
+def merge_partials(out: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+    """The spans' partials (out (n,B,H,hd), ml (n,B,H,2) float32, span
+    order) merged by ``ref.paged_attention_split_ref``'s rule: M the
+    largest max of the non-empty spans, each span weighted by e^(m - M) l,
+    the weighted outputs and the weights summed in span order. A row with
+    no valid position in any span gives zeros (only an idle serving slot
+    has none). Returns (B,H,hd) float32."""
+    m, l = ml[..., 0], ml[..., 1]
+    live = l > 0
+    M = torch.where(live, m, _NEG).amax(0)
+    w = torch.where(live, torch.exp(m - M), 0.) * l
+    acc = torch.zeros_like(out[0])
+    total = torch.zeros_like(l[0])
+    for s in range(out.shape[0]):
+        acc.addcmul_(w[s, ..., None], out[s])
+        total.add_(w[s])
+    return acc / total.clamp(min=1e-30)[..., None]
+
+
+def combine_spans(out: torch.Tensor, ml: torch.Tensor, ctx: Ctx
+                  ) -> torch.Tensor:
+    """Every head's partial over this rank's span (out (B,H,hd), ml
+    (B,H,2)) -> this rank's H/tp heads' attention (B,H/tp,hd) float32:
+    each span's partials of the rank's heads come back to it by one
+    all-to-all over ``ctx.seq_group`` (the ranks of the spans, in span
+    order; span j sits at model index j mod tp), then ``merge_partials``
+    in span order."""
+    B, H, hd = out.shape
+    tp, (_, n) = ctx.tp, ctx.seq_span
+    parts = torch.cat([out, ml], -1).view(B, tp, H // tp, hd + 2)
+    send = parts[:, [j % tp for j in range(n)]].movedim(1, 0)
+    got = coll.all_to_all(send, ctx.seq_group)
+    return merge_partials(got[..., :hd], got[..., hd:])
 
 
 def attention_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,

@@ -23,12 +23,17 @@ places on ``data`` (``data_dims``); the model all-gathers a leaf over
 ``data_group`` where a layer takes it, inside the layer's remat region,
 and the gather's backward reduce-scatters the leaf's gradient
 (``collectives.gather_data``), so a layer sees the leaf the model axis
-alone would split."""
+alone would split.
+
+Under the plan's "sequence" kv strategy on a model axis of tp > 1
+(``kv_seq``) a rank's decode cache is its span of the positions
+(``seq_span``), over the axes that dim 2 of the cache's spec names; the
+ranks of those axes (``seq_group``) merge their attention partials."""
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core.planner import ShardingPlan
 
@@ -125,3 +130,43 @@ class Ctx:
             (i for i, e in enumerate(spec) if e == "data"
              or (isinstance(e, tuple) and "data" in e)), None),
             pp.specs(model_defs(self.plan.arch), self.plan))
+
+    @property
+    def kv_seq(self) -> bool:
+        """Whether decode runs over a sequence-sharded cache: the plan's
+        "sequence" kv strategy on a model axis of tp > 1."""
+        return self.tp > 1 and self.plan.kv_strategy == "sequence"
+
+    def _seq_axes(self) -> Tuple[str, ...]:
+        """The mesh axes of dim 2 of the sequence-sharded cache's spec
+        (``model_zoo._kv_spec``), the first the major one."""
+        from repro_torch.models.model_zoo import _kv_spec
+        axes = _kv_spec(self.plan, heads=False)[2]
+        return axes if isinstance(axes, tuple) else (axes,)
+
+    @property
+    def seq_span(self) -> Tuple[int, int]:
+        """(index, count): this rank's span of a sequence-sharded cache's
+        positions in span order, and the spans, from the axes that dim 2 of
+        the cache's spec names: the model axis, or with the batch
+        replicated the data axes then the model axis."""
+        index, count = 0, 1
+        for axis in self._seq_axes():
+            n = self.plan.mesh_axes[axis]
+            index, count = index * n + self.mesh.index(axis), count * n
+        return index, count
+
+    @property
+    def seq_group(self):
+        """The process group of this rank's spans, its group ranks in span
+        order: the model axis's line, or the whole world where the spans
+        lie over every axis of the mesh in its order (None: the default
+        group)."""
+        axes = self._seq_axes()
+        if len(axes) == 1:
+            return self.mesh.group(axes[0])
+        if tuple(self.mesh.shape) != axes:
+            raise NotImplementedError(
+                f"spans over {axes} on a mesh of {tuple(self.mesh.shape)}: "
+                f"the spans' group is the mesh's every axis in its order")
+        return None

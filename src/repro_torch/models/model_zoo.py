@@ -103,9 +103,11 @@ class Model(nn.Module):
         is drawn whole on the generator's device, in that order, its slice
         kept and the whole freed. The ranks take turns, a barrier each, so
         that ranks sharing a card never hold more than one whole leaf on
-        it at once: on a card the rank whose turn ends hands the freed
-        leaves' blocks back (``torch.cuda.empty_cache``), else its caching
-        allocator keeps a whole leaf's room for the rest of the run."""
+        it at once: on a card the rank hands each freed leaf's block back
+        at once (``torch.cuda.empty_cache``), else its caching allocator
+        keeps a whole leaf's room for the rest of the run, and carves the
+        next leaves' slices out of it, so that it cannot be handed back
+        (sixteen ranks on one card ran out of memory so)."""
         import torch.distributed as dist
         from repro_torch.distributed.elastic import local_slice
         dt = pp.torch_dtype(dtype or self.cfg.param_dtype)
@@ -119,8 +121,8 @@ class Model(nn.Module):
                         mesh.device, memory_format=torch.contiguous_format,
                         copy=True)
                     del whole
-                if generator.device.type == "cuda":
-                    torch.cuda.empty_cache()
+                    if generator.device.type == "cuda":
+                        torch.cuda.empty_cache()
             dist.barrier()
         return self.load_shards(shards)
 
@@ -181,33 +183,50 @@ class Model(nn.Module):
     def init_decode_state(self, batch: int, max_seq: int, dtype=None,
                           kv_dtype: Optional[str] = None, device=None,
                           kv_layout: str = "dense", page_size: int = 64,
-                          num_pages: Optional[int] = None):
+                          num_pages: Optional[int] = None,
+                          ctx: Optional[Ctx] = None):
         """The dense KV cache (``kv_dtype="int8"``: int8 with scales;
         another float type: a cache of it), the xLSTM states, or, with
         ``kv_layout="paged"``, the paged pool of ``page_size``-token pages
         (``transformer.init_decode_state``); dtype defaults to the config's
-        ``param_dtype`` and device to the parameters' device. The caches
-        hold the kv heads the model computes (``kv_heads_held``), a hybrid
-        model's Mamba states its channels (``inner_held``)."""
+        ``param_dtype`` and device to the parameters' device. On a rank of
+        a mesh the state is laid out as ``decode_state_specs`` places it:
+        the caches hold the rank's kv heads (``kv_cache_heads``) or, under
+        the "sequence" strategy, which ``ctx`` (the rank's plan and mesh)
+        must then give, its span of the positions or its shard of the pool
+        (``Ctx.seq_span``); a hybrid model's Mamba states its channels
+        (``inner_held``)."""
+        seq = ctx is not None and ctx.kv_seq
         return tf.init_decode_state(
             self.cfg, batch, max_seq,
             pp.torch_dtype(dtype or self.cfg.param_dtype),
             device or self.device, kv_dtype=kv_dtype, kv_layout=kv_layout,
             page_size=page_size, num_pages=num_pages,
-            kv_heads=self.kv_heads_held(), inner=self.inner_held())
+            kv_heads=self.kv_cache_heads(seq), inner=self.inner_held(),
+            seq_span=ctx.seq_span if seq else None)
 
-    def kv_heads_held(self) -> Optional[int]:
-        """The kv heads this model's attention computes, and so its decode
-        state caches: the config's, or on a rank of a mesh those of its
-        slices (``attention.attn_heads``); None without attention."""
-        from repro_torch.models.attention import attn_heads
+    def kv_cache_heads(self, seq: bool = False) -> Optional[int]:
+        """The kv heads this model's decode cache holds: those of the
+        ``wk`` it holds, all of them or, on a rank under the "heads"
+        strategy, its K/tp; None without attention. A rank whose ``wq`` is
+        split and ``wk`` whole (the "sequence" strategy) caches every kv
+        head over its span of the positions, and only with ``seq`` (its
+        context's span): ValueError otherwise."""
         for path in ("blocks.attn", "groups.attn", "decoder.attn"):
             try:
                 attn = self.get_submodule(path)
             except AttributeError:
                 continue
-            return attn_heads(self.cfg, attn.wq.shape[-1],
-                              attn.wk.shape[-1])[1]
+            hd = self.cfg.resolved_head_dim
+            whole = attn.wq.shape[-1] == self.cfg.n_heads * hd
+            if not (whole or seq) and \
+                    attn.wk.shape[-1] == self.cfg.n_kv_heads * hd:
+                raise ValueError(
+                    f"{self.cfg.name}: this rank's kv heads are whole and "
+                    f"its q heads split (the \"sequence\" kv strategy): its "
+                    f"decode state is its span of the sequence, which "
+                    f"init_decode_state builds from ctx=")
+            return attn.wk.shape[-1] // hd
         return None
 
     def inner_held(self) -> Optional[int]:

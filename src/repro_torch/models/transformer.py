@@ -34,9 +34,13 @@ vocab columns; norms, positions and the router whole. The residual stream
 is whole on every rank: each split product ends in one all-reduce over the
 model axis (the embedding, each layer's attention, Mamba block and
 feed-forward), and the logits in one all-gather along the vocab, so every
-rank holds the same logits. A rank's decode state holds the kv heads it
-computes (``attention.attn_heads``) and its channels of each Mamba
-layer's ``h``, the conv windows whole. The ssm and audio families and the
+rank holds the same logits. A rank's decode state is laid out as
+``Model.decode_state_specs`` places it: under the "heads" kv strategy its
+K/tp kv heads over every position; under "sequence" (``Ctx.kv_seq``) its
+span of the positions for every kv head, or its shard of the paged pool
+(its sub-pool, its table row and the sequence page each entry holds),
+decoded by ``_attn_decode_seq``; and its channels of each Mamba layer's
+``h``, the conv windows whole. The ssm and audio families and the
 MoE "tp" strategy raise NotImplementedError on such a mesh
 (``check_split``); on a mesh of data shards alone (tp 1) every family runs
 on its shard of the batch.
@@ -61,6 +65,7 @@ layers run as they are.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -68,11 +73,13 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed import collectives as coll
+from repro_torch.kernels import ops as kops
 from repro_torch.models import xlstm as xl
-from repro_torch.models.attention import (attn_defs, attn_output,
-                                          attn_project_qkv, attention_block,
+from repro_torch.models.attention import (attn_defs, attn_heads,
+                                          attn_output, attn_project_qkv,
+                                          attention_block, combine_spans,
                                           cross_attention_block,
-                                          decode_attention,
+                                          decode_attention, decode_partial,
                                           paged_decode_attention)
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import (apply_norm, embed_defs, embed_lookup,
@@ -86,7 +93,8 @@ from repro_torch.models.ssm import (MambaState, mamba_apply,
 from repro_torch.objectmodel.kvcache import (KVCacheConfig, PagedKVState,
                                              PagedWrite, global_page_tables,
                                              init_paged_state,
-                                             plan_paged_write, tail_pages,
+                                             plan_paged_write, shard_lengths,
+                                             shard_tail, tail_pages,
                                              write_paged, write_token)
 
 __all__ = ["model_defs", "forward", "decode_step", "init_decode_state",
@@ -103,7 +111,12 @@ class DecodeState(NamedTuple):
     ``k_scale``/``v_scale`` hold per-(token, kv head) absmax scales.
     ``decode_step`` updates the caches and the recurrent states in place
     (JAX donates them instead) and returns a state holding the same
-    tensors."""
+    tensors.
+
+    Split over the sequence (a rank's span of Smax' = Smax rounded up to a
+    multiple of the spans), the caches are (L_attn, B, Smax' / spans, K,
+    hd) and ``seq_limit`` holds Smax: positions at or past it are never
+    written nor read."""
     k_cache: Optional[torch.Tensor] = None  # (L_attn, B, Smax, K, hd)
     v_cache: Optional[torch.Tensor] = None
     length: Optional[torch.Tensor] = None  # (B,) int32
@@ -113,6 +126,7 @@ class DecodeState(NamedTuple):
     mlstm: Optional[xl.MLSTMState] = None  # ssm: stacked (L_mlstm, ...)
     slstm: Optional[xl.SLSTMState] = None  # ssm: stacked (L_slstm, ...)
     enc_out: Optional[torch.Tensor] = None  # audio: (B, encoder_len, d)
+    seq_limit: Optional[torch.Tensor] = None  # () int32, split over the seq
 
 
 class PagedDecodeState(NamedTuple):
@@ -124,10 +138,18 @@ class PagedDecodeState(NamedTuple):
     ``decode_step`` writes there, then points ``tail`` at the page of the
     token after as far as the tables show; a caller that changes the tables
     (the serving engine, allocating pages as sequences grow) sets ``tail``
-    with them."""
+    with them.
+
+    A rank's shard of a pool split over the sequence holds its sub-pool
+    ``(L_attn, P / shards, page, K, hd)``, its own table row ``(1, B,
+    slots)`` and ``seq_pages`` (B, slots) int32, the sequence page each
+    entry holds (-1 none). It writes a token where ``tail``'s global id
+    names its shard (``id // (P / shards)``), and after a step points
+    ``tail`` at its own page of the next token, or -1."""
     kv: PagedKVState
     tail: torch.Tensor
     mamba: Optional[MambaState] = None  # hybrid: stacked (L_mamba, ...)
+    seq_pages: Optional[torch.Tensor] = None  # (B, slots), split over seq
 
     @property
     def length(self) -> torch.Tensor:
@@ -551,12 +573,17 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       kv_layout: str = "dense", page_size: int = 64,
                       num_pages: Optional[int] = None,
                       kv_heads: Optional[int] = None,
-                      inner: Optional[int] = None):
+                      inner: Optional[int] = None,
+                      seq_span: Optional[Tuple[int, int]] = None):
     """The decode state for ``batch`` sequences of up to ``max_seq`` tokens,
     its caches holding ``kv_heads`` kv heads (default the config's; a
-    rank of a mesh, the ones it computes) and a hybrid config's Mamba
-    ``h`` states ``inner`` channels (default all; a rank, its own), the
-    conv windows whole.
+    rank of a mesh under the "heads" strategy, its K/tp) and a hybrid
+    config's Mamba ``h`` states ``inner`` channels (default all; a rank,
+    its own), the conv windows whole. ``seq_span`` (index, count) gives a
+    rank's share of a cache split over the sequence (``Ctx.seq_span``):
+    its span of the positions (``DecodeState.seq_limit``), or its shard of
+    the pool (``PagedDecodeState.seq_pages``), laid out as the round-robin
+    placement of the pages that the single process's pool holds.
 
     ``kv_layout="dense"`` gives a ``DecodeState``. Its caches are in
     ``kv_dtype`` where given, else ``dtype``: ``"int8"`` with float32
@@ -574,8 +601,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
     ``num_pages`` pages of ``page_size`` tokens (default: just enough), in
     which sequence b holds pages ``b * n`` to ``b * n + n - 1``, n =
     ceil(max_seq / page_size), so that it decodes from position 0 with no
-    page manager. The paged pool holds ``dtype`` (no other ``kv_dtype``),
-    and the audio and ssm families have none (ValueError)."""
+    page manager; split over the sequence, shard s holds page j * count +
+    s of each sequence at its entry j. The paged pool holds ``dtype`` (no
+    other ``kv_dtype``), and the audio and ssm families have none
+    (ValueError)."""
     _check_supported(cfg)
     fam = cfg.family
     if kv_layout not in ("dense", "paged"):
@@ -618,21 +647,33 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
         mamba = mamba_init_state(cfg, batch, dtype, device,
                                  n_attn * (g - 1), inner)
     K, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
+    index, count = seq_span or (0, 1)
     if kv_layout == "paged":
         per_seq = -(-max_seq // page_size)
+        slots = -(-per_seq // count)  # a shard's entries a sequence
         kv_cfg = KVCacheConfig(
             n_layers=n_attn, n_kv_heads=K, head_dim=hd, max_seq_len=max_seq,
-            page_size=page_size, num_pages=num_pages or batch * per_seq,
-            dtype=str(dtype).split(".")[-1])
-        if kv_cfg.num_pages < batch * per_seq:
-            raise ValueError(f"{kv_cfg.num_pages} pages cannot hold {batch} "
-                             f"sequences of {per_seq} pages")
-        kv = init_paged_state(kv_cfg, batch, device)
-        kv.block_tables[0] = torch.arange(
-            batch * per_seq, dtype=torch.int32,
-            device=device).view(batch, per_seq)
-        return PagedDecodeState(kv, kv.block_tables[0, :, 0].clone(), mamba)
-    shape = (n_attn, batch, max_seq, K, hd)
+            page_size=page_size,
+            num_pages=num_pages or batch * slots * count,
+            num_shards=count, dtype=str(dtype).split(".")[-1])
+        if kv_cfg.pages_per_shard < batch * slots:
+            raise ValueError(f"{kv_cfg.num_pages} pages over {count} shards "
+                             f"cannot hold {batch} sequences of {per_seq} "
+                             f"pages")
+        kv = init_paged_state(dataclasses.replace(
+            kv_cfg, num_pages=kv_cfg.pages_per_shard, num_shards=1),
+            batch, device)
+        j = torch.arange(slots, dtype=torch.int32, device=device)
+        page = (j * count + index).expand(batch, slots)
+        held = page < per_seq
+        local = torch.arange(batch * slots, dtype=torch.int32,
+                             device=device).view(1, batch, slots)
+        kv = kv._replace(block_tables=torch.where(held, local, -1))
+        tail = local[0, :, 0].clone()  # page 0 is shard 0's
+        return PagedDecodeState(
+            kv, tail, mamba,
+            torch.where(held, page, -1) if seq_span else None)
+    shape = (n_attn, batch, -(-max_seq // count), K, hd)
 
     def scales():
         return torch.ones(shape[:-1], dtype=torch.float32, device=device)
@@ -646,7 +687,9 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
         length=length,
         k_scale=scales() if int8 else None,
         v_scale=scales() if int8 else None,
-        mamba=mamba, enc_out=enc)
+        mamba=mamba, enc_out=enc,
+        seq_limit=(torch.tensor(max_seq, dtype=torch.int32, device=device)
+                   if seq_span else None))
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -660,20 +703,45 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class _PagedStep(NamedTuple):
     """What every attention layer of one paged decode step shares, made
-    once per step: the kernel's global tables, the write plan and the
-    lengths after the step."""
+    once per step: the kernel's tables (global ids; a shard's, local
+    ones), the write plan, the lengths after the step and the valid
+    positions of each row of the tables (the lengths, or a shard's
+    ``shard_lengths``)."""
     tables: torch.Tensor  # (B, max_pages) int32
     write: PagedWrite
     lengths: torch.Tensor  # (B,) int32
+    held: torch.Tensor  # (B,) int32
 
 
-def _paged_step(state: PagedDecodeState) -> _PagedStep:
+def _check_layout(state, ctx: Optional[Ctx]) -> None:
+    """A state split over the sequence under a context that splits it,
+    and the other way round (ValueError otherwise)."""
+    split = getattr(state, "seq_limit", None) is not None or \
+        getattr(state, "seq_pages", None) is not None
+    if split != bool(ctx is not None and ctx.kv_seq):
+        raise ValueError(
+            "the decode state's layout does not match the context: under "
+            "the plan's \"sequence\" kv strategy on a model axis build it "
+            "with Model.init_decode_state(..., ctx=ctx), and only there")
+
+
+def _paged_step(state: PagedDecodeState, ctx: Optional[Ctx]) -> _PagedStep:
     kv = state.kv
-    tables = global_page_tables(
-        kv.block_tables, kv.k_pages.shape[1] // kv.block_tables.shape[0])
-    return _PagedStep(tables, plan_paged_write(state.tail, kv.length,
-                                               kv.k_pages.shape[2]),
-                      kv.length + 1)
+    page = kv.k_pages.shape[2]
+    lengths = kv.length + 1
+    if state.seq_pages is None:
+        tables = global_page_tables(
+            kv.block_tables, kv.k_pages.shape[1] // kv.block_tables.shape[0])
+        return _PagedStep(tables, plan_paged_write(state.tail, kv.length,
+                                                   page), lengths, lengths)
+    # a shard: its own table row, its pages' valid positions; it writes
+    # where the tail page is its own (the global id names the shard)
+    tables, first = kv.block_tables[0], ctx.seq_span[0] * kv.k_pages.shape[1]
+    mine = (state.tail >= first) & (state.tail < first + kv.k_pages.shape[1])
+    local = torch.where(mine, state.tail - first, -1)
+    return _PagedStep(tables, plan_paged_write(local, kv.length, page),
+                      lengths, shard_lengths(tables, state.seq_pages,
+                                             lengths, page))
 
 
 def _attn_decode(cfg, p, z, state, i: int,
@@ -683,7 +751,10 @@ def _attn_decode(cfg, p, z, state, i: int,
     state's layer-i views in place: the paged pool (read through the paged
     kernel), the int8 cache (quantized on write; the whole cache is
     dequantized for the attention, as in the reference) or the dense
-    cache; over the heads that ``p`` gives this rank."""
+    cache; over the heads that ``p`` gives this rank. Under the "sequence"
+    kv strategy on a model axis, ``_attn_decode_seq``."""
+    if ctx is not None and ctx.kv_seq:
+        return _attn_decode_seq(cfg, p, z, state, i, paged, ctx)
     B = z.shape[0]
     length = state.length
     q, k, v = attn_project_qkv(cfg, p, z, ctx=ctx)
@@ -717,6 +788,60 @@ def _attn_decode(cfg, p, z, state, i: int,
     return attn_output(cfg, p, out.reshape(B, 1, -1).to(p["wo"].dtype), ctx)
 
 
+def _attn_decode_seq(cfg, p, z, state, i: int,
+                     paged: Optional[_PagedStep], ctx: Ctx):
+    """``_attn_decode`` on a rank of a cache split over the sequence: q of
+    the rank's heads (``wq`` split), k and v of all K heads (``wk`` and
+    ``wv`` whole), written by the rank whose span (or shard) holds the
+    position; q all-gathered over the model axis, every head's partial
+    over the rank's span (the paged kernel's partial mode on its pages, or
+    ``decode_partial`` on its dense or dequantized int8 span), the rank's
+    heads' partials merged over the spans (``combine_spans``)."""
+    B = z.shape[0]
+    hd = cfg.resolved_head_dim
+    attn_heads(cfg, p["wq"].shape[-1], p["wk"].shape[-1])  # refuses a
+    # q_dim split inside a head (item 18's rest)
+    q, k, v = z @ p["wq"], z @ p["wk"], z @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, 1, -1, hd)
+    k, v = k.reshape(B, 1, -1, hd), v.reshape(B, 1, -1, hd)
+    length = state.length
+    if cfg.pos_embedding == "rope":
+        pos = length[:, None]
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    q = coll.all_gather(q[:, 0], ctx.tp_group, dim=1)  # every head, in order
+    if paged is not None:
+        k_pages, v_pages = state.kv.k_pages[i], state.kv.v_pages[i]
+        write_paged(k_pages, k[:, 0], paged.write)
+        write_paged(v_pages, v[:, 0], paged.write)
+        out, ml = kops.paged_attention_partial(q, k_pages, v_pages,
+                                               paged.tables, paged.held)
+    else:
+        k_l, v_l = state.k_cache[i], state.v_cache[i]
+        span = k_l.shape[1]
+        first = ctx.seq_span[0] * span
+        local = length - first
+        own = length < state.seq_limit
+        if state.k_scale is not None:
+            ks_l, vs_l = state.k_scale[i], state.v_scale[i]
+            for cache, scales, new in ((k_l, ks_l, k), (v_l, vs_l, v)):
+                values, scale = _quantize_kv(new[:, 0])
+                write_token(cache, values, local, own)
+                write_token(scales, scale, local, own)
+            k_l = (k_l.float() * ks_l[..., None]).to(z.dtype)
+            v_l = (v_l.float() * vs_l[..., None]).to(z.dtype)
+        else:
+            write_token(k_l, k[:, 0], local, own)
+            write_token(v_l, v[:, 0], local, own)
+        n = torch.minimum(length + 1, state.seq_limit) - first
+        valid = torch.arange(span, device=z.device)[None] < n[:, None]
+        out, ml = decode_partial(q, k_l, v_l, valid)
+    out = combine_spans(out, ml, ctx)
+    return attn_output(cfg, p, out.reshape(B, 1, -1).to(p["wo"].dtype), ctx)
+
+
 def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
                 state, ctx: Ctx):
     """One decoding step. token: (B, 1) -> (logits (B,1,V), new state).
@@ -727,7 +852,8 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
     positions are read at each slot's ``length`` (NaN past the table's
     end, as ``jnp.take`` fills)."""
     check_split(cfg, ctx)
-    paged = (_paged_step(state) if isinstance(state, PagedDecodeState)
+    _check_layout(state, ctx)
+    paged = (_paged_step(state, ctx) if isinstance(state, PagedDecodeState)
              else None)
     table = _part(params, ctx, "embed", "tokens")
     x = embed_lookup(cfg, table, token, ctx)
@@ -754,11 +880,17 @@ def decode_step(cfg: ArchConfig, params: Dict, token: torch.Tensor,
             x = h + m
     if paged is None:
         state = state._replace(length=state.length + 1)
-    else:
+    elif state.seq_pages is None:
         state = state._replace(
             kv=state.kv._replace(length=paged.lengths),
             tail=tail_pages(paged.tables, paged.lengths,
                             state.kv.k_pages.shape[2]))
+    else:
+        pool = state.kv.k_pages
+        state = state._replace(
+            kv=state.kv._replace(length=paged.lengths),
+            tail=shard_tail(paged.tables, state.seq_pages, paged.lengths,
+                            pool.shape[2], ctx.seq_span[0] * pool.shape[1]))
     x = apply_norm(cfg, _take(params["final_norm"], None,
                               _dims(ctx, "final_norm"), ctx), x)
     return logits(cfg, _head(params, ctx, table), x, ctx), state

@@ -16,11 +16,19 @@ The appends update the tensors in place (JAX returns new arrays) and
 return the state with ``length + 1``. A write with nowhere to go is
 dropped: past the end of a dense cache, or to a page id below 0 (an idle
 serving slot, or a sequence past its pages).
+
+A rank of a pool split over the sequence holds one shard: its sub-pool,
+its row of the tables and, per entry, the sequence page the entry holds
+(``KVPageManager.build_page_map``; round-robin, entry j of shard s holds
+page j * shards + s, unless a page was stolen from another shard). Its
+valid positions per row (``shard_lengths``) come from the pages it holds,
+and it writes a token only where the tail page's global id names its
+shard (``shard_tail``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +37,7 @@ __all__ = ["KVCacheConfig", "DenseKVCache", "PagedKVState", "KVPageManager",
            "PagedWrite", "init_dense_cache", "init_paged_state",
            "dense_append", "paged_append", "gather_paged_kv",
            "global_page_tables", "plan_paged_write", "tail_pages",
-           "write_paged", "write_token"]
+           "shard_lengths", "shard_tail", "write_paged", "write_token"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,15 +110,20 @@ def init_paged_state(cfg: KVCacheConfig, batch: int,
 
 # ---------------------------------------------------------------- appends
 def write_token(cache: torch.Tensor, new: torch.Tensor,
-                length: torch.Tensor) -> None:
+                length: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> None:
     """cache[b, length[b]] = new[b] in place, for every b with
-    length[b] < Smax. Rows at or past the end are dropped, as JAX drops an
-    out-of-range scatter: an idle serving slot keeps counting past Smax.
-    cache: (B, Smax, ...); new: (B, ...)."""
+    0 <= length[b] < Smax (and ``keep[b]`` where given). Rows at or past
+    the end are dropped, as JAX drops an out-of-range scatter: an idle
+    serving slot keeps counting past Smax. cache: (B, Smax, ...); new:
+    (B, ...)."""
     B, Smax = cache.shape[:2]
     b_idx = torch.arange(B, device=cache.device)
-    pos = length.long().clamp(max=Smax - 1)
-    keep = (length < Smax).view(B, *([1] * (new.dim() - 1)))
+    pos = length.long().clamp(min=0, max=Smax - 1)
+    ok = (length >= 0) & (length < Smax)
+    if keep is not None:
+        ok = ok & keep
+    keep = ok.view(B, *([1] * (new.dim() - 1)))
     cache[b_idx, pos] = torch.where(keep, new.to(cache.dtype),
                                     cache[b_idx, pos])
 
@@ -207,6 +220,37 @@ def tail_pages(tables: torch.Tensor, length: torch.Tensor,
     return torch.where(inside, page[:, 0], torch.full_like(page[:, 0], -1))
 
 
+def shard_lengths(tables: torch.Tensor, seq_pages: torch.Tensor,
+                  lengths: torch.Tensor, page_size: int) -> torch.Tensor:
+    """(B,) int32 valid positions of each row of a shard's local table
+    (B, slots), given the sequence page each entry holds (``seq_pages``,
+    -1 none) and the sequences' lengths: the end of the last entry that
+    holds a token, ``j * page_size`` plus its tokens. A shard holds a
+    sequence's pages in increasing order, and every page before the one
+    that holds the last token is full, so the valid positions of a local
+    row are a prefix of it (holes apart, which the kernel skips). No host
+    sync."""
+    held = torch.where(seq_pages >= 0, (
+        lengths.long()[:, None] - seq_pages.long() * page_size).clamp(
+            min=0, max=page_size), 0)  # each entry's tokens
+    ends = torch.arange(tables.shape[1], device=tables.device) * page_size
+    return torch.where(held > 0, ends + held, 0).amax(1).to(torch.int32)
+
+
+def shard_tail(tables: torch.Tensor, seq_pages: torch.Tensor,
+               lengths: torch.Tensor, page_size: int,
+               first_page: int) -> torch.Tensor:
+    """(B,) int32 global id of the page that takes position ``lengths[b]``
+    where this shard holds it (``first_page``, the shard's first global
+    id, plus the local id), else -1: only that shard writes the token. No
+    host sync."""
+    want = (lengths.long() // page_size)[:, None]
+    hit = (seq_pages.long() == want) & (seq_pages >= 0) & (tables >= 0)
+    local = tables.gather(1, hit.int().argmax(1, keepdim=True))[:, 0]
+    return torch.where(hit.any(1), local + first_page,
+                       torch.full_like(local, -1))
+
+
 def gather_paged_kv(state: PagedKVState, cfg: KVCacheConfig, seq: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reassemble sequence ``seq``'s K/V from its pages (a hole reads as
@@ -288,13 +332,27 @@ class KVPageManager:
 
     def build_tables(self, batch_seqs: List[int]) -> np.ndarray:
         """(shards, B, slots) local-id tables for the device."""
+        return self._tables(batch_seqs)[0]
+
+    def build_page_map(self, batch_seqs: List[int]) -> np.ndarray:
+        """(shards, B, slots) int32: the sequence page (its place in the
+        sequence, from 0) that each entry of ``build_tables`` holds, -1 for
+        none; a shard's entries in increasing page order. Round-robin, entry
+        j of shard s holds page j * shards + s; a page stolen from another
+        shard sits where its shard's next entry is."""
+        return self._tables(batch_seqs)[1]
+
+    def _tables(self, batch_seqs: List[int]) -> Tuple[np.ndarray,
+                                                      np.ndarray]:
         cfg = self.cfg
         shards = max(1, cfg.num_shards)
         slots = -(-cfg.pages_per_seq // shards)
         t = np.full((shards, len(batch_seqs), slots), -1, np.int32)
+        k = np.full_like(t, -1)
         for b, seq in enumerate(batch_seqs):
             counters = [0] * shards
-            for (s, local) in self.owned.get(seq, []):
+            for i, (s, local) in enumerate(self.owned.get(seq, [])):
                 t[s, b, counters[s]] = local
+                k[s, b, counters[s]] = i
                 counters[s] += 1
-        return t
+        return t, k

@@ -431,6 +431,48 @@ def test_paged_attention_kernel_long_rows_over_many_spans(torch, H, K, hd,
     assert row_err <= (1e-5 if dtype == "float32" else 1e-2)
 
 
+@pytest.mark.parametrize("B,H,K,hd,page,max_pages", [
+    (4, 10, 2, 64, 8, 96),    # several spans: the combine pass
+    (1, 4, 4, 64, 16, 2),     # one span: the split kernel alone
+    (4, 96, 8, 192, 64, 4),   # one of 16 shards of nemotron's 4,096-token rows
+    (3, 12, 1, 128, 16, 5),   # G=12: two chunks of heads
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_partial_mode_matches_plain(torch, B, H, K, hd, page,
+                                                    max_pages, dtype):
+    """The partial mode (a rank's share of a pool split over the
+    sequence) against ``ref.paged_attention_partial_ref``: each row's
+    float32 output over its own sum and its (max, sum); a hole, a row of
+    holes only and a length-0 row, both the empty partial (zeros, -1e30,
+    0). One launch in ``LAUNCHES_PARTIAL``, none in ``LAUNCHES``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attention_partial_ref
+    dt = getattr(torch, dtype)
+    args = _paged_inputs(torch, B, H, K, hd, page, max_pages, dt)
+    if B > 2:
+        args[4][1] = 0
+    before, whole = pa.LAUNCHES_PARTIAL.count, pa.LAUNCHES.count
+    out, ml = ops.paged_attention_partial(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_PARTIAL.count == before + 1
+    assert pa.LAUNCHES.count == whole
+    assert out.dtype == ml.dtype == torch.float32
+    assert out.shape == (B, H, hd) and ml.shape == (B, H, 2)
+    want, want_ml = paged_attention_partial_ref(*args)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(ml.cpu().numpy(), want_ml.cpu().numpy(),
+                               atol=tol, rtol=tol)
+    empty = want_ml[..., 1] == 0
+    if B > 1:
+        assert bool(empty[-1].all())  # holes only
+    assert bool((ml[..., 1][empty] == 0).all())
+    assert bool((ml[..., 0][empty] == -1e30).all())
+    assert bool((out[empty] == 0).all())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_rows_with_no_valid_position(torch, dtype):
     """Length 0, holes only, and length 0 over real pages, with several

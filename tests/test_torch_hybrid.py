@@ -179,8 +179,9 @@ def test_hybrid_forward_logits_and_aux_match_reference(torch, jamba, carried,
     got, aux = model.forward({"tokens": torch.from_numpy(tokens)},
                              Ctx(use_flash=use_flash))
     assert ops.launch_counts() == {  # CPU: plain versions
-        "flash_attention": 0, "paged_attention": 0, "moe_gather": 0,
-        "moe_gather_bwd": 0, "ssm_scan": 0, "ssm_scan_bwd": 0,
+        "flash_attention": 0, "paged_attention": 0,
+        "paged_attention_partial": 0, "moe_gather": 0, "moe_gather_bwd": 0,
+        "ssm_scan": 0, "ssm_scan_bwd": 0,
         "expr_core": 0, "segment_reduce": 0}
     assert got.dtype == torch.float32 and float(aux) > 0
     np.testing.assert_allclose(got.numpy(), np.asarray(want),

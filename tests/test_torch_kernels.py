@@ -73,7 +73,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(torch):
     ops.moe_gather(x, ids, keep)
     ops.ssm_scan(*scan)
     ops.paged_attention(q[:, 0], pages, pages, tables, lengths)
+    ops.paged_attention_partial(q[:, 0], pages, pages, tables, lengths)
     assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0,
+                                   "paged_attention_partial": 0,
                                    "moe_gather": 0, "moe_gather_bwd": 0,
                                    "ssm_scan": 0, "ssm_scan_bwd": 0,
                                    "expr_core": 0, "segment_reduce": 0}

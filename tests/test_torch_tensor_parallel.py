@@ -16,9 +16,12 @@ logits' all-gather (``Ctx(plan=, mesh=)``).
   ``models/convert.py``, and within 1e-5 of the largest logit of the
   port's single process; the model ranks of a data shard the same bits.
   The (1, 4) mesh runs the reduced configs' 2 kv heads under the
-  "sequence" strategy (a rank computes the kv head its q head reads); one
-  case at 4 kv heads splits the cache by heads.
-* Teacher-forced decode over the dense cache and the paged pool: each
+  "sequence" strategy (prefill: a rank computes the kv head its q head
+  reads; decode: its span of a quarter of the positions over both kv
+  heads, tests/test_torch_kv_sequence.py); one case at 4 kv heads splits
+  the cache by heads.
+* Teacher-forced decode over the dense cache and the paged pool, each
+  laid out as ``decode_state_specs`` places it: each
   step within 1e-5 of the largest logit of the port's single process, and
   the dense steps within 2e-3 of the reference's decode on log_softmax;
   on (1, 4), ``serve_model`` over both layouts token for token the single
@@ -204,16 +207,18 @@ def test_split_forward_matches_single_device(tp, case):
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 def test_split_decode_matches_single_device(tp, case):
     """Teacher-forced steps over the dense cache and the paged pool, each
-    holding the kv heads the rank computes."""
+    laid out as ``decode_state_specs`` places it: a cache of 4 positions
+    is (positions, kv heads, hd) on a rank, (4, K/tp, hd) under "heads"
+    and (4/tp, K, hd), its span of the sequence, under "sequence"."""
     c = tp[case]
     cfg, ref = c["cfg"], c["ref"]
-    hd = cfg.resolved_head_dim
+    hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
     for res in c["ranks"]:
         rows = _rows(c, res)
         tp_size = c["mesh"][1]
-        kv = (cfg.n_kv_heads // tp_size if res["kv_strategy"] == "heads"
-              else 1)
-        assert res["cache_heads"] == (kv, hd), (case, res["kv_strategy"])
+        want = ((4, K // tp_size, hd) if res["kv_strategy"] == "heads"
+                else (4 // tp_size, K, hd))
+        assert res["cache_shape"] == want, (case, res["kv_strategy"])
         for layout in ("dense", "paged"):
             for t, (got, want) in enumerate(zip(res["decode"][layout],
                                                 ref["decode"][layout])):
@@ -234,8 +239,8 @@ def test_split_serving_equals_single_process(tp, case):
 
 def test_kv_strategies_of_the_cases(tp):
     """(1, 4) at 2 kv heads is the "sequence" strategy: wk and wv whole,
-    a rank computing the one kv head its q head reads; at 4 kv heads they
-    split by heads."""
+    a rank's prefill computing the one kv head its q head reads; at 4 kv
+    heads they split by heads."""
     for case, want in (("qwen25_32b_1x4", "sequence"),
                        ("qwen25_32b_1x2", "heads"),
                        ("nemotron_kv4_1x4", "heads")):

@@ -1,7 +1,7 @@
 """The rank side of the port's multi-rank tests (tests/test_torch_mesh.py,
 tests/test_torch_tensor_parallel.py, tests/test_torch_mesh_train.py,
-tests/test_torch_fsdp.py, tests/test_torch_hybrid_split.py and the
-expert-parallel gradient of
+tests/test_torch_fsdp.py, tests/test_torch_hybrid_split.py,
+tests/test_torch_kv_sequence.py and the expert-parallel gradient of
 tests/test_torch_moe.py on the CPU, the expert-parallel, tensor-parallel
 and mesh-training cases of tests/test_torch_cuda.py on a card).
 
@@ -9,7 +9,7 @@ and mesh-training cases of tests/test_torch_cuda.py on a card).
 
 JOB is a ``torch.save``d dict written by the test (``run_ranks``): the
 checks to run (``collectives``, ``ep``, ``tp``, ``train``, ``loop``,
-``remat``, ``hybrid``) and their inputs. Each rank joins a
+``remat``, ``hybrid``, ``kvseq``) and their inputs. Each rank joins a
 gloo or NCCL group (``launch.mesh.init_ranks``, whose rule picks the
 transport) through a FileStore beside JOB, runs every check, and saves
 what it got to ``rank<RANK>.pt`` beside JOB, for the test to hold against
@@ -207,16 +207,24 @@ def check_ep(job, dev, device):
     return out
 
 
-def _teacher_forced(model, tokens, ctx, **state_kw):
+def _decode_run(model, tokens, ctx, max_seq=None, **state_kw):
     """Each step's logits of ``tokens`` (B, n) fed one a step from an
-    empty decode state."""
-    state = model.init_decode_state(tokens.shape[0], tokens.shape[1] + 4,
-                                    model.dtype, **state_kw)
+    empty decode state of ``max_seq`` positions (default n + 4; on a rank
+    laid out as ``ctx`` places it), and the state after the last step."""
+    state = model.init_decode_state(
+        tokens.shape[0], max_seq or tokens.shape[1] + 4, model.dtype,
+        ctx=ctx, **state_kw)
     out = []
     for t in range(tokens.shape[1]):
         step, state = model.decode_step(tokens[:, t:t + 1], state, ctx)
         out.append(step.cpu())
-    return out
+    return out, state
+
+
+def _teacher_forced(model, tokens, ctx, **state_kw):
+    """Each step's logits of ``tokens`` (B, n) fed one a step from an
+    empty decode state."""
+    return _decode_run(model, tokens, ctx, **state_kw)[0]
 
 
 def check_tp(job, dev, device):
@@ -282,8 +290,8 @@ def check_tp(job, dev, device):
                     "dense": _teacher_forced(model, tokens, ctx),
                     "paged": _teacher_forced(model, tokens, ctx,
                                              kv_layout="paged", page_size=4)}
-                res["cache_heads"] = tuple(model.init_decode_state(
-                    1, 4, model.dtype).k_cache.shape[3:])
+                res["cache_shape"] = tuple(model.init_decode_state(
+                    1, 4, model.dtype, ctx=ctx).k_cache.shape[2:])
             if "serve" in case:
                 res["served"] = {layout: serve_model(
                     model, ctx=ctx, kv_layout=layout, page_size=4,
@@ -522,7 +530,7 @@ def check_hybrid(job, dev, device):
         rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
         tokens = torch.from_numpy(case["decode"][rows]).to(dev)
         state = model.init_decode_state(tokens.shape[0], tokens.shape[1] + 4,
-                                        model.dtype)
+                                        model.dtype, ctx=ctx)
         with torch.no_grad():
             for t in range(tokens.shape[1]):
                 _, state = model.decode_step(tokens[:, t:t + 1], state, ctx)
@@ -532,9 +540,74 @@ def check_hybrid(job, dev, device):
     return out
 
 
+def _caches(state):
+    """A decode state's caches on the host: the dense ones (with int8
+    scales) or the paged pool with its table row and page map."""
+    if hasattr(state, "kv"):
+        return {"k_pages": state.kv.k_pages.cpu(),
+                "v_pages": state.kv.v_pages.cpu(),
+                "tables": state.kv.block_tables.cpu(),
+                "seq_pages": None if state.seq_pages is None
+                else state.seq_pages.cpu()}
+    return {k: getattr(state, k).cpu() for k in
+            ("k_cache", "v_cache", "k_scale", "v_scale")
+            if getattr(state, k) is not None}
+
+
+def check_kvseq(job, dev, device):
+    """Decode over the sequence-sharded cache: each case's rank holds its
+    slices under ``param_specs`` and decodes its rows (all of them where
+    the plan keeps the batch whole) teacher-forced from an empty state over
+    the dense cache, the int8 cache and the paged pool (pages of
+    ``page``), each laid out as ``decode_state_specs`` places it
+    (``init_decode_state(ctx=)``); returns each step's logits, the caches
+    after the last step, the launches of the paged run and, where asked,
+    ``serve_model`` over both layouts."""
+    from repro_torch.configs import ArchConfig, get_shape
+    from repro_torch.core.planner import make_plan
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.models.params import flatten
+    out = {}
+    for case in job["kvseq"]:
+        cfg = ArchConfig(**case["cfg"])
+        mesh = make_mesh(case["mesh"], ("data", "model"), device)
+        plan = make_plan(cfg, mesh.shape, get_shape(case["shape"]))
+        ctx = Ctx(plan=plan, mesh=mesh, ep_shard_map=cfg.is_moe)
+        model = build_model(cfg)
+        specs = flatten(model.param_specs(plan))
+        model.load_shards(reshard_state(case["state"], specs, mesh))
+        res = {"coords": mesh.coords, "kv_strategy": plan.kv_strategy,
+               "shard_batch": plan.shard_batch, "span": ctx.seq_span,
+               "spec": tuple(build_model(cfg).decode_state_specs(
+                   plan).k_cache)}
+        n = case["decode"].shape[0] // ctx.dp
+        rows = slice(ctx.dp_index * n, (ctx.dp_index + 1) * n)
+        tokens = torch.from_numpy(case["decode"][rows]).to(dev)
+        with torch.no_grad():
+            for layout, kw in (("dense", {}), ("int8", {"kv_dtype": "int8"}),
+                               ("paged", {"kv_layout": "paged",
+                                          "page_size": case["page"]})):
+                ops.reset_launch_counts()
+                steps, state = _decode_run(model, tokens, ctx,
+                                           case["max_seq"], **kw)
+                res[layout] = {"steps": steps, "launches": dict(
+                    ops.launch_counts()), "caches": _caches(state)}
+            if "serve" in case:
+                res["served"] = {layout: serve_model(
+                    model, ctx=ctx, kv_layout=layout, page_size=case["page"],
+                    **case["serve"])["outputs"]
+                    for layout in ("dense", "paged")}
+        out[case["name"]] = res
+    return out
+
+
 CHECKS = {"collectives": check_collectives, "ep": check_ep, "tp": check_tp,
           "train": check_train, "loop": check_loop, "remat": check_remat,
-          "hybrid": check_hybrid}
+          "hybrid": check_hybrid, "kvseq": check_kvseq}
 
 
 def main(job_path: str, rank: int, world: int, device: str) -> None:
