@@ -281,6 +281,23 @@ final line:
    serving of 2 requests, the same tokens on every rank, those that
    differ from the single process's counted; start-up, draw, step ms
    and peak memory a rank beside the card's total;
+18i. the q_dim split inside a head, run by 18h's sixteen processes once
+   nemotron's leaves are freed (one spawn and one mesh start-up for
+   both): qwen2.5-32b bf16 at every published width, 2 of 64 layers,
+   over the same (data 1, model 16), where a rank's block of 320 of the
+   5,120 q_dim columns is 2.5 heads of 128: the single process first, in
+   this process (a prefill at B=1, S=512 through P1, then 18h's greedy
+   dense decode, paged decode and paged serving), then on each rank its
+   320 columns of ``wq``/``bq`` and rows of ``wo``, ``wk``/``wv`` whole:
+   the prefill through P1 once a layer at the 3 q heads / 1 kv head its
+   block overlaps (after one exchange of the edge heads' columns), its
+   logits within LOGITS_TOL, again with each collective timed alone (the
+   q exchange, the all-reduces, the logits' gather); dense and paged
+   decode fed the single process's tokens within LOGITS_TOL, the paged
+   kernel's partial mode once a layer a paged step, one dense step with
+   each collective timed alone; paged serving, the same tokens on every
+   rank, those that differ from the single process's counted; peak
+   memory a rank and 18i's seconds;
 
 19. the relational engine: the expression core (K1) over every (op,
    dtype pair) numpy computes at the executor's 8,192-row batch, and the
@@ -425,6 +442,9 @@ KERNEL_CASES = [  # (name, B, S, T, H, K, hd, causal, dtype)
      "float32"),
     ("tp_moe_f32", 1, PREFILL_SEQ, PREFILL_SEQ, 4, 4, 128, True, "float32"),
     ("tp_moe", 1, PREFILL_SEQ, PREFILL_SEQ, 4, 4, 128, True, "bfloat16"),
+    # a rank's heads in 18i's prefill: the 3 q heads (1 kv head) that
+    # qwen2.5-32b's block of 320 q_dim columns overlaps over 16 ranks
+    ("tp_qdim", 1, 512, 512, 3, 1, 128, True, "bfloat16"),
 ]
 # moe_gather at qwen2-moe's dispatch shapes: T tokens of width d into
 # S = 60 experts x capacity slots, T*top_k = n_kept of them filled.
@@ -604,6 +624,14 @@ KVS_MESH = (1, 16)
 KVS_WORLD = 16
 KVS_BATCH, KVS_PROMPT, KVS_STEPS, KVS_PAGE = 4, 4, 16, 1
 KVS_SERVE = {"n_requests": 2, "max_new": SERVE_MAX_NEW, "batch_size": 2}
+# The q_dim split inside a head (phase 18i, run by 18h's ranks once
+# nemotron's leaves are freed): ARCH in bf16 at every published width,
+# QDIM_LAYERS of its 64 layers, over the same (data 1, model 16), where
+# its 40 heads of 128 give each rank a block of 320 q_dim columns, 2.5
+# heads: a rank computes the 3 heads its block overlaps (one kv head). A
+# prefill of QDIM_SEQ tokens at B=1 through P1, then 18h's decode and
+# serving.
+QDIM_LAYERS, QDIM_SEQ = 2, 512
 # moe_gather's backward at the training step's dispatch (TRAIN_TOKENS
 # tokens into 60 experts x 344 slots, top-4), float32 as trained and bf16
 GATHER_BWD_CASES = [  # (name, T, d, S, n_kept, dtype)
@@ -4601,27 +4629,47 @@ def kvs_decode(torch, model, tokens, ctx, kv_layout: str,
     return fed, steps, walls, state
 
 
-def kvs_single(torch, where: str) -> dict:
-    """The single process of 18h in the parent, before the ranks: greedy
-    dense decode, paged decode fed its tokens (each step's logits written
-    to ``where`` for the ranks to read by memory map), paged serving;
-    then freed."""
+def kvs_single(torch, where: str, arch, layers: int, tag: str,
+               prefill_seq: int = 0) -> dict:
+    """The single process of 18h (``tag`` "h") or 18i ("i") in the parent,
+    before the ranks: with ``prefill_seq`` a prefill of that many tokens at
+    B=1 through P1, then greedy dense decode, paged decode fed its tokens
+    (each step's logits, and the prefill's, written to ``where`` for the
+    ranks to read by memory map), paged serving; then freed."""
     import numpy as np
 
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_model
-    from repro_torch.models import build_model
+    from repro_torch.models import Ctx, build_model
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = build_model(TP_BF16_ARCH, TP_BF16_LAYERS).init_params(
+    model = build_model(arch, layers).init_params(
         torch.Generator(DEVICE).manual_seed(SEED), torch.bfloat16)
     torch.cuda.synchronize()
+    V = model.cfg.vocab_size
     out = {"params": model.param_count(),
            "draw_s": time.perf_counter() - t0}
-    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
-        1, model.cfg.vocab_size, (KVS_BATCH, KVS_STEPS))).to(DEVICE)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        1, V, (KVS_BATCH, KVS_STEPS))).to(DEVICE)
     with torch.no_grad():
+        if prefill_seq:
+            tokens = rng.integers(1, V, (1, prefill_seq))
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = model.forward({"tokens": torch.from_numpy(tokens).to(
+                DEVICE)}, Ctx(use_flash=True))[0]
+            torch.cuda.synchronize()
+            out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            if ops.launch_counts()["flash_attention"] != layers:
+                raise AssertionError(f"18{tag} single prefill launches "
+                                     f"{ops.launch_counts()}")
+            out["prefill"] = os.path.join(where, f"kvs_{tag}_prefill.npy")
+            np.save(out["prefill"], logits[0, :, :V].float().cpu().numpy())
+            out["prefill_tokens"] = tokens
+            del logits
         fed, dense, dense_walls, _ = kvs_decode(torch, model, prompts, None,
                                                 "dense", greedy=True)
         _, paged, paged_walls, _ = kvs_decode(torch, model, fed, None,
@@ -4629,7 +4677,7 @@ def kvs_single(torch, where: str) -> dict:
         served = serve_model(model, kv_layout="paged", page_size=KVS_PAGE,
                              **KVS_SERVE)
     for name, steps in (("dense", dense), ("paged", paged)):
-        out[name] = os.path.join(where, f"kvs_{name}.npy")
+        out[name] = os.path.join(where, f"kvs_{tag}_{name}.npy")
         np.save(out[name], np.stack([t.numpy() for t in steps]))
     out.update(fed=fed.cpu().numpy(),
                dense_ms=1e3 * float(np.median(dense_walls)),
@@ -4643,33 +4691,45 @@ def kvs_single(torch, where: str) -> dict:
     return out
 
 
-def kvs_rank(rank: int, world: int, where: str, ref: dict) -> None:
-    """One rank of 18h's sixteen, a process of its own: its slices of the
-    model drawn in turns, dense and paged decode fed the single process's
-    tokens over its span or shard, one more dense step with each
-    collective timed alone, paged serving; its results go to
-    ``where``/rank<rank>.json."""
+def qdim_collective(hd: int):
+    """The key of a collective call in 18h's and 18i's timed runs: the q
+    all-gather of decode (a (B, W) block of q_dim columns), the q exchange
+    of prefill (an all-to-all of columns, not of (B, hd + 2) partials), or
+    the call's own name."""
+    def key(name, t):
+        if name == "all_gather" and t.dim() == 2:
+            return "q_gather"
+        if name == "all_to_all" and t.shape[-1] != hd + 2:
+            return "q_exchange"
+        return name
+    return key
+
+
+def kvs_model(torch, mesh, arch, layers: int, ref: dict, tag: str) -> dict:
+    """One model's part of a rank of 18h / 18i: its slices drawn in turns,
+    with ``ref["prefill"]`` a prefill through P1 (then again with each
+    collective timed alone), dense and paged decode fed the single
+    process's tokens over its span or shard, one more dense step with each
+    collective timed alone, paged serving. Raises on any check that
+    fails; returns what the rank measured."""
     import numpy as np
-    import torch
     import torch.distributed as dist
 
     from repro_torch.configs import get_shape
     from repro_torch.core.planner import make_plan
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import serve_model
     from repro_torch.models import Ctx, build_model
+    from repro_torch.models.attention import head_block
 
-    mt_start_rank(torch, rank, world, where)
-    mesh = make_mesh(KVS_MESH, ("data", "model"), DEVICE)
-    start_s = time.time() - ref["spawned"]
-    model = build_model(TP_BF16_ARCH, TP_BF16_LAYERS)
+    t_start = time.perf_counter()
+    model = build_model(arch, layers)
     cfg = model.cfg
     plan = make_plan(cfg, mesh.shape, get_shape("decode_32k"),
                      hbm_bytes=torch.cuda.get_device_properties(0)
                      .total_memory)
     if plan.kv_strategy != "sequence":
-        raise AssertionError(f"18h: the plan's kv strategy is "
+        raise AssertionError(f"18{tag}: the plan's kv strategy is "
                              f"{plan.kv_strategy}, not sequence")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4679,11 +4739,55 @@ def kvs_rank(rank: int, world: int, where: str, ref: dict) -> None:
     draw_s = time.perf_counter() - t0
     ctx = Ctx(plan=plan, mesh=mesh)
     V, hd = cfg.vocab_size, cfg.resolved_head_dim
+    W = model.blocks.attn.wq.shape[-1]
+    key = qdim_collective(hd)
     fed = torch.from_numpy(ref["fed"]).to(DEVICE)
     n = fed.shape[1]
-    out = {"mesh": repr(mesh), "start_s": start_s, "draw_s": draw_s,
-           "span": list(ctx.seq_span),
-           "held": sum(p.numel() for p in model.parameters())}
+    out = {"draw_s": draw_s, "span": list(ctx.seq_span),
+           "held": sum(p.numel() for p in model.parameters()),
+           "block": list(head_block(cfg, W, ctx.tp_index)), "W": W}
+    if "prefill" in ref:
+        tokens = torch.from_numpy(ref["prefill_tokens"]).to(DEVICE)
+        fctx = dataclasses.replace(ctx, use_flash=True)
+        shapes = []
+        real = ops.flash_attention
+
+        def spy(q, k, v, **kw):
+            shapes.append([list(q.shape), list(k.shape)])
+            return real(q, k, v, **kw)
+        dist.barrier()
+        ops.reset_launch_counts()
+        ops.flash_attention = spy
+        try:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = model.forward({"tokens": tokens}, fctx)[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ops.flash_attention = real
+        launches = ops.launch_counts()
+        if launches != expected_launches(cfg):
+            raise AssertionError(f"18{tag} prefill launches {launches}")
+        single = np.load(ref["prefill"], mmap_mode="r")
+        err = rel_err(torch, logits[0, :, :V],
+                      torch.from_numpy(np.array(single)).to(logits.device))
+        del logits
+        spent, undo = timed_collectives(
+            torch, ("all_gather", "all_to_all", "all_reduce"), key)
+        try:
+            dist.barrier()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.forward({"tokens": tokens}, fctx)
+            torch.cuda.synchronize()
+            timed = time.perf_counter() - t0
+        finally:
+            undo()
+        out["prefill"] = {"err": err, "ms": 1e3 * wall, "shapes": shapes,
+                          "launches": launches, "timed_s": timed,
+                          "spent": {k: sum(v) for k, v in spent.items()},
+                          "calls": {k: len(v) for k, v in spent.items()}}
     for layout in ("dense", "paged"):
         dist.barrier()
         ops.reset_launch_counts()
@@ -4693,7 +4797,8 @@ def kvs_rank(rank: int, world: int, where: str, ref: dict) -> None:
         torch.cuda.synchronize()
         launches = ops.launch_counts()
         if launches != seq_launches(cfg, n, layout):
-            raise AssertionError(f"18h {layout} decode launches {launches}")
+            raise AssertionError(f"18{tag} {layout} decode launches "
+                                 f"{launches}")
         single = np.load(ref[layout], mmap_mode="r")
         err = max(rel_err(torch, got[:, :V], torch.from_numpy(
             np.array(single[t, :, :V]))) for t, got in enumerate(steps))
@@ -4706,9 +4811,7 @@ def kvs_rank(rank: int, world: int, where: str, ref: dict) -> None:
             continue
         out["cache"] = list(state.k_cache.shape)
         spent, undo = timed_collectives(
-            torch, ("all_gather", "all_to_all", "all_reduce"),
-            lambda name, t: ("q_gather" if name == "all_gather"
-                             and t.shape[-1] == hd else name))
+            torch, ("all_gather", "all_to_all", "all_reduce"), key)
         try:
             dist.barrier()
             t0 = time.perf_counter()
@@ -4728,42 +4831,81 @@ def kvs_rank(rank: int, world: int, where: str, ref: dict) -> None:
                              page_size=KVS_PAGE, **KVS_SERVE)
     out["serve_launches"] = ops.launch_counts()
     if out["serve_launches"] != seq_launches(cfg, served["iters"], "paged"):
-        raise AssertionError(f"18h serve launches {out['serve_launches']}")
+        raise AssertionError(f"18{tag} serve launches "
+                             f"{out['serve_launches']}")
     every = [None] * mesh.size
     dist.all_gather_object(every, served["outputs"])
     if any(e != every[0] for e in every):
-        raise AssertionError("18h: the ranks served different tokens")
+        raise AssertionError(f"18{tag}: the ranks served different tokens")
     out.update(served_differ=sum(
         sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
         for got, want in zip(served["outputs"], ref["served"])),
         serve_s=served["seconds"], serve_tokens=served["tokens"],
         iters=served["iters"],
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if not max(out["dense"]["err"], out["paged"]["err"]) < LOGITS_TOL:
-        raise AssertionError(f"18h decode logits off by "
-                             f"{out['dense']['err']} (dense), "
-                             f"{out['paged']['err']} (paged) of the largest")
+    errs = [out[k]["err"] for k in ("prefill", "dense", "paged") if k in out]
+    if not max(errs) < LOGITS_TOL:
+        raise AssertionError(f"18{tag} logits off by {errs} (prefill, "
+                             f"dense, paged) of the largest")
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def kvs_rank(rank: int, world: int, where: str, ref: dict) -> None:
+    """One rank of 18h's sixteen, a process of its own: nemotron's part
+    (18h), then, its leaves freed, qwen2.5-32b's (18i) on the same mesh
+    (``kvs_model``); its results go to ``where``/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mt_start_rank(torch, rank, world, where)
+    mesh = make_mesh(KVS_MESH, ("data", "model"), DEVICE)
+    out = {"mesh": repr(mesh), "start_s": time.time() - ref["spawned"]}
+    out["h"] = kvs_model(torch, mesh, TP_BF16_ARCH, TP_BF16_LAYERS,
+                         ref["h"], "h")
+    out["i"] = kvs_model(torch, mesh, ARCH, QDIM_LAYERS, ref["i"], "i")
     with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
+def kvs_shares(ranks, tag: str, part=None) -> dict:
+    """Each collective's share of the timed run's wall at the rank where
+    it is largest: the dense step's, or with ``part`` the prefill's."""
+    def of(r):
+        m = r[tag] if part is None else r[tag][part]
+        return m["spent"], m["timed_step_s" if part is None else "timed_s"]
+    return {k: round(max(of(r)[0][k] / of(r)[1] for r in ranks), 4)
+            for k in of(ranks[0])[0]}
+
+
 def phase_kv_seq(torch, smi: str) -> dict:
-    """Decode over the sequence-sharded cache on the card: the single
-    process first, in this process, then KVS_WORLD processes over (data
-    1, model 16) (``kvs_rank``). Returns the ranks' main-path launches
-    summed: dense and paged decode and serving."""
+    """Decode over the sequence-sharded cache on the card (18h), then the
+    q_dim split inside a head (18i): both single processes first, in this
+    process, then KVS_WORLD processes over (data 1, model 16)
+    (``kvs_rank``), one spawn for both. Returns the ranks' main-path
+    launches summed: 18i's prefill, dense and paged decode and serving of
+    both."""
     import shutil
     import tempfile
 
-    label = "kv seq"
+    label, qlabel = "kv seq", "qdim split"
     where = tempfile.mkdtemp(prefix="kvs_ranks_")
     try:
         t0 = time.perf_counter()
-        ref = kvs_single(torch, where)
+        ref = {"h": kvs_single(torch, where, TP_BF16_ARCH, TP_BF16_LAYERS,
+                               "h")}
         single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref["i"] = kvs_single(torch, where, ARCH, QDIM_LAYERS, "i",
+                              QDIM_SEQ)
+        qsingle_s = time.perf_counter() - t0
         ref["spawned"] = time.time()
         t0 = time.perf_counter()
         ranks = run_rank_processes(kvs_rank, where, ref, label,
@@ -4772,55 +4914,106 @@ def phase_kv_seq(torch, smi: str) -> dict:
     finally:
         shutil.rmtree(where, ignore_errors=True)
     r0 = ranks[0]
+    h0, i0 = r0["h"], r0["i"]
     total = torch.cuda.get_device_properties(0).total_memory / 2**30
-    shares = {k: max(r["spent"][k] / r["timed_step_s"] for r in ranks)
-              for k in r0["spent"]}
     log(f"[{label}] {KVS_WORLD} ranks, one process each, on one card as a "
         f"(data {KVS_MESH[0]}, model {KVS_MESH[1]}) mesh: {r0['mesh']}; "
         f"{TP_BF16_ARCH}'s 8 kv heads do not divide the model axis: the "
         f"plan's \"sequence\" kv strategy, a rank's dense cache "
-        f"{r0['cache']} (its span of {KVS_STEPS} positions, every kv head), "
-        f"its pool {r0['pool']} of {KVS_PAGE}-token pages (shard 0's page "
-        f"map, row 0: {r0['seq_pages']}); the single "
-        f"process {single_s:.1f} s, the ranks' run {ranks_s:.1f} s, their "
-        f"start-up (spawn to mesh) {min(r['start_s'] for r in ranks):.1f}-"
-        f"{max(r['start_s'] for r in ranks):.1f} s, the draw in turns "
-        f"{max(r['draw_s'] for r in ranks):.1f} s")
+        f"{h0['cache']} (its span of {KVS_STEPS} positions, every kv head), "
+        f"its pool {h0['pool']} of {KVS_PAGE}-token pages (shard 0's page "
+        f"map, row 0: {h0['seq_pages']}); the single "
+        f"process {single_s:.1f} s, the ranks' run (18h and 18i) "
+        f"{ranks_s:.1f} s, their start-up (spawn to mesh) "
+        f"{min(r['start_s'] for r in ranks):.1f}-"
+        f"{max(r['start_s'] for r in ranks):.1f} s, 18h's draw in turns "
+        f"{max(r['h']['draw_s'] for r in ranks):.1f} s, 18h on the ranks "
+        f"{max(r['h']['seconds'] for r in ranks):.1f} s")
     log(f"[{label}] {TP_BF16_ARCH} bf16, every published width, "
-        f"{TP_BF16_LAYERS} of 96 layers ({ref['params'] / 1e9:.3f} B "
-        f"parameters, the single process's peak {ref['peak_gib']:.2f} GiB):"
-        f" {r0['held'] / 1e9:.3f} B a rank; peak memory a rank "
-        f"{min(r['peak_gib'] for r in ranks):.2f}-"
-        f"{max(r['peak_gib'] for r in ranks):.2f} GiB of the card's "
+        f"{TP_BF16_LAYERS} of 96 layers ({ref['h']['params'] / 1e9:.3f} B "
+        f"parameters, the single process's peak "
+        f"{ref['h']['peak_gib']:.2f} GiB): {h0['held'] / 1e9:.3f} B a rank; "
+        f"peak memory a rank {min(r['h']['peak_gib'] for r in ranks):.2f}-"
+        f"{max(r['h']['peak_gib'] for r in ranks):.2f} GiB of the card's "
         f"{total:.1f} GiB; decode at B={KVS_BATCH} fed the single process's "
         f"greedy tokens ({KVS_STEPS} steps): a step's median "
-        f"{max(r['dense']['step_ms'] for r in ranks):.1f} ms dense, "
-        f"{max(r['paged']['step_ms'] for r in ranks):.1f} ms paged (the "
+        f"{max(r['h']['dense']['step_ms'] for r in ranks):.1f} ms dense, "
+        f"{max(r['h']['paged']['step_ms'] for r in ranks):.1f} ms paged (the "
         f"slowest rank), against the single process's "
-        f"{ref['dense_ms']:.1f} and {ref['paged_ms']:.1f} ms; each step's "
-        f"logits within {max(r['dense']['err'] for r in ranks):.3g} (dense) "
-        f"and {max(r['paged']['err'] for r in ranks):.3g} (paged) of the "
+        f"{ref['h']['dense_ms']:.1f} and {ref['h']['paged_ms']:.1f} ms; each "
+        f"step's logits within "
+        f"{max(r['h']['dense']['err'] for r in ranks):.3g} (dense) and "
+        f"{max(r['h']['paged']['err'] for r in ranks):.3g} (paged) of the "
         f"largest (LOGITS_TOL {LOGITS_TOL}); rank 0's steps (ms) dense "
-        f"{r0['dense']['steps_ms']}, paged {r0['paged']['steps_ms']}; {smi}")
+        f"{h0['dense']['steps_ms']}, paged {h0['paged']['steps_ms']}; {smi}")
     log(f"[{label}] one dense step with each collective timed alone (rank "
-        f"0 {r0['timed_step_s'] * 1e3:.1f} ms; calls a rank "
-        f"{json.dumps(r0['calls'])}): shares of the wall at the largest "
-        f"rank {json.dumps({k: round(v, 4) for k, v in shares.items()})} "
-        f"(rank 0's ms "
-        f"{json.dumps({k: round(v * 1e3, 2) for k, v in r0['spent'].items()})}"
-        f"); paged serving {r0['serve_tokens']} tokens in "
-        f"{r0['serve_s']:.1f} s ({r0['iters']} steps; the single process "
-        f"{ref['serve_tokens']} in {ref['serve_s']:.1f} s), the same tokens "
-        f"on every rank, {r0['served_differ']} of them differ from the "
-        f"single process's; {smi}")
-    runs = [run for r in ranks for run in (
-        r["dense"]["launches"], r["paged"]["launches"], r["serve_launches"])]
+        f"0 {h0['timed_step_s'] * 1e3:.1f} ms; calls a rank "
+        f"{json.dumps(h0['calls'])}): shares of the wall at the largest "
+        f"rank {json.dumps(kvs_shares(ranks, 'h'))} (rank 0's ms "
+        f"{json.dumps({k: round(v * 1e3, 2) for k, v in h0['spent'].items()})}"
+        f"); paged serving {h0['serve_tokens']} tokens in "
+        f"{h0['serve_s']:.1f} s ({h0['iters']} steps; the single process "
+        f"{ref['h']['serve_tokens']} in {ref['h']['serve_s']:.1f} s), the "
+        f"same tokens on every rank, {h0['served_differ']} of them differ "
+        f"from the single process's; {smi}")
+    qi = ref["i"]
+    pre = [r["i"]["prefill"] for r in ranks]
+    log(f"[{qlabel}] {ARCH} bf16, every published width, {QDIM_LAYERS} of "
+        f"64 layers ({qi['params'] / 1e9:.3f} B parameters, the single "
+        f"process's peak {qi['peak_gib']:.2f} GiB) over the same mesh: a "
+        f"rank's block of q_dim columns {i0['W']} (its head map, rank 0 / "
+        f"1 / 15: {ranks[0]['i']['block']} / {ranks[1]['i']['block']} / "
+        f"{ranks[-1]['i']['block']} as (first head, heads, offset, kv "
+        f"heads)), {i0['held'] / 1e9:.3f} B parameters a rank; P1's inputs "
+        f"on every rank (q, k): "
+        f"{sorted({json.dumps(p['shapes'][0]) for p in pre})}"
+        f"; peak memory a rank {min(r['i']['peak_gib'] for r in ranks):.2f}-"
+        f"{max(r['i']['peak_gib'] for r in ranks):.2f} GiB of the card's "
+        f"{total:.1f} GiB; the single process {qsingle_s:.1f} s, 18i on the "
+        f"ranks {max(r['i']['seconds'] for r in ranks):.1f} s (its draw in "
+        f"turns {max(r['i']['draw_s'] for r in ranks):.1f} s); {smi}")
+    pre_ms = {k: round(v * 1e3, 2) for k, v in pre[0]["spent"].items()}
+    log(f"[{qlabel}] prefill B=1 S={QDIM_SEQ} through P1: "
+        f"{max(p['ms'] for p in pre):.1f} ms at the slowest rank against the "
+        f"single process's {qi['prefill_ms']:.1f} ms, logits within "
+        f"{max(p['err'] for p in pre):.3g} of the largest; again with each "
+        f"collective timed alone (rank 0 {pre[0]['timed_s'] * 1e3:.1f} ms; "
+        f"calls a rank {json.dumps(pre[0]['calls'])}): shares of the wall "
+        f"at the largest rank {json.dumps(kvs_shares(ranks, 'i', 'prefill'))}"
+        f" (rank 0's ms {json.dumps(pre_ms)}"
+        f"); {smi}")
+    log(f"[{qlabel}] decode at B={KVS_BATCH} fed the single process's greedy "
+        f"tokens ({KVS_STEPS} steps): a step's median "
+        f"{max(r['i']['dense']['step_ms'] for r in ranks):.1f} ms dense, "
+        f"{max(r['i']['paged']['step_ms'] for r in ranks):.1f} ms paged (the "
+        f"slowest rank), against the single process's {qi['dense_ms']:.1f} "
+        f"and {qi['paged_ms']:.1f} ms; each step's logits within "
+        f"{max(r['i']['dense']['err'] for r in ranks):.3g} (dense) and "
+        f"{max(r['i']['paged']['err'] for r in ranks):.3g} (paged) of the "
+        f"largest (LOGITS_TOL {LOGITS_TOL}); one dense step with each "
+        f"collective timed alone (rank 0 {i0['timed_step_s'] * 1e3:.1f} ms; "
+        f"calls a rank {json.dumps(i0['calls'])}): shares of the wall at the "
+        f"largest rank {json.dumps(kvs_shares(ranks, 'i'))}; paged serving "
+        f"{i0['serve_tokens']} tokens in {i0['serve_s']:.1f} s "
+        f"({i0['iters']} steps; the single process {qi['serve_tokens']} in "
+        f"{qi['serve_s']:.1f} s), the same tokens on every rank, "
+        f"{i0['served_differ']} of them differ from the single process's; "
+        f"{smi}")
+    runs = [run for r in ranks for m in (r["h"], r["i"]) for run in (
+        m["dense"]["launches"], m["paged"]["launches"], m["serve_launches"])
+        ] + [p["launches"] for p in pre]
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
-    log(f"[{label}] launches over the ranks' main-path runs (dense and "
-        f"paged decode, serving): {json.dumps(launches)}")
+    qdim = {k: sum(run[k] for run in [p["launches"] for p in pre] + [
+        r["i"][x]["launches"] for r in ranks for x in ("dense", "paged")] + [
+        r["i"]["serve_launches"] for r in ranks]) for k in runs[0]}
+    log(f"[{label}] launches over the ranks' main-path runs (18h and 18i: "
+        f"18i's prefill, dense and paged decode, serving): "
+        f"{json.dumps(launches)}; 18i's alone {json.dumps(qdim)}")
     return {"launches": launches,
-            "step_ms": max(r["paged"]["step_ms"] for r in ranks),
-            "single_ms": ref["paged_ms"]}
+            "step_ms": max(r["h"]["paged"]["step_ms"] for r in ranks),
+            "single_ms": ref["h"]["paged_ms"],
+            "qdim_prefill_ms": max(p["ms"] for p in pre),
+            "qdim_single_ms": qi["prefill_ms"]}
 
 
 # ------------------------------------------------------------- phase 19
@@ -6013,13 +6206,18 @@ def main() -> int:
         f"{KVS_MESH[1]}) mesh of {KVS_WORLD} processes on the card: a paged "
         f"step {kv_seq['step_ms']:.1f} ms against the single process's "
         f"{kv_seq['single_ms']:.1f} ms; {smi}")
-    log(f"[timing] sequence-sharded decode phase: "
+    log(f"[summary] {ARCH} bf16, {QDIM_LAYERS} layers, a q_dim block "
+        f"inside a head over the same mesh: prefill B=1 S={QDIM_SEQ} "
+        f"{kv_seq['qdim_prefill_ms']:.1f} ms against the single process's "
+        f"{kv_seq['qdim_single_ms']:.1f} ms; {smi}")
+    log(f"[timing] sequence-sharded decode and q_dim split phases: "
         f"{time.perf_counter() - t0:.1f} s (run so far "
         f"{time.perf_counter() - start:.1f} s)")
     launches = {name: sum(run[name] for run in runs) for name in runs[0]}
     log(f"[main path] launches over phases 3-18, the training phases and "
         f"the expert-parallel, tensor-parallel, mesh-training, FSDP, "
-        f"hybrid tensor-parallel and sequence-sharded phases' ranks: "
+        f"hybrid tensor-parallel, sequence-sharded and q_dim split phases' "
+        f"ranks: "
         f"{json.dumps(launches)}")
     t0 = time.perf_counter()
     rel = phase_relational_kernels(torch)

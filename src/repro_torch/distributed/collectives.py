@@ -14,7 +14,7 @@ other call hands its tensors over as they are, and gloo stages them
 itself. That is the transport of ranks sharing one card
 (``launch.mesh.backend_for``).
 
-Four of them are also autograd functions. Two are the pair of tensor
+Five of them are also autograd functions. Two are the pair of tensor
 parallelism over a group whose ranks all compute the same loss:
 :func:`sum_forward` (an all-reduce forward, the gradient passed as it is)
 ends a split product, and :func:`sum_backward` (the identity forward, the
@@ -27,9 +27,12 @@ then the sum of every shard's gradient of it. The fourth,
 contiguous column blocks that its spec gives the ranks of the model axis
 to each rank's channels of both halves (``xb`` and ``z``), by one
 ``all_to_all`` of uneven splits, and its gradient back the same way.
-``torch.distributed.nn.functional`` is not used: its all-gather sums the
-gradient over the ranks, which counts a loss that every rank computes the
-same way once a rank.
+The fifth, :func:`exchange_columns`, hands each rank the columns it
+wants of a product whose column blocks the ranks hold (a q head that
+straddles two ranks' blocks of ``wq``), also by one uneven
+``all_to_all``. ``torch.distributed.nn.functional`` is not used: its
+all-gather sums the gradient over the ranks, which counts a loss that
+every rank computes the same way once a rank.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ import torch
 
 __all__ = ["all_reduce", "all_reduce_max", "reduce_scatter", "all_gather",
            "all_to_all", "broadcast", "gather_to_first", "ring_shift",
-           "sum_forward", "sum_backward", "gather_data", "inner_halves"]
+           "sum_forward", "sum_backward", "gather_data", "inner_halves",
+           "exchange_columns"]
 
 
 def _dist():
@@ -88,10 +92,12 @@ def all_to_all(t: torch.Tensor, group, send=None, recv=None
                ) -> torch.Tensor:
     """Block j of ``t``'s first dim to group rank j; block j of the result
     from group rank j (``all_to_all(..., 0, 0, tiled=True)``). With
-    ``send`` and ``recv`` (rows a group rank, adding up to ``t``'s first
-    dim both) the blocks are those sizes, some of them empty."""
+    ``send`` and ``recv`` (the rows to and from each group rank: ``send``
+    adds up to ``t``'s first dim, ``recv`` to the result's) the blocks
+    are those sizes, some of them empty."""
     src = t.contiguous()
-    out = torch.empty_like(src)
+    out = (torch.empty_like(src) if recv is None
+           else src.new_empty((sum(recv), *src.shape[1:])))
     _dist().all_to_all_single(out, src, recv, send, group=group)
     return out
 
@@ -267,3 +273,65 @@ def inner_halves(xz: torch.Tensor, group) -> torch.Tensor:
     if torch.is_grad_enabled() and xz.requires_grad:
         return _InnerHalves.apply(xz, group)
     return _to_channels(xz, group)
+
+
+def _overlap(x, y):
+    """The overlap [lo, hi) of two ranges [lo, hi); (0, 0) where none."""
+    lo, hi = max(x[0], y[0]), min(x[1], y[1])
+    return (lo, hi) if lo < hi else (0, 0)
+
+
+def _columns_plan(held, wanted, r: int):
+    """Group rank r of ``held`` / ``wanted`` (each rank's [lo, hi) of the
+    columns): the part of its block that each rank wants, as [lo, hi)
+    within its block ((0, 0) where none), and the columns it receives
+    from each rank."""
+    lo = held[r][0]
+    parts = []
+    for want in wanted:
+        a, b = _overlap(held[r], want)
+        parts.append((a - lo, b - lo) if b else (0, 0))
+    recv = [b - a for a, b in (_overlap(h, wanted[r]) for h in held)]
+    return parts, recv
+
+
+def _exchange(t: torch.Tensor, group, held, wanted) -> torch.Tensor:
+    r = _dist().get_rank(group)
+    parts, recv = _columns_plan(held, wanted, r)
+    src = t.movedim(-1, 0)
+    send = torch.cat([src[a:b] for a, b in parts])
+    out = all_to_all(send, group, [b - a for a, b in parts], recv)
+    return out.movedim(0, -1).contiguous()  # P1 reads rows of whole heads
+
+
+class _Columns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, held, wanted):
+        ctx.group, ctx.held, ctx.wanted = group, held, wanted
+        return _exchange(t, group, held, wanted)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = _dist().get_rank(ctx.group)
+        parts, recv = _columns_plan(ctx.held, ctx.wanted, r)
+        sizes = [b - a for a, b in parts]
+        got = all_to_all(g.movedim(-1, 0), ctx.group, recv, sizes)
+        lo, hi = ctx.held[r]
+        out = got.new_zeros((hi - lo, *got.shape[1:]))
+        for (a, b), piece in zip(parts, got.split(sizes)):
+            out[a:b] += piece  # a column two ranks read: both gradients
+        return out.movedim(0, -1), None, None, None
+
+
+def exchange_columns(t: torch.Tensor, group, held, wanted) -> torch.Tensor:
+    """A rank's block of columns (the last dim of ``t``: ``held[r]``,
+    [lo, hi) of a product whose columns the group's ranks hold in
+    contiguous blocks) -> the columns ``wanted[r]``, which may reach into
+    the blocks of other ranks, and which ranks may want at once. One
+    ``all_to_all`` of uneven splits moves to each rank only the columns
+    it lacks (and its own to itself); the gradient comes back by the
+    inverse one, and a column that several ranks read gets the sum of
+    their gradients."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Columns.apply(t, group, held, wanted)
+    return _exchange(t, group, held, wanted)

@@ -8,31 +8,42 @@ reads kv head h // G (contiguous grouping). The attention functions take
 the head counts from their inputs' shapes.
 
 On a rank of a mesh the projections hold the slices ``Model.param_specs``
-places (``attn_heads``): ``wq``/``bq`` and ``wo`` split by ``q_dim`` give
-the rank H/tp whole heads; ``wk``/``wv``/``bk``/``bv`` split by
-``kv_heads`` (``kv_strategy == "heads"``) give it K/tp, and its decode
-cache holds those K/tp heads over every position. Where they are whole
-(K does not divide the model axis: the "sequence" strategy), prefill
-projects only the kv heads that the rank's q heads read; decode runs over
-a cache split along the sequence, each rank holding its span of the
-positions for every kv head (or its shard of the paged pool), as the
-reference's ``decode_state_specs`` places it. There the rank all-gathers
-q over the model axis (every head), computes each head's partial softmax
-over its span (``decode_partial``; on the pool the paged kernel's partial
-mode), and the partials of its own heads come back from every span by one
-all-to-all, merged in span order by the log-sum-exp rule
-(``combine_spans``, ``merge_partials``). The new token's k and v (all K
-heads: ``wk`` and ``wv`` are whole) are written by the rank whose span
-holds its position. Either way the rank's heads' attention is the single
-device's, and the ``wo`` product's partials are summed by one all-reduce
-over the model axis. For the gradient the inputs enter the split
-projections through ``layers.to_model``, and so do whole ``wk``/``wv``
-(and biases) before a rank slices them: the ranks that read one kv head
-add up its gradient.
+places: ``wq``/``bq`` and ``wo`` split by ``q_dim`` give the rank a block
+of W = H·hd/tp columns (rows of ``wo``). Where the model axis divides H
+that is H/tp whole heads; elsewhere (qwen2.5-32b's 40 heads over 16) the
+block may cut a head at either edge, and the rank computes every head its
+block overlaps (``head_block``): prefill brings the rest of each edge
+head from the neighbour that holds it by one exchange over the model axis
+before RoPE (``collectives.exchange_columns``), a head two ranks share is
+computed by both, and each keeps only its own columns of the output for
+its rows of ``wo`` (``attn_output``), so the all-reduce's sum is the
+single device's. ``wk``/``wv``/``bk``/``bv`` split by ``kv_heads``
+(``kv_strategy == "heads"``, where the axis divides K and so H: whole
+heads) give the rank K/tp, and its decode cache holds those K/tp heads
+over every position. Where they are whole (K does not divide the model
+axis: the "sequence" strategy), prefill projects only the kv heads that
+the rank's q heads read (one a q head where those fall unevenly over the
+kv groups); decode runs over a cache split along the sequence, each rank
+holding its span of the positions for every kv head (or its shard of the
+paged pool), as the reference's ``decode_state_specs`` places it. There
+the rank all-gathers its q columns over the model axis (every head),
+computes each head's partial softmax over its span (``decode_partial``;
+on the pool the paged kernel's partial mode), and the partials of the
+heads its block overlaps come back from every span by one all-to-all,
+merged in span order by the log-sum-exp rule (``combine_spans``,
+``merge_partials``). The new token's k and v (all K heads: ``wk`` and
+``wv`` are whole) are written by the rank whose span holds its position.
+Either way the rank's heads' attention is the single device's, and the
+``wo`` product's partials are summed by one all-reduce over the model
+axis. For the gradient the inputs enter the split projections through
+``layers.to_model``, and so do whole ``wk``/``wv`` (and biases) before a
+rank slices them: the ranks that read one kv head add up its gradient;
+the exchange's backward sends each rank the gradient of its columns that
+a neighbour read.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,7 +54,8 @@ from repro_torch.models.context import Ctx
 from repro_torch.models.layers import held_split, model_sum, rope, to_model
 from repro_torch.models.params import ParamDef
 
-__all__ = ["attn_defs", "attn_heads", "attn_project_qkv", "attn_output",
+__all__ = ["attn_defs", "HeadBlock", "head_block", "attn_heads",
+           "attn_project_qkv", "attn_output",
            "full_attention",
            "chunked_attention", "decode_attention", "paged_decode_attention",
            "decode_partial", "merge_partials", "combine_spans",
@@ -71,32 +83,69 @@ def attn_defs(cfg: ArchConfig, stacked: Optional[int] = None) -> Dict:
     return out
 
 
-def attn_heads(cfg: ArchConfig, q_width: int, k_width: int
+class HeadBlock(NamedTuple):
+    """The q heads that a rank's block of ``wq``'s q_dim columns overlaps:
+    heads ``first`` .. ``first + count - 1``, its first column at
+    ``offset`` inside head ``first``; and ``kv``, the kv heads its
+    attention reads, in the order of its k / v heads: ``kv(first)`` ..
+    ``kv(last)``, or one a q head where the overlapped heads read their
+    kv heads unevenly (not ``count / len(kv)`` a kv head in order)."""
+    first: int
+    count: int
+    offset: int
+    kv: Tuple[int, ...]
+
+
+def head_block(cfg: ArchConfig, q_width: int, rank: int) -> HeadBlock:
+    """The ``HeadBlock`` of model rank ``rank``'s q_dim columns [rank·W,
+    (rank+1)·W), W = ``q_width``. Where the model axis divides H the
+    block is H/tp whole heads at offset 0; elsewhere its edges may cut a
+    head, which the neighbour's block shares."""
+    hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    lo, hi = rank * q_width, (rank + 1) * q_width
+    first, last = lo // hd, -(-hi // hd) - 1
+    count, k0, k1 = last - first + 1, first // G, last // G
+    per = count // (k1 - k0 + 1)
+    kv = tuple(range(k0, k1 + 1))
+    if any((first + j) // G != k0 + j // per for j in range(count)) or \
+            per * len(kv) != count:
+        kv = tuple((first + j) // G for j in range(count))
+    return HeadBlock(first, count, lo - first * hd, kv)
+
+
+def attn_heads(cfg: ArchConfig, q_width: int, k_width: int, rank: int = 0
                ) -> Tuple[int, int]:
-    """(q heads, kv heads) that a rank's prefill computes, from the widths
-    of the ``wq`` and ``wk`` it holds: both whole, both split (H/tp,
-    K/tp), or ``wq`` split and ``wk`` whole (the "sequence" strategy),
-    where it computes the kv heads its H/tp q heads read: H/tp / G of
-    them, or one where G is a multiple of H/tp (decode there projects all
-    K for the sequence-sharded cache). A q_dim split inside a head, and q
-    heads whose kv heads fall unevenly, raise NotImplementedError."""
+    """(q heads, kv heads) that model rank ``rank``'s prefill computes,
+    from the widths of the ``wq`` and ``wk`` it holds: both whole, both
+    split (H/tp, K/tp: whole heads, the "heads" strategy), or ``wq`` split
+    and ``wk`` whole (the "sequence" strategy), where it computes the q
+    heads its block overlaps and the kv heads ``head_block`` gives
+    them."""
     hd, H, K = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    if q_width % hd:
-        raise NotImplementedError(
-            f"{cfg.name}: a q_dim block of {q_width} splits a head of "
-            f"{hd} ({H} heads over the model axis); the explicit split "
-            f"takes whole heads (ROADMAP.md, queue 1, item 18)")
-    Hl, Kl = q_width // hd, k_width // hd
-    if Hl == H or Kl < K:
-        return Hl, Kl
-    G = H // K
-    if Hl % G == 0:
-        return Hl, Hl // G
-    if G % Hl == 0:
-        return Hl, 1
-    raise NotImplementedError(
-        f"{cfg.name}: {Hl} q heads a rank read their kv heads (groups of "
-        f"{G}) unevenly (ROADMAP.md, queue 1, item 18)")
+    if q_width == H * hd or k_width < K * hd:
+        if q_width % hd:
+            raise ValueError(
+                f"{cfg.name}: a q_dim block of {q_width} splits a head of "
+                f"{hd} under the \"heads\" kv strategy, whose model axis "
+                f"divides the heads")
+        return q_width // hd, k_width // hd
+    block = head_block(cfg, q_width, rank)
+    return block.count, len(block.kv)
+
+
+def _head_columns(cfg: ArchConfig, q: torch.Tensor, ctx: Ctx
+                  ) -> torch.Tensor:
+    """A rank's (..., W) block of ``x @ wq`` that cuts a head -> the
+    (..., count·hd) columns of the heads it overlaps: one exchange over
+    the model axis brings the rest of each edge head from the neighbours
+    that hold it (``collectives.exchange_columns``)."""
+    W, hd = q.shape[-1], cfg.resolved_head_dim
+    held, wanted = [], []
+    for r in range(ctx.tp):
+        b = head_block(cfg, W, r)
+        held.append((r * W, (r + 1) * W))
+        wanted.append((b.first * hd, (b.first + b.count) * hd))
+    return coll.exchange_columns(q, ctx.tp_group, held, wanted)
 
 
 def attn_project_qkv(cfg: ArchConfig, p: Dict, xq: torch.Tensor,
@@ -105,20 +154,23 @@ def attn_project_qkv(cfg: ArchConfig, p: Dict, xq: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns q (B,S,H,hd) from xq, k/v (B,T,K,hd) from xkv (default
     xq; the encoder output for cross-attention): H and K the heads that
-    ``p`` gives this rank (``attn_heads``)."""
+    ``p`` gives this rank (``attn_heads``; where its ``wq`` block cuts a
+    head, whole heads from the neighbours' columns)."""
     if xkv is None:
         xkv = xq
     hd = cfg.resolved_head_dim
     wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
-    H, K = attn_heads(cfg, p["wq"].shape[-1], wk.shape[-1])
+    rank = ctx.tp_index if ctx is not None else 0
+    H, K = attn_heads(cfg, p["wq"].shape[-1], wk.shape[-1], rank)
+    kv = None
     if held_split(p["wq"].shape[-1], cfg.n_heads * hd, ctx):
         same = xkv is xq
         xq = to_model(xq, ctx)
         xkv = xq if same else to_model(xkv, ctx)
         if wk.shape[-1] == cfg.n_kv_heads * hd:
-            # kv whole: this rank's q heads read kv heads k0 .. k0 + K - 1
-            k0 = ctx.tp_index * H // (cfg.n_heads // cfg.n_kv_heads)
-            cols = slice(k0 * hd, (k0 + K) * hd)
+            # kv whole: this rank's q heads read kv heads k0 .. k1
+            kv = head_block(cfg, p["wq"].shape[-1], rank).kv
+            cols = slice(kv[0] * hd, (kv[-1] + 1) * hd)
             wk = to_model(wk, ctx)[..., cols]
             wv = to_model(wv, ctx)[..., cols]
             if cfg.qkv_bias:
@@ -127,19 +179,29 @@ def attn_project_qkv(cfg: ArchConfig, p: Dict, xq: torch.Tensor,
     q, k, v = xq @ p["wq"], xkv @ wk, xkv @ wv
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + bk, v + bv
+    if q.shape[-1] % hd:  # the block cuts a head: whole heads first
+        q = _head_columns(cfg, q, ctx)
     B, S = xq.shape[:2]
     T = xkv.shape[1]
-    return (q.reshape(B, S, H, hd), k.reshape(B, T, K, hd),
-            v.reshape(B, T, K, hd))
+    k, v = k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd)
+    if kv is not None and len(kv) != k.shape[2]:  # uneven: one a q head
+        pick = torch.tensor([h - kv[0] for h in kv], device=k.device)
+        k, v = k.index_select(2, pick), v.index_select(2, pick)
+    return q.reshape(B, S, H, hd), k, v
 
 
 def attn_output(cfg: ArchConfig, p: Dict, out: torch.Tensor,
                 ctx: Optional[Ctx] = None) -> torch.Tensor:
     """out (B,S,H*hd) @ ``wo``; with ``wo``'s q_dim rows split over the
-    model axis, the ranks' partials summed by one all-reduce."""
+    model axis, the rank's columns of the heads it computed (those of its
+    block, at ``head_block``'s offset, where the block cuts a head) times
+    its rows, the ranks' partials summed by one all-reduce."""
+    W = p["wo"].shape[-2]
+    if out.shape[-1] != W:
+        offset = head_block(cfg, W, ctx.tp_index).offset
+        out = out[..., offset:offset + W]
     y = out @ p["wo"]
-    if held_split(p["wo"].shape[-2], cfg.n_heads * cfg.resolved_head_dim,
-                  ctx):
+    if held_split(W, cfg.n_heads * cfg.resolved_head_dim, ctx):
         y = model_sum(y, ctx)
     return y
 
@@ -275,19 +337,24 @@ def merge_partials(out: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
     return acc / total.clamp(min=1e-30)[..., None]
 
 
-def combine_spans(out: torch.Tensor, ml: torch.Tensor, ctx: Ctx
-                  ) -> torch.Tensor:
+def combine_spans(out: torch.Tensor, ml: torch.Tensor, ctx: Ctx,
+                  blocks) -> torch.Tensor:
     """Every head's partial over this rank's span (out (B,H,hd), ml
-    (B,H,2)) -> this rank's H/tp heads' attention (B,H/tp,hd) float32:
-    each span's partials of the rank's heads come back to it by one
+    (B,H,2)) -> the attention (B,n,hd) float32 of the n heads that this
+    rank's q_dim block overlaps, ``blocks[i]`` the ``HeadBlock`` of model
+    index i: each span's partials of a rank's heads go to it by one
     all-to-all over ``ctx.seq_group`` (the ranks of the spans, in span
-    order; span j sits at model index j mod tp), then ``merge_partials``
-    in span order."""
+    order; span j sits at model index j mod tp), a head that two blocks
+    share to both, then ``merge_partials`` in span order."""
     B, H, hd = out.shape
     tp, (_, n) = ctx.tp, ctx.seq_span
-    parts = torch.cat([out, ml], -1).view(B, tp, H // tp, hd + 2)
-    send = parts[:, [j % tp for j in range(n)]].movedim(1, 0)
-    got = coll.all_to_all(send, ctx.seq_group)
+    parts = torch.cat([out, ml], -1).movedim(1, 0)  # (H, B, hd + 2)
+    dests = [blocks[j % tp] for j in range(n)]
+    send = torch.cat([parts[b.first:b.first + b.count] for b in dests])
+    mine = blocks[ctx.tp_index].count
+    got = coll.all_to_all(send, ctx.seq_group, [b.count for b in dests],
+                          [mine] * n)
+    got = got.view(n, mine, B, hd + 2).transpose(1, 2)
     return merge_partials(got[..., :hd], got[..., hd:])
 
 

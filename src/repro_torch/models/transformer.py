@@ -75,11 +75,12 @@ from repro_torch.configs import ArchConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kops
 from repro_torch.models import xlstm as xl
-from repro_torch.models.attention import (attn_defs, attn_heads,
-                                          attn_output, attn_project_qkv,
+from repro_torch.models.attention import (attn_defs, attn_output,
+                                          attn_project_qkv,
                                           attention_block, combine_spans,
                                           cross_attention_block,
                                           decode_attention, decode_partial,
+                                          head_block,
                                           paged_decode_attention)
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import (apply_norm, embed_defs, embed_lookup,
@@ -755,6 +756,11 @@ def _attn_decode(cfg, p, z, state, i: int,
     kv strategy on a model axis, ``_attn_decode_seq``."""
     if ctx is not None and ctx.kv_seq:
         return _attn_decode_seq(cfg, p, z, state, i, paged, ctx)
+    if p["wq"].shape[-1] % cfg.resolved_head_dim:
+        raise ValueError(
+            f"{cfg.name}: a q_dim block of {p['wq'].shape[-1]} splits a head; "
+            f"it decodes over the sequence-sharded cache only (the plan's "
+            f"\"sequence\" kv strategy: Ctx.kv_seq)")
     B = z.shape[0]
     length = state.length
     q, k, v = attn_project_qkv(cfg, p, z, ctx=ctx)
@@ -791,19 +797,23 @@ def _attn_decode(cfg, p, z, state, i: int,
 def _attn_decode_seq(cfg, p, z, state, i: int,
                      paged: Optional[_PagedStep], ctx: Ctx):
     """``_attn_decode`` on a rank of a cache split over the sequence: q of
-    the rank's heads (``wq`` split), k and v of all K heads (``wk`` and
-    ``wv`` whole), written by the rank whose span (or shard) holds the
-    position; q all-gathered over the model axis, every head's partial
-    over the rank's span (the paged kernel's partial mode on its pages, or
-    ``decode_partial`` on its dense or dequantized int8 span), the rank's
-    heads' partials merged over the spans (``combine_spans``)."""
+    the rank's block of q_dim columns (``wq`` split, perhaps inside a
+    head), k and v of all K heads (``wk`` and ``wv`` whole), written by
+    the rank whose span (or shard) holds the position; the q columns
+    all-gathered over the model axis (every head, then rotated), every
+    head's partial over the rank's span (the paged kernel's partial mode
+    on its pages, or ``decode_partial`` on its dense or dequantized int8
+    span), the partials of the heads the rank's block overlaps merged over
+    the spans (``combine_spans``), its columns of them times its rows of
+    ``wo`` (``attn_output``)."""
     B = z.shape[0]
     hd = cfg.resolved_head_dim
-    attn_heads(cfg, p["wq"].shape[-1], p["wk"].shape[-1])  # refuses a
-    # q_dim split inside a head (item 18's rest)
+    W = p["wq"].shape[-1]
+    blocks = [head_block(cfg, W, r) for r in range(ctx.tp)]
     q, k, v = z @ p["wq"], z @ p["wk"], z @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = coll.all_gather(q[:, 0], ctx.tp_group, dim=1)  # every column
     q = q.reshape(B, 1, -1, hd)
     k, v = k.reshape(B, 1, -1, hd), v.reshape(B, 1, -1, hd)
     length = state.length
@@ -811,7 +821,7 @@ def _attn_decode_seq(cfg, p, z, state, i: int,
         pos = length[:, None]
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
-    q = coll.all_gather(q[:, 0], ctx.tp_group, dim=1)  # every head, in order
+    q = q[:, 0]
     if paged is not None:
         k_pages, v_pages = state.kv.k_pages[i], state.kv.v_pages[i]
         write_paged(k_pages, k[:, 0], paged.write)
@@ -838,7 +848,7 @@ def _attn_decode_seq(cfg, p, z, state, i: int,
         n = torch.minimum(length + 1, state.seq_limit) - first
         valid = torch.arange(span, device=z.device)[None] < n[:, None]
         out, ml = decode_partial(q, k_l, v_l, valid)
-    out = combine_spans(out, ml, ctx)
+    out = combine_spans(out, ml, ctx, blocks)
     return attn_output(cfg, p, out.reshape(B, 1, -1).to(p["wo"].dtype), ctx)
 
 

@@ -34,9 +34,10 @@ logits' all-gather (``Ctx(plan=, mesh=)``).
   ``Checkpointer.restore(specs=, mesh=)`` onto (1, 2) gives the same
   forward.
 * Refusals: the ssm and audio families and the MoE "tp" strategy raise
-  on a model axis of tp > 1, and so does a q_dim split
-  inside a head, each naming its ROADMAP item (FSDP over a data axis runs:
-  tests/test_torch_fsdp.py).
+  on a model axis of tp > 1, each naming its ROADMAP item (FSDP over a
+  data axis runs: tests/test_torch_fsdp.py). A q_dim block that cuts a
+  head takes the head map ``attention.head_block``
+  (tests/test_torch_qdim_split.py runs it over the ranks).
 """
 import concurrent.futures
 import dataclasses
@@ -395,13 +396,29 @@ def test_what_the_split_does_not_take_refuses(torch, arch, edit, axes,
 
 
 def test_a_q_dim_split_inside_a_head_refuses(torch):
-    """8 ranks over 4 heads of 16: a q_dim block of 8 splits a head."""
-    from repro_torch.configs import ArchConfig
-    from repro_torch.models.attention import attn_heads
+    """The head map of a rank's q_dim block (``head_block``; the name is
+    kept from when such a block raised): whole heads as before, and 8
+    ranks over 4 heads of 16, whose block of 8 columns is half a head, and
+    qwen2.5-32b's 40 heads of 128 over 16 ranks, 320 columns (2.5 heads)
+    a rank: the heads each block overlaps, its first column's offset in
+    the first of them and the kv heads they read."""
+    from repro_torch.configs import ArchConfig, get_arch as port_arch
+    from repro_torch.models.attention import attn_heads, head_block
     cfg = ArchConfig(**dataclasses.asdict(reduced_config(
         get_arch("qwen25_32b"))))
     assert attn_heads(cfg, 64, 32) == (4, 2)
     assert attn_heads(cfg, 16, 32) == (1, 1)  # G=2: one kv head read
     assert attn_heads(cfg, 32, 32) == (2, 1)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        attn_heads(cfg, 8, 32)
+    for r in range(8):  # head r // 2, each half; kv head r // 4
+        assert attn_heads(cfg, 8, 32, r) == (1, 1)
+        assert head_block(cfg, 8, r) == (r // 2, 1, 8 * (r % 2), (r // 4,))
+    full = port_arch("qwen25_32b")
+    for r in range(16):  # 3 heads from 2.5 r, cut at 64 on odd ranks
+        first = 5 * r // 2
+        assert head_block(full, 320, r) == (first, 3, 64 * (r % 2),
+                                            (r // 2,))
+        assert attn_heads(full, 320, 1024, r) == (3, 1)
+    # whole heads whose kv heads fall unevenly: heads 3-5 read 1, 2, 2
+    uneven = dataclasses.replace(cfg, n_heads=12, n_kv_heads=6)
+    assert head_block(uneven, 48, 1) == (3, 3, 0, (1, 2, 2))
+    assert attn_heads(uneven, 48, 96, 1) == (3, 3)

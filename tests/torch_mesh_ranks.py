@@ -1,9 +1,10 @@
 """The rank side of the port's multi-rank tests (tests/test_torch_mesh.py,
 tests/test_torch_tensor_parallel.py, tests/test_torch_mesh_train.py,
 tests/test_torch_fsdp.py, tests/test_torch_hybrid_split.py,
-tests/test_torch_kv_sequence.py and the expert-parallel gradient of
-tests/test_torch_moe.py on the CPU, the expert-parallel, tensor-parallel
-and mesh-training cases of tests/test_torch_cuda.py on a card).
+tests/test_torch_kv_sequence.py, tests/test_torch_qdim_split.py and the
+expert-parallel gradient of tests/test_torch_moe.py on the CPU, the
+expert-parallel, tensor-parallel and mesh-training cases of
+tests/test_torch_cuda.py on a card).
 
     python tests/torch_mesh_ranks.py JOB RANK WORLD DEVICE
 
